@@ -1,0 +1,99 @@
+"""Wireless channel model (paper §II and §IV-A), static i.i.d. subset.
+
+Port of ``repro.core.channel``: i.i.d. block Rayleigh fading h ~ CN(0, 1),
+truncated at |h| >= floor, redrawn every round, composed with log-normal
+shadowing and per-client pathloss, and collapsed per client by the harmonic
+mean of eq. (6). The random normals come in from the round's
+``RoundDraws`` (``repro_torch.core.draws``) instead of a PRNG key, with the
+reference's shapes, so a test can feed both packages the same numbers.
+The temporal processes (``repro.core.dynamics``) are not ported yet.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import FLConfig
+from repro_torch.core.energy import TRUNCATION_FLOOR, clamp_floor
+
+
+def effective_channel(h_mag: torch.Tensor) -> torch.Tensor:
+    """Effective channel |h_i| per eq. (6): sqrt of the harmonic mean of
+    |h_b|^2. h_mag: [..., num_subcarriers] -> [...]"""
+    inv_sq = torch.mean(1.0 / torch.square(h_mag), dim=-1)
+    return 1.0 / torch.sqrt(inv_sq)
+
+
+@dataclass(frozen=True)
+class ChannelScenario:
+    """Physical-layer scenario: device-scalar knobs + the structural ``flat``
+    flag (which changes the shape of the small-scale draw)."""
+
+    floor: Any = TRUNCATION_FLOOR  # truncation |h| >= floor
+    noise_std: Any = 0.0       # receiver AWGN std of eq. (10)
+    psi: Any = 0.5e-3          # power-scaling factor (eq. 5)
+    tau: Any = 1e-3            # symbol period
+    shadowing_std: Any = 0.0   # log-normal shadowing std per coherence block
+    pathloss: Any = 1.0        # large-scale amplitude gain, scalar or [N]
+    flat: bool = True
+
+
+def scenario_from_config(fl: FLConfig, device="cpu") -> ChannelScenario:
+    """The scenario of ``fl`` with every knob an f32 scalar on ``device``."""
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)  # noqa: E731
+    if fl.pathloss_db_spread:
+        db = torch.linspace(-fl.pathloss_db_spread / 2, fl.pathloss_db_spread / 2,
+                            fl.num_clients, dtype=torch.float32, device=device)
+        pathloss = 10.0 ** (db / 20.0)
+    else:
+        pathloss = torch.ones((fl.num_clients,), dtype=torch.float32, device=device)
+    return ChannelScenario(
+        floor=f32(fl.channel_floor),
+        noise_std=f32(fl.noise_std),
+        psi=f32(fl.psi),
+        tau=f32(fl.tau),
+        shadowing_std=f32(fl.shadowing_std),
+        pathloss=pathloss,
+        flat=fl.flat_fading,
+    )
+
+
+def compose_channel(mag: torch.Tensor, shadow_normal: torch.Tensor,
+                    scenario: ChannelScenario) -> torch.Tensor:
+    """Large-scale composition: mag × shadow × pathloss, floor-clipped.
+
+    ``shadow_normal`` [N, 1] is the reference's ``normal(fold_in(k_chan, 1),
+    (N, 1))``; ``shadowing_std == 0`` multiplies by exactly 1.0.
+    """
+    shadow = torch.exp(scenario.shadowing_std * shadow_normal)
+    pathloss = torch.as_tensor(scenario.pathloss)
+    if pathloss.dim() == 1:
+        pathloss = pathloss[:, None]
+    return clamp_floor(mag * shadow * pathloss, scenario.floor)
+
+
+def draw_channels_scenario(chan_normal: torch.Tensor,
+                           shadow_normal: torch.Tensor,
+                           scenario: ChannelScenario,
+                           num_subcarriers: int) -> torch.Tensor:
+    """Scenario channel magnitudes [N, num_subcarriers] from the round's
+    normals: ``chan_normal`` [2, N, draw_sc] (draw_sc = 1 when flat)."""
+    re_im = chan_normal / math.sqrt(2.0)
+    mag = torch.sqrt(re_im[0] ** 2 + re_im[1] ** 2)
+    if scenario.flat:
+        mag = mag.expand(mag.shape[0], num_subcarriers)
+    return compose_channel(mag, shadow_normal, scenario)
+
+
+# Named FLConfig overrides (the static subset of the reference registry).
+SCENARIOS: dict[str, dict] = {
+    "default": {},
+    "freq_selective": {"flat_fading": False},
+    "noisy_uplink": {"noise_std": 1e-2},
+    "deep_shadowing": {"shadowing_std": 0.5},
+    "heterogeneous_pathloss": {"pathloss_db_spread": 12.0},
+    "high_floor": {"channel_floor": 0.2},
+}

@@ -1,0 +1,67 @@
+"""Every random input of one simulator round, as one record.
+
+The reference derives its randomness from JAX PRNG keys (a 7-way split per
+round, ``repro/core/simulator.py``). The port takes the numbers instead:
+:func:`draw_round` fills a :class:`RoundDraws` from a ``torch.Generator``,
+and a test can fill one from ``jax.random`` with the reference's own key
+discipline, which makes the two packages take the same discrete decisions.
+Shapes and dtypes are the reference's.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import FLConfig
+from repro_torch.core.aircomp import flat_awgn
+
+
+class RoundDraws(NamedTuple):
+    chan_normal: torch.Tensor             # [2, N, draw_sc] Rayleigh re/im normals
+    shadow_normal: torch.Tensor           # [N, 1] shadowing normals
+    sel_gumbel: Optional[torch.Tensor]    # [N] selection Gumbel (None: greedy)
+    batch_idx: torch.Tensor               # [N, B] int32 in-shard descent batch
+    noise: Optional[torch.Tensor]         # [P] AWGN, sorted-leaf order (None: σ = 0)
+    asc_gumbel: torch.Tensor              # [N] ascent-set Gumbel
+    asc_batch_idx: torch.Tensor           # [N, B] int32 in-shard ascent batch
+
+    def to(self, device) -> "RoundDraws":
+        return RoundDraws(*(None if v is None else v.to(device) for v in self))
+
+
+def gumbel(gen: torch.Generator, n: int) -> torch.Tensor:
+    """[n] standard Gumbel draws, -log(-log U) with U in [tiny, 1) as in
+    ``jax.random.gumbel``."""
+    u = torch.rand((n,), generator=gen, device=gen.device)
+    return -torch.log(-torch.log(torch.clamp_min(u, torch.finfo(u.dtype).tiny)))
+
+
+def batch_indices(gen: torch.Generator, n: int, shard_size: int,
+                  batch_size: int) -> torch.Tensor:
+    """[N, B] int32 in-shard sample indices, drawn for all N clients."""
+    return torch.randint(0, shard_size, (n, batch_size), generator=gen,
+                         device=gen.device, dtype=torch.int32)
+
+
+def draw_round(gen: torch.Generator, fl: FLConfig, model_size: int,
+               shard_size: int, device=None) -> RoundDraws:
+    """One round's draws from ``gen`` (on its device), moved to ``device``.
+    ``shard_size`` is the number of training samples per client."""
+    n, b = fl.num_clients, fl.batch_size
+    draw_sc = 1 if fl.flat_fading else fl.num_subcarriers
+    gd = gen.device
+
+    def randint():
+        return batch_indices(gen, n, shard_size, b)
+
+    draws = RoundDraws(
+        chan_normal=torch.randn((2, n, draw_sc), generator=gen, device=gd),
+        shadow_normal=torch.randn((n, 1), generator=gen, device=gd),
+        sel_gumbel=None if fl.method == "greedy" else gumbel(gen, n),
+        batch_idx=randint(),
+        noise=None if fl.noise_std == 0 else flat_awgn(gen, model_size),
+        asc_gumbel=gumbel(gen, n),
+        asc_batch_idx=randint(),
+    )
+    return draws if device is None else draws.to(device)

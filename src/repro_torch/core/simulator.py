@@ -1,0 +1,281 @@
+"""The FL simulator (Algorithm 1), selected-K round; port of
+``repro.core.simulator``.
+
+One round, for an exact-K selection method (``selection.EXACT_K_METHODS``)
+on static i.i.d. channels, the analog transport and the replicated control
+plane:
+
+  1. channels from the round's normals, eq. (6) effective channel;
+  2. K clients by Gumbel-top-K (ties to the lowest index);
+  3. only those K clients' batches are gathered and local SGD runs on a
+     [K, ...] stack;
+  4. eq. (10) is one pass over the raveled [K, P] buffer — the hand-written
+     CUDA kernel on the card (``kernels/aircomp``), its plain version on the
+     CPU;
+  5. the selected set's energy (eqs. 3-6) and the downlink broadcast;
+  6. the λ ascent step on K uniformly drawn clients, with the losses
+     evaluated only at the ascent and descent slots;
+  7. the test accuracy of every client on the ``eval_every`` cadence.
+
+``dense=True`` runs the [N, model] reference path instead (per-leaf
+aggregation, every client descends and is masked), which reaches no kernel.
+``lax.scan`` becomes a Python loop and ``vmap`` a written-out client axis.
+Every random number comes from a ``RoundDraws`` per round
+(``core/draws.py``). Scalars stay device tensors through the round: nothing
+is copied to the host until the history is read.
+
+Not ported yet, and raising ``NotImplementedError``: transports other than
+analog, temporal scenarios, GCA, the sharded control plane and meshes.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import FLConfig
+from repro_torch.core.aircomp import (aircomp_aggregate_stack_tree,
+                                      aircomp_aggregate_tree)
+from repro_torch.core.channel import draw_channels_scenario, effective_channel
+from repro_torch.core.draws import draw_round
+from repro_torch.core.dro import lambda_ascent, lambda_summary
+from repro_torch.core.selection import (EXACT_K_METHODS, gumbel_topk,
+                                        select_clients, select_clients_sparse)
+from repro_torch.core.sweep import sweep_point_from_config
+from repro_torch.core.transport import (downlink_energy, require_ported,
+                                        round_energy)
+from repro_torch.models.logreg import SimModel
+from repro_torch.utils.device import resolve_device
+from repro_torch.utils.tree import leaf_names, tree_size
+
+
+class SimState(NamedTuple):
+    w: dict              # global model {name: tensor}
+    lam: torch.Tensor    # [N] simplex weights
+    energy: torch.Tensor  # cumulative Joules
+    eval_cache: Any = ()  # [3] last (avg, worst, std) accuracy when eval_every > 1
+    lam_snaps: Any = ()   # [ceil(T/E), N] λ snapshots when record_lambda_every = E > 1
+    dl_energy: Any = ()   # cumulative downlink Joules
+
+
+class SimHistory(NamedTuple):
+    avg_acc: torch.Tensor    # [T]
+    worst_acc: torch.Tensor  # [T]
+    std_acc: torch.Tensor    # [T]
+    energy: torch.Tensor     # [T] cumulative
+    loss: torch.Tensor       # [T] mean train loss of the selected set
+    num_scheduled: torch.Tensor  # [T]
+    lam: Any                 # [T, N] at E=1, [ceil(T/E), N] at E>1, () at E=0
+    avail_count: torch.Tensor  # [T]
+    min_battery: torch.Tensor  # [T] (inf: static scenarios have no battery)
+    lam_max: torch.Tensor      # [T]
+    lam_entropy: torch.Tensor  # [T]
+    lam_ess: torch.Tensor      # [T]
+    dl_energy: torch.Tensor    # [T] cumulative downlink Joules
+
+
+def check_supported(fl: FLConfig, mesh=None) -> None:
+    """Raise for a configuration whose code path the port does not carry."""
+    if mesh is not None or fl.control_plane == "sharded":
+        raise NotImplementedError(
+            "meshes and the sharded control plane are not ported yet "
+            "(ROADMAP Queue 1 item 9)")
+    if fl.control_plane != "replicated":
+        raise ValueError(f"unknown control_plane {fl.control_plane!r}; "
+                         "pick 'replicated' or 'sharded'")
+    require_ported(fl.transport)
+    if fl.temporal or fl.method == "gca":
+        raise NotImplementedError(
+            "temporal scenarios and GCA are not ported yet "
+            "(ROADMAP Queue 1 item 7)")
+    if fl.method not in EXACT_K_METHODS:
+        raise ValueError(f"unknown selection method {fl.method!r}")
+    e = fl.record_lambda_every
+    if not isinstance(e, int) or isinstance(e, bool) or e < 0:
+        raise ValueError(f"record_lambda_every must be an int >= 0, got {e!r}")
+
+
+def _gather_batches(x, y, cidx, bidx):
+    """Batches of the selected clients only: [K, B, ...] from ``cidx`` [K]
+    and ``bidx`` [K, B], composed into one flat gather. Indices widen to
+    int64 here, so the composed index cannot wrap at any population size."""
+    n, s = y.shape
+    flat = cidx.long()[:, None] * s + bidx.long()
+    return x.reshape(n * s, *x.shape[2:])[flat], y.reshape(n * s)[flat]
+
+
+def _all_batches(x, y, bidx):
+    """One batch per client for all N clients: [N, B, ...]."""
+    rows = torch.arange(y.shape[0], device=y.device)[:, None]
+    b = bidx.long()
+    return x[rows, b], y[rows, b]
+
+
+def _record_lambda(fl: FLConfig, state: SimState, lam_new, t: int):
+    """(λ history row, snapshot buffer) under ``record_lambda_every``. At
+    E > 1 row t // E of the buffer is written in place on rounds t % E == 0."""
+    e = fl.record_lambda_every
+    if e == 1:
+        return lam_new, state.lam_snaps
+    if e > 1 and t % e == 0:
+        state.lam_snaps[t // e] = lam_new
+    return (), state.lam_snaps
+
+
+def make_param_round_fn(model: SimModel, fl: FLConfig, data, model_size: int,
+                        method: str, dense: bool = False):
+    """Build ``round_fn(point, state, t, draws) -> (state, metrics)``.
+
+    ``data`` = (x [N, S, ...], y [N, S], x_test [N, S_t, ...], y_test
+    [N, S_t]) tensors on the run's device. ``fl.noise_std == 0`` drops the
+    eq. (10) noise statically (``draw_round`` then draws no AWGN).
+    """
+    check_supported(fl)
+    x, y, x_test, y_test = data
+    n, k_sched = fl.num_clients, fl.clients_per_round
+    noise_free = fl.noise_std == 0
+    scheme = fl.transport
+    dev = y.device
+    zeros_n = torch.zeros((n,), dtype=torch.float32, device=dev)
+    n_f32 = torch.full((), float(n), dtype=torch.float32, device=dev)
+    inf_f32 = torch.full((), float("inf"), dtype=torch.float32, device=dev)
+
+    def local_update(w, eta, xb, yb):
+        """``local_steps`` SGD steps from the global model, for a stack of
+        clients: the first step broadcasts w to [C, ...]."""
+        wc = w
+        for _ in range(fl.local_steps):
+            g = model.grad(wc, xb, yb)
+            wc = {name: wc[name] - eta * g[name] for name in leaf_names(g)}
+        return wc
+
+    def round_fn(point, state: SimState, t: int, d):
+        scen = point.scenario
+        # ---- physical layer: i.i.d. block fading, eq. (6)
+        h = effective_channel(draw_channels_scenario(
+            d.chan_normal, d.shadow_normal, scen, fl.num_subcarriers))
+
+        # ---- client selection (descent set D^(t))
+        if dense:
+            mask = select_clients(method, d.sel_gumbel, state.lam, h, k_sched,
+                                  C=point.energy_C)
+        else:
+            mask, sel_idx = select_clients_sparse(
+                method, d.sel_gumbel, state.lam, h, k_sched, C=point.energy_C)
+        k_denom = torch.clamp_min(torch.sum(mask), 1.0)
+
+        # ---- local updates + AirComp aggregation (eq. 10)
+        eta = point.lr0 * point.lr_decay ** t
+        noise_std = 0.0 if noise_free else scen.noise_std
+        if dense:
+            xb, yb = _all_batches(x, y, d.batch_idx)
+            w_stack = local_update(state.w, eta, xb, yb)
+            w_new = aircomp_aggregate_tree(w_stack, mask, d.noise, noise_std,
+                                           k_denom)
+        else:
+            xb_s, yb_s = _gather_batches(x, y, sel_idx, d.batch_idx[sel_idx])
+            w_sel = local_update(state.w, eta, xb_s, yb_s)
+            w_new = aircomp_aggregate_stack_tree(w_sel, mask[sel_idx], d.noise,
+                                                 noise_std, k_denom)
+
+        # ---- energy ledger: the selected set's uplink + every client's
+        # broadcast receive (exactly zero at the default dl_rx_power = 0)
+        e_round = round_energy(scheme, point.transport, h, mask, model_size,
+                               scen)
+        e_dl = n_f32 * downlink_energy(scheme, point.transport, model_size,
+                                       scen)
+        dl_energy = state.dl_energy + e_dl
+        energy = state.energy + e_round + e_dl
+
+        # ---- ascent step on λ (uniform K, control channel)
+        amask, asc_idx = gumbel_topk(d.asc_gumbel, zeros_n, k_sched)
+        if dense:
+            xab, yab = _all_batches(x, y, d.asc_batch_idx)
+            losses = model.loss(w_new, xab, yab)
+            sel_loss = torch.sum(mask * losses) / k_denom
+        else:
+            # losses only at the ascent slots (λ update) and the descent
+            # slots (selected-set loss metric), both on the ASCENT batches,
+            # as the reference does
+            xa, ya = _gather_batches(x, y, asc_idx, d.asc_batch_idx[asc_idx])
+            losses = zeros_n.index_copy(0, asc_idx, model.loss(w_new, xa, ya))
+            xd, yd = _gather_batches(x, y, sel_idx, d.asc_batch_idx[sel_idx])
+            sel_loss = torch.sum(mask[sel_idx] * model.loss(w_new, xd, yd)) / k_denom
+        lam_new = lambda_ascent(state.lam, losses, amask, point.ascent_lr)
+        lam_max, lam_entropy, lam_ess = lambda_summary(lam_new)
+        lam_hist, lam_snaps = _record_lambda(fl, state, lam_new, t)
+
+        # ---- metrics: the N-client test eval on the eval_every cadence
+        if t % fl.eval_every == 0:
+            accs = model.accuracy(w_new, x_test, y_test)
+            stats = torch.stack([accs.mean(), accs.min(),
+                                 accs.std(correction=0)])
+        else:
+            stats = state.eval_cache
+        eval_cache = () if fl.eval_every == 1 else stats
+        metrics = SimHistory(
+            avg_acc=stats[0], worst_acc=stats[1], std_acc=stats[2],
+            energy=energy, loss=sel_loss, num_scheduled=torch.sum(mask),
+            lam=lam_hist, avail_count=n_f32, min_battery=inf_f32,
+            lam_max=lam_max, lam_entropy=lam_entropy, lam_ess=lam_ess,
+            dl_energy=dl_energy)
+        return SimState(w_new, lam_new, energy, eval_cache, lam_snaps,
+                        dl_energy), metrics
+
+    return round_fn
+
+
+def init_sim_state(model: SimModel, fl: FLConfig, device="cpu") -> SimState:
+    """Initial state: the model's init, uniform λ, zero energy."""
+    e = fl.record_lambda_every
+    n = fl.num_clients
+    f32 = dict(dtype=torch.float32, device=device)
+    return SimState(
+        w=model.init(device),
+        lam=torch.full((n,), 1.0 / n, **f32),
+        energy=torch.zeros((), **f32),
+        eval_cache=() if fl.eval_every == 1 else torch.zeros((3,), **f32),
+        lam_snaps=() if e in (0, 1) else torch.zeros(((fl.rounds + e - 1) // e, n), **f32),
+        dl_energy=torch.zeros((), **f32),
+    )
+
+
+def run_simulation(model: SimModel, fl: FLConfig, data,
+                   seed: Optional[int] = None, dense: bool = False, mesh=None,
+                   draws=None, device=None) -> SimHistory:
+    """Run T rounds of Algorithm 1 (or a baseline, per ``fl.method``).
+
+    ``data`` = (x, y, x_test, y_test) stacked per client, numpy or tensors.
+    ``draws``: an iterable of T ``RoundDraws`` (e.g. the reference's numbers
+    in a test); by default they come from a ``torch.Generator`` seeded with
+    ``seed`` (``fl.seed`` if None) on the run's device. ``device=None`` is
+    the CUDA card, and raises when there is none.
+    """
+    dev = resolve_device(device)
+    check_supported(fl, mesh)
+    data = tuple(torch.as_tensor(a).to(dev) for a in data)
+    point = sweep_point_from_config(fl, dev)
+    state = init_sim_state(model, fl, dev)
+    model_size = tree_size(state.w)
+    round_fn = make_param_round_fn(model, fl, data, model_size, fl.method,
+                                   dense=dense)
+    if draws is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(fl.seed if seed is None else seed)
+        shard = data[1].shape[1]
+        draws = (draw_round(gen, fl, model_size, shard)
+                 for _ in range(fl.rounds))
+    it = iter(draws)
+    rows = []
+    for t in range(fl.rounds):
+        d = next(it, None)
+        if d is None:
+            raise ValueError(f"draws ran out after {t} of {fl.rounds} rounds")
+        state, metrics = round_fn(point, state, t, d.to(dev))
+        rows.append(metrics)
+    e = fl.record_lambda_every
+    cols = {f: torch.stack([getattr(r, f) for r in rows])
+            for f in SimHistory._fields if f != "lam"}
+    lam = torch.stack([r.lam for r in rows]) if e == 1 else (
+        () if e == 0 else state.lam_snaps)
+    return SimHistory(lam=lam, **cols)

@@ -1,0 +1,67 @@
+"""The paper's model: multinomial logistic regression (M = 7850 for FMNIST).
+
+Port of ``repro.models.logreg.logistic_regression``. Every function takes a
+written-out client axis instead of ``vmap``: ``x`` may be [B, D] (one client)
+or [C, B, D] (C clients), and ``params`` may be shared (``w`` [D, L],
+``b`` [L]) or stacked per client (``w`` [C, D, L], ``b`` [C, L]). ``grad`` is
+the closed form of the mean cross-entropy's gradient, so local SGD on a
+[K, ...] stack is a few batched matrix products.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+
+class SimModel(NamedTuple):
+    init: Callable      # device -> params
+    loss: Callable      # (params, x, y) -> mean loss over the last batch axis
+    accuracy: Callable  # (params, x, y) -> accuracy over the last batch axis
+    grad: Callable      # (params, x, y) -> d loss / d params, per client
+
+
+def _logits(params, x):
+    w, b = params["w"], params["b"]
+    if b.dim() == 2:  # stacked per-client bias [C, L]
+        b = b[:, None, :]
+    return torch.matmul(x, w) + b
+
+
+def _log_probs(params, x):
+    return torch.log_softmax(_logits(params, x), dim=-1)
+
+
+def logistic_regression(dim: int = 784, num_classes: int = 10) -> SimModel:
+    def init(device="cpu"):
+        return {
+            "b": torch.zeros((num_classes,), dtype=torch.float32, device=device),
+            "w": torch.zeros((dim, num_classes), dtype=torch.float32, device=device),
+        }
+
+    def loss(params, x, y):
+        logp = _log_probs(params, x)
+        nll = -torch.gather(logp, -1, y.long().unsqueeze(-1)).squeeze(-1)
+        return nll.mean(dim=-1)
+
+    def accuracy(params, x, y):
+        pred = torch.argmax(_logits(params, x), dim=-1)
+        return (pred == y.long()).to(torch.float32).mean(dim=-1)
+
+    def grad(params, x, y):
+        p = torch.exp(_log_probs(params, x))
+        onehot = torch.nn.functional.one_hot(y.long(), num_classes).to(p.dtype)
+        g = (p - onehot) * (1.0 / y.shape[-1])          # d loss / d logits
+        return {"b": g.sum(dim=-2),
+                "w": torch.matmul(x.transpose(-1, -2), g)}
+
+    return SimModel(init, loss, accuracy, grad)
+
+
+def params_from_jax(np_params, device="cpu") -> dict:
+    """Carry the JAX package's parameters (a dict of numpy-convertible
+    arrays) into the port: same layout and dtype, keys in JAX's sorted leaf
+    order."""
+    return {k: torch.as_tensor(np.array(np_params[k])).to(device)
+            for k in sorted(np_params)}

@@ -1,0 +1,48 @@
+"""Parameter-dict utilities in JAX's leaf order.
+
+Parameters are plain ``dict[str, Tensor]``. JAX flattens a dict in SORTED
+key order, so the logistic regression ``{"w", "b"}`` ravels as ``b`` then
+``w``; the [K, P] AirComp buffer and the per-leaf order of the AWGN vector
+depend on that order (``repro/core/aircomp.py``). Python dicts keep
+insertion order, so every function here sorts the keys explicitly.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def leaf_names(tree: dict) -> list[str]:
+    """The keys of ``tree`` in JAX's flattening order (sorted)."""
+    return sorted(tree)
+
+
+def tree_leaves(tree: dict) -> list[torch.Tensor]:
+    return [tree[k] for k in leaf_names(tree)]
+
+
+def tree_size(tree: dict) -> int:
+    """Total number of scalar elements (the paper's M)."""
+    return sum(int(v.numel()) for v in tree.values())
+
+
+def ravel_stack(trees: dict, dtype=None) -> torch.Tensor:
+    """A stacked tree (leading axis K on every leaf) as one contiguous
+    [K, P] buffer, leaves concatenated in sorted-key order."""
+    leaves = tree_leaves(trees)
+    kk = leaves[0].shape[0]
+    return torch.cat([leaf.reshape(kk, -1).to(dtype or leaf.dtype)
+                      for leaf in leaves], dim=1)
+
+
+def unravel(template: dict, flat: torch.Tensor, lead: int = 1) -> dict:
+    """Split a [P] vector back into ``template``'s leaves (sorted-key order),
+    each shaped like the template leaf without its first ``lead`` axes and
+    cast to its dtype."""
+    out, off = {}, 0
+    for name in leaf_names(template):
+        shape = template[name].shape[lead:]
+        size = int(torch.Size(shape).numel())
+        out[name] = (flat[off:off + size].reshape(shape)
+                     .to(template[name].dtype))
+        off += size
+    return out

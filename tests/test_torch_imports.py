@@ -1,0 +1,49 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points never fall back to the CPU on their own."""
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch  # noqa: E402
+from repro_torch.configs.base import FLConfig  # noqa: E402
+from repro_torch.core.simulator import run_simulation  # noqa: E402
+from repro_torch.models.logreg import logistic_regression  # noqa: E402
+
+SRC = Path(repro_torch.__file__).resolve().parent
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    modules = sorted(m.name for m in pkgutil.walk_packages([str(SRC)], "repro_torch."))
+    assert "repro_torch.core.simulator" in modules
+    code = ("import importlib, sys\n"
+            f"for m in {modules!r}: importlib.import_module(m)\n"
+            "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
+            "             or n == 'repro' or n.startswith('repro.'))\n"
+            "print(','.join(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, cwd=SRC.parent, timeout=120)
+    assert out.stdout.strip() == ""
+
+
+def test_port_sources_name_no_jax_or_reference_import():
+    for path in SRC.rglob("*.py"):
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                top = words[1].split(".")[0]
+                assert top not in ("jax", "jaxlib", "repro"), f"{path}: {line}"
+
+
+def test_entry_point_without_device_raises_when_no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.zeros((4, 5, 3), np.float32)
+    y = np.zeros((4, 5), np.int32)
+    fl = FLConfig(num_clients=4, clients_per_round=2, rounds=1, batch_size=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_simulation(logistic_regression(3, 10), fl, (x, y, x, y))

@@ -1,0 +1,208 @@
+"""The port's whole selected-K run against the JAX reference on the CPU.
+
+A helper replays the reference's key discipline with ``jax.random`` (the
+7-way per-round split of ``repro/core/simulator.py``) and hands the numbers
+to the port as ``RoundDraws``, so both packages see the same channels,
+Gumbel noise, batches and AWGN. Tolerances: ``num_scheduled`` exact;
+energy rtol 1e-5 (a different selected set would move it by a whole
+client's upload, far more); λ atol 1e-6 and loss rtol 1e-4 (f32 summation
+order differs between XLA and torch); accuracies within one test sample of
+one client (1 / S_test), since a logit near a tie may flip one prediction.
+"""
+import functools
+from dataclasses import replace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs.base import FLConfig as JFLConfig  # noqa: E402
+from repro.core.simulator import run_simulation as jax_run  # noqa: E402
+from repro.models.logreg import logistic_regression as jax_logreg  # noqa: E402
+from repro_torch.configs.base import FLConfig  # noqa: E402
+from repro_torch.core.draws import RoundDraws  # noqa: E402
+from repro_torch.core.simulator import run_simulation  # noqa: E402
+from repro_torch.data.synthetic import make_fmnist_like  # noqa: E402
+from repro_torch.federated.partition import sorted_label_shards  # noqa: E402
+from repro_torch.models.logreg import logistic_regression  # noqa: E402
+
+DIM, N, K, T = 64, 20, 8, 20
+BASE = dict(num_clients=N, clients_per_round=K, rounds=T, batch_size=20,
+            lr0=0.3, lr_decay=0.995, ascent_lr=2e-2)
+CASES = {
+    "fedavg": dict(method="fedavg"),
+    "afl": dict(method="afl"),
+    "ca_afl_C8": dict(method="ca_afl", energy_C=8.0),
+    "greedy": dict(method="greedy"),
+    "ca_afl_noisy_uplink": dict(method="ca_afl", energy_C=8.0, noise_std=1e-2),
+}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """At these tiny shapes torch's intra-op threads only contend with XLA's
+    pool in the same process (runs were 10-30× slower); use one."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+@pytest.fixture(scope="module")
+def data():
+    x, y, xt, yt = make_fmnist_like(num_train=2000, num_test=500, dim=DIM)
+    xs, ys = sorted_label_shards(x, y, N)
+    xts, yts = sorted_label_shards(xt, yt, N)
+    return xs, ys, xts, yts
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5))
+def _reference_round(key, n, b, draw_sc, shard, leaf_shapes):
+    """One round of the reference's key discipline (``simulator.py``
+    round_fn): the 7-way split and every draw made from it."""
+    key, k_chan, k_sel, k_batch, k_noise, k_asel, k_abatch = jax.random.split(key, 7)
+    keys = jax.random.split(k_noise, len(leaf_shapes))
+    noise = jnp.concatenate([jax.random.normal(kk, s).reshape(-1)
+                             for kk, s in zip(keys, leaf_shapes)])
+    return key, (jax.random.normal(k_chan, (2, n, draw_sc)),
+                 jax.random.normal(jax.random.fold_in(k_chan, 1), (n, 1)),
+                 jax.random.gumbel(k_sel, (n,)),
+                 jax.random.randint(k_batch, (n, b), 0, shard),
+                 noise,
+                 jax.random.gumbel(k_asel, (n,)),
+                 jax.random.randint(k_abatch, (n, b), 0, shard))
+
+
+def reference_draws(fl, seed, shard, leaf_shapes):
+    """The reference's per-round random numbers, as ``RoundDraws``.
+
+    ``leaf_shapes``: the model's parameter shapes in JAX's sorted-key order
+    (the per-leaf AWGN keys follow it). Greedy draws no selection Gumbel and
+    a noise-free config no AWGN, so those slots are None."""
+    draw_sc = 1 if fl.flat_fading else fl.num_subcarriers
+    _, key = jax.random.split(jax.random.PRNGKey(seed))
+    out = []
+    for _ in range(fl.rounds):
+        key, vals = _reference_round(key, fl.num_clients, fl.batch_size,
+                                     draw_sc, shard, tuple(leaf_shapes))
+        d = RoundDraws(*(torch.from_numpy(np.array(v)) for v in vals))
+        out.append(d._replace(
+            sel_gumbel=None if fl.method == "greedy" else d.sel_gumbel,
+            noise=None if fl.noise_std == 0 else d.noise))
+    return out
+
+
+def logreg_draws(fl, data, seed=0):
+    return reference_draws(fl, seed, data[1].shape[1], [(10,), (DIM, 10)])
+
+
+def assert_history_close(port, ref, s_test):
+    """Port vs reference histories; names the first round that diverges."""
+    checks = [("num_scheduled", dict(rtol=0, atol=0)),
+              ("energy", dict(rtol=1e-5, atol=0)),
+              ("dl_energy", dict(rtol=1e-5, atol=0)),
+              ("lam", dict(rtol=0, atol=1e-6)),
+              ("lam_max", dict(rtol=0, atol=1e-6)),
+              ("lam_ess", dict(rtol=1e-5, atol=0)),
+              ("lam_entropy", dict(rtol=1e-5, atol=0)),
+              ("loss", dict(rtol=1e-4, atol=0)),
+              ("avg_acc", dict(rtol=0, atol=1.0 / s_test + 1e-6)),
+              ("worst_acc", dict(rtol=0, atol=1.0 / s_test + 1e-6)),
+              ("std_acc", dict(rtol=0, atol=1.0 / s_test + 1e-6))]
+    for field, tol in checks:
+        a = np.asarray(getattr(port, field), np.float64)
+        b = np.asarray(getattr(ref, field), np.float64)
+        assert a.shape == b.shape, (field, a.shape, b.shape)
+        bad = ~np.isclose(a, b, **tol)
+        if bad.any():
+            r = int(np.argmax(bad.reshape(bad.shape[0], -1).any(axis=1)))
+            raise AssertionError(
+                f"{field} diverges first at row {r}: port {a[r]} vs ref {b[r]}")
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_whole_run_matches_reference(case, data):
+    kw = {**BASE, **CASES[case]}
+    fl = FLConfig(**kw)
+    ref = jax_run(jax_logreg(DIM, 10), JFLConfig(**kw), data, seed=0)
+    port = run_simulation(logistic_regression(DIM, 10), fl, data,
+                          draws=logreg_draws(fl, data), device="cpu")
+    assert_history_close(port, ref, data[3].shape[1])
+
+
+def test_cadences_match_reference(data):
+    """eval_every = 5 forward-fills and record_lambda_every = 3 keeps
+    strided λ snapshots, as the reference does."""
+    kw = {**BASE, **CASES["ca_afl_C8"], "eval_every": 5, "record_lambda_every": 3}
+    fl = FLConfig(**kw)
+    ref = jax_run(jax_logreg(DIM, 10), JFLConfig(**kw), data, seed=0)
+    port = run_simulation(logistic_regression(DIM, 10), fl, data,
+                          draws=logreg_draws(fl, data), device="cpu")
+    assert port.lam.shape == (7, N)
+    assert_history_close(port, ref, data[3].shape[1])
+
+
+@pytest.mark.parametrize("case", ["afl", "ca_afl_noisy_uplink", "greedy"])
+def test_dense_path_equals_selected_k(case, data):
+    """The [N, model] reference path and the selected-K path take the same
+    decisions and agree to summation order (within the port)."""
+    fl = FLConfig(**{**BASE, **CASES[case]})
+    draws = logreg_draws(fl, data)
+    model = logistic_regression(DIM, 10)
+    sparse = run_simulation(model, fl, data, draws=draws, device="cpu")
+    dense = run_simulation(model, fl, data, draws=draws, device="cpu", dense=True)
+    assert_history_close(sparse, dense, data[3].shape[1])
+
+
+def test_eval_every_forward_fills(data):
+    fl = FLConfig(**{**BASE, **CASES["ca_afl_C8"]})
+    draws = logreg_draws(fl, data)
+    model = logistic_regression(DIM, 10)
+    every = run_simulation(model, fl, data, draws=draws, device="cpu")
+    strided = run_simulation(model, replace(fl, eval_every=5), data,
+                             draws=draws, device="cpu")
+    rows = (np.arange(T) // 5) * 5
+    for f in ("avg_acc", "worst_acc", "std_acc"):
+        np.testing.assert_array_equal(getattr(strided, f).numpy(),
+                                      getattr(every, f).numpy()[rows])
+    np.testing.assert_array_equal(strided.energy.numpy(), every.energy.numpy())
+
+
+@pytest.mark.parametrize("e", [0, 3])
+def test_record_lambda_every(e, data):
+    fl = FLConfig(**{**BASE, **CASES["afl"]})
+    draws = logreg_draws(fl, data)
+    model = logistic_regression(DIM, 10)
+    dense_rec = run_simulation(model, fl, data, draws=draws, device="cpu")
+    hist = run_simulation(model, replace(fl, record_lambda_every=e), data,
+                          draws=draws, device="cpu")
+    if e == 0:
+        assert hist.lam == ()
+    else:
+        np.testing.assert_array_equal(hist.lam.numpy(),
+                                      dense_rec.lam.numpy()[::e])
+    np.testing.assert_array_equal(hist.lam_ess.numpy(), dense_rec.lam_ess.numpy())
+
+
+def test_default_draws_run_is_seeded(data):
+    """Without injected draws the run takes a torch.Generator seeded from
+    ``seed``: the same seed repeats the run, and every round schedules K."""
+    fl = FLConfig(**{**BASE, **CASES["ca_afl_noisy_uplink"]})
+    model = logistic_regression(DIM, 10)
+    a = run_simulation(model, fl, data, seed=3, device="cpu")
+    b = run_simulation(model, fl, data, seed=3, device="cpu")
+    np.testing.assert_array_equal(a.energy.numpy(), b.energy.numpy())
+    np.testing.assert_array_equal(a.num_scheduled.numpy(), np.full(T, K))
+    assert np.isfinite(a.lam.numpy()).all()
+    np.testing.assert_allclose(a.lam.numpy().sum(axis=1), 1.0, atol=1e-5)
+
+
+def test_unported_paths_raise(data):
+    model = logistic_regression(DIM, 10)
+    for kw in (dict(transport="quantized"), dict(temporal=True),
+               dict(method="gca"), dict(control_plane="sharded")):
+        with pytest.raises(NotImplementedError):
+            run_simulation(model, FLConfig(**{**BASE, **kw}), data, device="cpu")
