@@ -2,12 +2,15 @@
 
 The same table as ``examples/quickstart.py`` (N=20 clients, logistic
 regression, sorted-label shards), computed by ``repro_torch`` — on the CUDA
-card by default, where eq. (10) runs through the hand-written AirComp
-kernel, or on the CPU with ``--device cpu``. The port draws its randomness
+card by default, where eq. (10) runs through a hand-written AirComp kernel
+(``aircomp`` for the analog and digital uplinks, ``quant_aircomp`` for
+quantized, ``sparse_aircomp`` for sparse), or on the CPU with
+``--device cpu``. The port draws its randomness
 from a ``torch.Generator``, so its numbers differ from the JAX quickstart's
 in the draws, not in the algorithm.
 
     PYTHONPATH=src python examples/quickstart_torch.py [--device cpu]
+        [--transport analog|quantized|digital|sparse]
 """
 import argparse
 
@@ -22,6 +25,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--transport", default="analog",
+                    choices=("analog", "quantized", "digital", "sparse"),
+                    help="uplink transport scheme (FLConfig.transport)")
     args = ap.parse_args()
 
     x, y, xt, yt = make_fmnist_like(num_train=2000, num_test=500, dim=64)
@@ -36,7 +42,8 @@ def main():
                             ("greedy", "greedy", 0.0)):
         fl = FLConfig(num_clients=20, clients_per_round=8, rounds=60,
                       batch_size=20, lr0=0.3, lr_decay=0.995,
-                      ascent_lr=2e-2, method=method, energy_C=c)
+                      ascent_lr=2e-2, method=method, energy_C=c,
+                      transport=args.transport)
         h = run_simulation(model, fl, data, device=args.device)
         print(f"{name:12s} {float(h.avg_acc[-1]):8.3f} "
               f"{float(h.worst_acc[-1]):10.3f} {float(h.std_acc[-1]):6.3f} "

@@ -24,8 +24,18 @@ from repro_torch.kernels.aircomp.ops import aircomp_aggregate_flat
 from repro_torch.utils.tree import leaf_names, ravel_stack, tree_leaves, unravel
 
 
-def _static_zero(noise_std) -> bool:
+def is_static_zero(noise_std) -> bool:
+    """A Python 0 noise level: the noise term is dropped statically."""
     return isinstance(noise_std, (int, float)) and noise_std == 0
+
+
+def stack_accum_dtype(trees: dict) -> torch.dtype:
+    """The flat buffer's accumulation dtype: the widest leaf dtype, never
+    narrower than f32."""
+    acc_dtype = torch.float32
+    for leaf in tree_leaves(trees):
+        acc_dtype = torch.promote_types(acc_dtype, leaf.dtype)
+    return acc_dtype
 
 
 def aircomp_aggregate(stacked: torch.Tensor, mask: torch.Tensor, z=None,
@@ -36,7 +46,7 @@ def aircomp_aggregate(stacked: torch.Tensor, mask: torch.Tensor, z=None,
         k = torch.sum(mask)
     mshape = (-1,) + (1,) * (stacked.dim() - 1)
     summed = torch.sum(stacked * mask.reshape(mshape), dim=0)
-    if not _static_zero(noise_std):
+    if not is_static_zero(noise_std):
         summed = summed + noise_std * z
     return summed / k
 
@@ -47,7 +57,7 @@ def aircomp_aggregate_tree(trees: dict, mask, z=None, noise_std=0.0, k=None):
     ``noise_std`` is a static 0)."""
     if k is None:
         k = torch.sum(mask)
-    noise = None if _static_zero(noise_std) else unravel(trees, z)
+    noise = None if is_static_zero(noise_std) else unravel(trees, z)
     return {name: aircomp_aggregate(trees[name], mask,
                                     None if noise is None else noise[name],
                                     noise_std, k)
@@ -71,11 +81,9 @@ def aircomp_aggregate_stack_tree(trees: dict, weights, z=None, noise_std=0.0,
     """
     if k is None:
         k = torch.sum(weights)
-    acc_dtype = torch.float32
-    for leaf in tree_leaves(trees):
-        acc_dtype = torch.promote_types(acc_dtype, leaf.dtype)
+    acc_dtype = stack_accum_dtype(trees)
     flat = ravel_stack(trees, acc_dtype)
-    if _static_zero(noise_std):
+    if is_static_zero(noise_std):
         z = torch.zeros((flat.shape[1],), dtype=acc_dtype, device=flat.device)
     elif z is None:
         raise ValueError("a noise vector z is needed when noise_std is not a "

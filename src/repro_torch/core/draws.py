@@ -2,14 +2,16 @@
 
 The reference derives its randomness from JAX PRNG keys (a 7-way split per
 round, ``repro/core/simulator.py``). The port takes the numbers instead:
-:func:`draw_round` fills a :class:`RoundDraws` from a ``torch.Generator``,
-and a test can fill one from ``jax.random`` with the reference's own key
-discipline, which makes the two packages take the same discrete decisions.
-Shapes and dtypes are the reference's.
+:func:`draw_round` fills a :class:`RoundDraws` from two ``torch.Generator``
+streams, and a test can fill one from ``jax.random`` with the reference's
+own key discipline, which makes the two packages take the same discrete
+decisions. Shapes and dtypes are the reference's; the quantized
+transport's rounding uniforms are one [N, P] draw, row i for client i, as
+the reference's per-client-id streams are.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Iterator, NamedTuple, Optional
 
 import torch
 
@@ -25,6 +27,9 @@ class RoundDraws(NamedTuple):
     noise: Optional[torch.Tensor]         # [P] AWGN, sorted-leaf order (None: σ = 0)
     asc_gumbel: torch.Tensor              # [N] ascent-set Gumbel
     asc_batch_idx: torch.Tensor           # [N, B] int32 in-shard ascent batch
+    # [N, P] f32 U[0, 1) stochastic-rounding uniforms, row i for client i
+    # (transport="quantized" only; None otherwise)
+    quant_uniform: Optional[torch.Tensor] = None
 
     def to(self, device) -> "RoundDraws":
         return RoundDraws(*(None if v is None else v.to(device) for v in self))
@@ -44,10 +49,14 @@ def batch_indices(gen: torch.Generator, n: int, shard_size: int,
                          device=gen.device, dtype=torch.int32)
 
 
-def draw_round(gen: torch.Generator, fl: FLConfig, model_size: int,
-               shard_size: int, device=None) -> RoundDraws:
-    """One round's draws from ``gen`` (on its device), moved to ``device``.
-    ``shard_size`` is the number of training samples per client."""
+def draw_round(gen: torch.Generator, quant_gen: torch.Generator, fl: FLConfig,
+               model_size: int, shard_size: int, device=None) -> RoundDraws:
+    """One round's draws, moved to ``device``. ``shard_size`` is the number
+    of training samples per client. The quantized transport's rounding
+    uniforms come from ``quant_gen`` and everything else from ``gen`` (both
+    on one device): as the reference's fold_in stream 7 of the noise key,
+    the uniforms leave every other draw as it is, so analog and quantized
+    runs of one seed see the same channels, selections, batches and noise."""
     n, b = fl.num_clients, fl.batch_size
     draw_sc = 1 if fl.flat_fading else fl.num_subcarriers
     gd = gen.device
@@ -63,5 +72,19 @@ def draw_round(gen: torch.Generator, fl: FLConfig, model_size: int,
         noise=None if fl.noise_std == 0 else flat_awgn(gen, model_size),
         asc_gumbel=gumbel(gen, n),
         asc_batch_idx=randint(),
+        quant_uniform=(torch.rand((n, model_size), generator=quant_gen, device=gd)
+                       if fl.transport == "quantized" else None),
     )
     return draws if device is None else draws.to(device)
+
+
+def round_draws(seed: int, fl: FLConfig, model_size: int, shard_size: int,
+                device) -> Iterator[RoundDraws]:
+    """The ``fl.rounds`` rounds' draws of a run seeded with ``seed``, made on
+    ``device``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    quant_gen = torch.Generator(device=device)
+    quant_gen.manual_seed(seed * 1_000_003 + 7)
+    for _ in range(fl.rounds):
+        yield draw_round(gen, quant_gen, fl, model_size, shard_size)

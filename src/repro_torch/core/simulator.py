@@ -2,30 +2,36 @@
 ``repro.core.simulator``.
 
 One round, for an exact-K selection method (``selection.EXACT_K_METHODS``)
-on static i.i.d. channels, the analog transport and the replicated control
-plane:
+on static i.i.d. channels, any of the four uplink transports and the
+replicated control plane:
 
   1. channels from the round's normals, eq. (6) effective channel;
   2. K clients by Gumbel-top-K (ties to the lowest index);
   3. only those K clients' batches are gathered and local SGD runs on a
      [K, ...] stack;
-  4. eq. (10) is one pass over the raveled [K, P] buffer — the hand-written
+  4. eq. (10) is one pass over the raveled [K, P] buffer — a hand-written
      CUDA kernel on the card (``kernels/aircomp``), its plain version on the
-     CPU;
-  5. the selected set's energy (eqs. 3-6) and the downlink broadcast;
+     CPU: ``aircomp`` for analog and digital (digital with statically zero
+     noise), ``quant_aircomp`` over the rounded deltas for quantized,
+     ``sparse_aircomp`` over the compressed deltas for sparse, whose
+     error-feedback residual rows are gathered from and scattered back to
+     ``SimState.ef_resid`` by client id;
+  5. the selected set's energy under the transport and the downlink
+     broadcast;
   6. the λ ascent step on K uniformly drawn clients, with the losses
      evaluated only at the ascent and descent slots;
   7. the test accuracy of every client on the ``eval_every`` cadence.
 
-``dense=True`` runs the [N, model] reference path instead (per-leaf
-aggregation, every client descends and is masked), which reaches no kernel.
+``dense=True`` runs the [N, model] reference path instead (every client
+descends and is masked; analog and digital aggregate per leaf and reach no
+kernel, quantized and sparse run their flat pass over all N rows).
 ``lax.scan`` becomes a Python loop and ``vmap`` a written-out client axis.
 Every random number comes from a ``RoundDraws`` per round
 (``core/draws.py``). Scalars stay device tensors through the round: nothing
 is copied to the host until the history is read.
 
-Not ported yet, and raising ``NotImplementedError``: transports other than
-analog, temporal scenarios, GCA, the sharded control plane and meshes.
+Not ported yet, and raising ``NotImplementedError``: temporal scenarios,
+GCA, the sharded control plane and meshes.
 """
 from __future__ import annotations
 
@@ -37,13 +43,16 @@ from repro_torch.configs.base import FLConfig
 from repro_torch.core.aircomp import (aircomp_aggregate_stack_tree,
                                       aircomp_aggregate_tree)
 from repro_torch.core.channel import draw_channels_scenario, effective_channel
-from repro_torch.core.draws import draw_round
+from repro_torch.core.draws import round_draws
 from repro_torch.core.dro import lambda_ascent, lambda_summary
 from repro_torch.core.selection import (EXACT_K_METHODS, gumbel_topk,
                                         select_clients, select_clients_sparse)
 from repro_torch.core.sweep import sweep_point_from_config
-from repro_torch.core.transport import (downlink_energy, require_ported,
-                                        round_energy)
+from repro_torch.core.transport import (downlink_energy,
+                                        quantized_aggregate_stack_tree,
+                                        require_ported, round_energy,
+                                        sparse_aggregate_stack_tree,
+                                        sparse_k_coords)
 from repro_torch.models.logreg import SimModel
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import leaf_names, tree_size
@@ -56,6 +65,7 @@ class SimState(NamedTuple):
     eval_cache: Any = ()  # [3] last (avg, worst, std) accuracy when eval_every > 1
     lam_snaps: Any = ()   # [ceil(T/E), N] λ snapshots when record_lambda_every = E > 1
     dl_energy: Any = ()   # cumulative downlink Joules
+    ef_resid: Any = ()    # [N, P] error-feedback residuals (sparse only)
 
 
 class SimHistory(NamedTuple):
@@ -135,6 +145,9 @@ def make_param_round_fn(model: SimModel, fl: FLConfig, data, model_size: int,
     n, k_sched = fl.num_clients, fl.clients_per_round
     noise_free = fl.noise_std == 0
     scheme = fl.transport
+    # the sparse transport's kept-coordinate count is static
+    k_coords = (sparse_k_coords(fl.sparse_density, model_size)
+                if scheme == "sparse" else None)
     dev = y.device
     zeros_n = torch.zeros((n,), dtype=torch.float32, device=dev)
     n_f32 = torch.full((), float(n), dtype=torch.float32, device=dev)
@@ -148,6 +161,37 @@ def make_param_round_fn(model: SimModel, fl: FLConfig, data, model_size: int,
             g = model.grad(wc, xb, yb)
             wc = {name: wc[name] - eta * g[name] for name in leaf_names(g)}
         return wc
+
+    def aggregate(tp, state: SimState, w_stack, weights, d, noise_std,
+                  k_denom, idx):
+        """Eq. (10) under the round's transport over the stacked updates of
+        the clients ``idx`` (None: all N, the dense path); returns
+        ``(w_new, ef_resid)``. The quantized rounding uniforms and the
+        sparse residuals are addressed by client id, so both paths round
+        and compress every row identically."""
+        if scheme == "quantized":
+            if d.quant_uniform is None:
+                raise ValueError("the quantized transport needs the round's "
+                                 "RoundDraws.quant_uniform")
+            u = d.quant_uniform if idx is None else d.quant_uniform[idx]
+            return quantized_aggregate_stack_tree(
+                state.w, w_stack, weights, u, d.noise, noise_std, tp.bits,
+                k_denom), state.ef_resid
+        if scheme == "sparse":
+            resid = state.ef_resid if idx is None else state.ef_resid[idx]
+            w_new, resid = sparse_aggregate_stack_tree(
+                state.w, w_stack, weights, d.noise, noise_std, k_coords,
+                k_denom, resid)
+            # idx is a top-k output (unique), so the scatter-back is exact
+            return w_new, (resid if idx is None
+                           else state.ef_resid.index_copy(0, idx, resid))
+        # digital decodes each upload exactly: statically no noise
+        eff_noise = 0.0 if scheme == "digital" else noise_std
+        if idx is None:
+            return aircomp_aggregate_tree(w_stack, weights, d.noise, eff_noise,
+                                          k_denom), state.ef_resid
+        return aircomp_aggregate_stack_tree(w_stack, weights, d.noise,
+                                            eff_noise, k_denom), state.ef_resid
 
     def round_fn(point, state: SimState, t: int, d):
         scen = point.scenario
@@ -170,20 +214,22 @@ def make_param_round_fn(model: SimModel, fl: FLConfig, data, model_size: int,
         if dense:
             xb, yb = _all_batches(x, y, d.batch_idx)
             w_stack = local_update(state.w, eta, xb, yb)
-            w_new = aircomp_aggregate_tree(w_stack, mask, d.noise, noise_std,
-                                           k_denom)
+            w_new, ef_resid = aggregate(point.transport, state, w_stack, mask,
+                                        d, noise_std, k_denom, None)
         else:
             xb_s, yb_s = _gather_batches(x, y, sel_idx, d.batch_idx[sel_idx])
             w_sel = local_update(state.w, eta, xb_s, yb_s)
-            w_new = aircomp_aggregate_stack_tree(w_sel, mask[sel_idx], d.noise,
-                                                 noise_std, k_denom)
+            w_new, ef_resid = aggregate(point.transport, state, w_sel,
+                                        mask[sel_idx], d, noise_std, k_denom,
+                                        sel_idx)
 
         # ---- energy ledger: the selected set's uplink + every client's
-        # broadcast receive (exactly zero at the default dl_rx_power = 0)
+        # broadcast receive (exactly zero at the default dl_rx_power = 0);
+        # a sparse broadcast is priced as the union of the K payloads
         e_round = round_energy(scheme, point.transport, h, mask, model_size,
                                scen)
         e_dl = n_f32 * downlink_energy(scheme, point.transport, model_size,
-                                       scen)
+                                       scen, num_tx=k_sched)
         dl_energy = state.dl_energy + e_dl
         energy = state.energy + e_round + e_dl
 
@@ -220,23 +266,27 @@ def make_param_round_fn(model: SimModel, fl: FLConfig, data, model_size: int,
             lam_max=lam_max, lam_entropy=lam_entropy, lam_ess=lam_ess,
             dl_energy=dl_energy)
         return SimState(w_new, lam_new, energy, eval_cache, lam_snaps,
-                        dl_energy), metrics
+                        dl_energy, ef_resid), metrics
 
     return round_fn
 
 
 def init_sim_state(model: SimModel, fl: FLConfig, device="cpu") -> SimState:
-    """Initial state: the model's init, uniform λ, zero energy."""
+    """Initial state: the model's init, uniform λ, zero energy (and zero
+    error-feedback residuals for the sparse transport)."""
     e = fl.record_lambda_every
     n = fl.num_clients
     f32 = dict(dtype=torch.float32, device=device)
+    w = model.init(device)
     return SimState(
-        w=model.init(device),
+        w=w,
         lam=torch.full((n,), 1.0 / n, **f32),
         energy=torch.zeros((), **f32),
         eval_cache=() if fl.eval_every == 1 else torch.zeros((3,), **f32),
         lam_snaps=() if e in (0, 1) else torch.zeros(((fl.rounds + e - 1) // e, n), **f32),
         dl_energy=torch.zeros((), **f32),
+        ef_resid=(torch.zeros((n, tree_size(w)), **f32)
+                  if fl.transport == "sparse" else ()),
     )
 
 
@@ -247,8 +297,8 @@ def run_simulation(model: SimModel, fl: FLConfig, data,
 
     ``data`` = (x, y, x_test, y_test) stacked per client, numpy or tensors.
     ``draws``: an iterable of T ``RoundDraws`` (e.g. the reference's numbers
-    in a test); by default they come from a ``torch.Generator`` seeded with
-    ``seed`` (``fl.seed`` if None) on the run's device. ``device=None`` is
+    in a test); by default ``draws.round_draws`` makes them on the run's
+    device from ``seed`` (``fl.seed`` if None). ``device=None`` is
     the CUDA card, and raises when there is none.
     """
     dev = resolve_device(device)
@@ -260,11 +310,8 @@ def run_simulation(model: SimModel, fl: FLConfig, data,
     round_fn = make_param_round_fn(model, fl, data, model_size, fl.method,
                                    dense=dense)
     if draws is None:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(fl.seed if seed is None else seed)
-        shard = data[1].shape[1]
-        draws = (draw_round(gen, fl, model_size, shard)
-                 for _ in range(fl.rounds))
+        draws = round_draws(fl.seed if seed is None else seed, fl,
+                            model_size, data[1].shape[1], dev)
     it = iter(draws)
     rows = []
     for t in range(fl.rounds):

@@ -1,32 +1,69 @@
-"""Uplink transport layer, analog subset; port of ``repro.core.transport``.
+"""Uplink transport layer; port of ``repro.core.transport``.
 
-Only the paper's analog eq. (10) AirComp is ported: its energy is eqs. (3-6)
-verbatim and its broadcast is priced at full f32. The quantized, digital and
-sparse schemes raise ``NotImplementedError`` until their slice lands
-(ROADMAP Queue 1 item 6).
+Four schemes, as in the reference:
+
+  - ``"analog"``: the paper's eq. (10) AirComp, energy eqs. (3-6) verbatim;
+  - ``"quantized"``: each client stochastically rounds its update
+    Δ_i = w_i − w̄ to a per-client ``bits``-bit grid, the rounded deltas
+    superpose over the air and the server adds (Σ mask·Q(Δ_i) + σz)/K to w̄;
+    upload energy scales by ``bits/32``. The round-scale-sum-noise-normalize
+    pass is the hand-written ``quant_aircomp`` kernel on the card;
+  - ``"digital"``: orthogonal OFDMA, Shannon-rate latency and P·t energy,
+    error-free decode, so the aggregate is the masked mean with statically
+    zero noise;
+  - ``"sparse"``: top-k sparsification with per-client error feedback: each
+    client sends the k = max(1, round(density·P)) largest-|·| coordinates of
+    v = Δ + r and keeps v − C(v) as its residual r for the next round. The
+    compress-scale-sum-noise-normalize pass is the hand-written
+    ``sparse_aircomp`` kernel on the card; the threshold is a radix select
+    in plain PyTorch.
+
+The downlink broadcast is priced per receiver by :func:`downlink_energy`.
+
+Randomness is an input, as everywhere in the port: the AWGN z [P] and the
+quantized scheme's rounding uniforms u [C, P] come from the round's
+``RoundDraws``. The reference draws u content-addressed by global client id
+(``fold_in(fold_in(k_noise, 7), id)``), so the selected-K path takes rows
+``sel_idx`` of the [N, P] draw and the dense path all N, and both round with
+identical values. The population-sharded (psum) variants are not ported
+(ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any
 
 import torch
 
 from repro_torch.configs.base import FLConfig
-from repro_torch.core.energy import transmit_energy
+from repro_torch.core.aircomp import is_static_zero, stack_accum_dtype
+from repro_torch.core.energy import (TRUNCATION_FLOOR, clamp_floor,
+                                     transmit_energy)
+from repro_torch.kernels.aircomp.ops import (quant_aircomp_flat,
+                                             sparse_aircomp_flat)
+from repro_torch.utils.tree import ravel, ravel_stack, unravel
 
 TRANSPORTS = ("analog", "quantized", "digital", "sparse")
-PORTED_TRANSPORTS = ("analog",)
+
+# the analog scheme's implicit payload precision: one f32 symbol stream per
+# parameter. Quantized airtime (hence energy) scales by bits/ANALOG_BITS.
+ANALOG_BITS = 32.0
+
+# rate floor (bits/s) of the digital deep-fade / zero-knob guard: zero power
+# or bandwidth knobs price as enormous but finite energy, not 0·inf = NaN
+_MIN_RATE = 1e-12
+
+# receiver-noise floor (W) of the same guard: rx_noise = 0 prices as an
+# enormous but finite rate, not a free (zero-latency) upload
+_MIN_NOISE = 1e-12
 
 
 def require_ported(scheme: str) -> None:
-    """Raise for a scheme the port does not carry (or does not know)."""
+    """Raise for a scheme name the port does not know."""
     if scheme not in TRANSPORTS:
         raise ValueError(
             f"unknown transport {scheme!r}; pick one of {TRANSPORTS}")
-    if scheme not in PORTED_TRANSPORTS:
-        raise NotImplementedError(
-            f"transport {scheme!r} is not ported yet (ROADMAP Queue 1 item 6)")
 
 
 @dataclass(frozen=True)
@@ -44,9 +81,7 @@ class TransportParams:
 
 def transport_from_config(fl: FLConfig, device="cpu") -> TransportParams:
     """Promote the ``FLConfig`` transport knobs to f32 device scalars."""
-    if fl.transport not in TRANSPORTS:
-        raise ValueError(
-            f"unknown transport {fl.transport!r}; pick one of {TRANSPORTS}")
+    require_ported(fl.transport)
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)  # noqa: E731
     return TransportParams(
         bits=f32(fl.quant_bits),
@@ -59,22 +94,228 @@ def transport_from_config(fl: FLConfig, device="cpu") -> TransportParams:
     )
 
 
+# ---------------------------------------------------------------------------
+# Energy per scheme (the knobs of ``tp`` are f32 device scalars)
+# ---------------------------------------------------------------------------
+
+
+def digital_rate(h_eff, tp: TransportParams, floor=TRUNCATION_FLOOR):
+    """Per-client Shannon rate r_i = B·log2(1 + P·|h_i|²/N₀) (bits/s), with
+    h clamped at the truncation floor, N₀ at ``_MIN_NOISE`` and the rate at
+    ``_MIN_RATE``."""
+    h = clamp_floor(h_eff, floor)
+    snr = tp.tx_power * torch.square(h) / torch.clamp_min(tp.rx_noise, _MIN_NOISE)
+    return torch.clamp_min(tp.bandwidth * torch.log2(1.0 + snr), _MIN_RATE)
+
+
+def digital_latency(h_eff, model_size: int, tp: TransportParams,
+                    floor=TRUNCATION_FLOOR):
+    """Symbol-time latency of one upload, t_i = M·32 / r_i (seconds): the
+    digital server decodes the exact f32 update, so the payload is priced
+    at ``ANALOG_BITS`` per parameter, never at ``tp.bits``."""
+    return model_size * ANALOG_BITS / digital_rate(h_eff, tp, floor)
+
+
+def digital_energy(h_eff, model_size: int, tp: TransportParams,
+                   floor=TRUNCATION_FLOOR):
+    """Per-client digital upload energy E_i = P·t_i."""
+    return tp.tx_power * digital_latency(h_eff, model_size, tp, floor)
+
+
+def sparse_payload_frac(density, model_size: int, num_tx: int = 1):
+    """Airtime of ``num_tx`` sparse payloads relative to one dense f32 one:
+    num_tx·density·(32 + log2 P)/32 (value + index bits per kept
+    coordinate), capped at 1. ``model_size`` and ``num_tx`` are static, so
+    the log is taken on the host."""
+    idx_bits = math.log2(max(model_size, 2))
+    frac = num_tx * density * (ANALOG_BITS + idx_bits) / ANALOG_BITS
+    return torch.clamp_max(torch.as_tensor(frac, dtype=torch.float32), 1.0)
+
+
 def uplink_energy(scheme: str, tp, h_eff, model_size: int, scenario):
-    """Per-client upload energy [N] (analog: eqs. 3-6)."""
-    del tp  # the analog scheme reads no transport knob
+    """Per-client upload energy [N] under the scheme: analog eqs. (3-6);
+    quantized scales it by max(bits, 1)/32; digital is the OFDMA rate and
+    latency accounting; sparse scales it by the compressed payload
+    fraction."""
     require_ported(scheme)
-    return transmit_energy(h_eff, model_size, scenario.psi, scenario.tau,
-                           floor=scenario.floor)
+    if scheme == "digital":
+        return digital_energy(h_eff, model_size, tp, floor=scenario.floor)
+    analog = transmit_energy(h_eff, model_size, scenario.psi, scenario.tau,
+                             floor=scenario.floor)
+    if scheme == "quantized":
+        return analog * (torch.clamp_min(tp.bits, 1.0) / ANALOG_BITS)
+    if scheme == "sparse":
+        return analog * sparse_payload_frac(tp.density, model_size)
+    return analog
 
 
-def downlink_energy(scheme: str, tp, model_size: int, scenario):
-    """Per-receiver energy of ONE global-model broadcast (Joules): analog
-    sends the full f32 model, so the payload fraction is 1."""
+def downlink_energy(scheme: str, tp, model_size: int, scenario,
+                    num_tx: int = 1):
+    """Per-receiver energy of ONE global-model broadcast (Joules):
+    dl_power · M · τ · the scheme's payload fraction (1 for analog and
+    digital, max(bits, 1)/32 for quantized, the ``num_tx``-payload union
+    for sparse). The default dl_power = 0 makes it exactly zero."""
     require_ported(scheme)
-    return tp.dl_power * model_size * scenario.tau * 1.0
+    if scheme == "quantized":
+        frac = torch.clamp_min(tp.bits, 1.0) / ANALOG_BITS
+    elif scheme == "sparse":
+        frac = sparse_payload_frac(tp.density, model_size, num_tx=num_tx)
+    else:
+        frac = 1.0
+    return tp.dl_power * model_size * scenario.tau * frac
 
 
 def round_energy(scheme: str, tp, h_eff, mask, model_size: int, scenario):
     """Uplink energy of the selected set in one round (Joules)."""
     return torch.sum(mask * uplink_energy(scheme, tp, h_eff, model_size,
                                           scenario))
+
+
+# ---------------------------------------------------------------------------
+# Stochastic rounding
+# ---------------------------------------------------------------------------
+
+
+def quant_step(flat_rows: torch.Tensor, bits) -> torch.Tensor:
+    """Per-row grid step Δ_c = 2·max|row_c| / max(2^bits − 1, 1), [C]; an
+    all-zero row gets Δ = 0 and passes through unrounded."""
+    b = torch.as_tensor(bits, dtype=flat_rows.dtype, device=flat_rows.device)
+    levels = torch.clamp_min(torch.exp2(b) - 1.0, 1.0)
+    return 2.0 * torch.amax(torch.abs(flat_rows), dim=-1) / levels
+
+
+def sround(flat_rows: torch.Tensor, step: torch.Tensor,
+           u: torch.Tensor) -> torch.Tensor:
+    """Unbiased stochastic rounding to the per-row grid,
+    Q(x) = ⌊x/Δ + u⌋·Δ with u ~ U[0, 1); rows with Δ = 0 pass through."""
+    d = step[..., None]
+    pos = d > 0
+    safe = torch.where(pos, d, torch.ones_like(d))
+    return torch.where(pos, torch.floor(flat_rows / safe + u) * d, flat_rows)
+
+
+# ---------------------------------------------------------------------------
+# Quantized aggregation (eq. (10) over rounded deltas)
+# ---------------------------------------------------------------------------
+
+
+def _flat_base_and_delta(w_base: dict, trees: dict):
+    """(w̄ [P], tree_c − w̄ [C, P]) at the stack's accumulation dtype."""
+    acc = stack_accum_dtype(trees)
+    base = ravel(w_base, acc)
+    return base, ravel_stack(trees, acc) - base[None, :]
+
+
+def quantized_aggregate_flat_rows(base_flat, delta_rows, weights, u,
+                                  noise_std, bits, k, z=None):
+    """``base + (Σ_c w_c·Q(Δ_c) + σz)/k`` over flat delta rows [C, P] with
+    rounding uniforms ``u`` [C, P]; ``z`` [P] is the AWGN (None: statically
+    noise-free). One fused pass: the ``quant_aircomp`` kernel on the card,
+    its plain version on the CPU."""
+    step = quant_step(delta_rows, bits)
+    if z is None:
+        z = torch.zeros_like(base_flat)
+        noise_std = 0.0
+    return base_flat + quant_aircomp_flat(delta_rows, weights, step, u, z,
+                                          noise_std=noise_std, k=k)
+
+
+def quantized_aggregate_stack_tree(w_base: dict, trees: dict, weights, u, z,
+                                   noise_std, bits, k) -> dict:
+    """Quantized eq. (10) over a client-stacked tree: w̄ + (Σ_c w_c·
+    Q(tree_c − w̄) + σz)/k. ``u`` [C, P]: the rows' rounding uniforms (the
+    round's ``quant_uniform`` at those clients' ids); ``z`` [P]: the AWGN
+    in sorted-leaf order, unused when ``noise_std`` is a static 0."""
+    base, delta = _flat_base_and_delta(w_base, trees)
+    zz = None if is_static_zero(noise_std) else z.to(base.dtype)
+    new = quantized_aggregate_flat_rows(base, delta, weights, u.to(base.dtype),
+                                        noise_std, bits, k, z=zz)
+    return unravel(trees, new)
+
+
+# ---------------------------------------------------------------------------
+# Sparse (error-feedback top-k) aggregation
+# ---------------------------------------------------------------------------
+
+
+def sparse_k_coords(density: float, model_size: int) -> int:
+    """Static kept-coordinate count k = clip(round(density·P), 1, P), with
+    Python's half-to-even ``round`` as in the reference."""
+    return max(1, min(int(round(density * model_size)), model_size))
+
+
+def sparse_thresholds(v_rows: torch.Tensor, k_coords: int) -> torch.Tensor:
+    """Per-row top-k magnitude separator [C]: ``|v| >= thr`` keeps exactly
+    the row's k largest magnitudes, or every coordinate tied with the k-th
+    when ties make exactly k impossible; an all-zero row gets thr = 0.
+
+    MSB-first radix select on the f32 bit pattern (non-negative floats
+    order like their int32 bits), as the reference does: grow the prefix
+    while at least k coordinates are >= it, and freeze a row at its first
+    prefix that counts exactly k. The reference stops its loop once every
+    row is frozen; here all 31 passes run, with no host sync, and give the
+    same result because a frozen row never changes. Counts are exact
+    int32 sums (the reference's f32 dot is exact for P < 2²⁴).
+    """
+    mags = torch.abs(v_rows)
+    if mags.element_size() > 4:
+        # the radix select is f32-bit based; wider dtypes take top-k
+        return torch.topk(mags, k_coords, dim=-1).values[..., -1]
+    bits = mags.to(torch.float32).view(torch.int32)
+    shape = mags.shape[:-1]
+    prefix = torch.zeros(shape, dtype=torch.int32, device=mags.device)
+    cnt = torch.full(shape, mags.shape[-1], dtype=torch.int32,
+                     device=mags.device)
+    for i in range(31):
+        cand = prefix | (1 << (30 - i))
+        cnt_cand = (bits >= cand[..., None]).sum(dim=-1, dtype=torch.int32)
+        take = (cnt != k_coords) & (cnt_cand >= k_coords)
+        prefix = torch.where(take, cand, prefix)
+        cnt = torch.where(take, cnt_cand, cnt)
+    return prefix.view(torch.float32)
+
+
+def _kept(v_rows: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
+    """v·1{|v| ≥ thr}, the compare at v's dtype: the very mask of the
+    kernel, so the residual v − c telescopes bitwise."""
+    return torch.where(torch.abs(v_rows) >= thr[..., None].to(v_rows.dtype),
+                       v_rows, torch.zeros((), dtype=v_rows.dtype,
+                                           device=v_rows.device))
+
+
+def sparse_compress_rows(v_rows: torch.Tensor, k_coords: int):
+    """Top-k compress payload rows [C, P]; returns ``(c_rows, thr)``."""
+    thr = sparse_thresholds(v_rows, k_coords)
+    return _kept(v_rows, thr), thr
+
+
+def sparse_aggregate_flat_rows(base_flat, delta_rows, resid_rows, weights,
+                               noise_std, k_coords: int, k, z=None):
+    """``(base + (Σ_c w_c·C(Δ_c + r_c) + σz)/k, r')`` over flat delta rows
+    [C, P] with the carried residual rows r [C, P]. The aggregate is one
+    fused pass (the ``sparse_aircomp`` kernel on the card, its plain
+    version on the CPU); the residual r' = v − C(v) stays in PyTorch, and
+    rows with weight 0 keep their old residual (they sent nothing)."""
+    v = delta_rows + resid_rows.to(delta_rows.dtype)
+    thr = sparse_thresholds(v, k_coords)
+    if z is None:
+        z = torch.zeros_like(base_flat)
+        noise_std = 0.0
+    agg = sparse_aircomp_flat(v, weights, thr, z, noise_std=noise_std, k=k)
+    sent = (weights > 0)[..., None]
+    new_resid = torch.where(sent, (v - _kept(v, thr)).to(resid_rows.dtype),
+                            resid_rows)
+    return base_flat + agg, new_resid
+
+
+def sparse_aggregate_stack_tree(w_base: dict, trees: dict, weights, z,
+                                noise_std, k_coords: int, k, resid_rows):
+    """Sparse eq. (10) over a client-stacked tree; returns ``(new_tree,
+    new_resid_rows)``. ``resid_rows`` [C, P]: those clients' residuals
+    (the caller gathers and scatters them by client id); ``z`` [P]: the
+    AWGN, unused when ``noise_std`` is a static 0."""
+    base, delta = _flat_base_and_delta(w_base, trees)
+    zz = None if is_static_zero(noise_std) else z.to(base.dtype)
+    new, resid = sparse_aggregate_flat_rows(base, delta, resid_rows, weights,
+                                            noise_std, k_coords, k, z=zz)
+    return unravel(trees, new), resid

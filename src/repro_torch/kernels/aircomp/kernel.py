@@ -1,22 +1,29 @@
-"""Build, load and launch the hand-written CUDA AirComp kernel (Hopper).
+"""Build, load and launch the hand-written CUDA AirComp kernels (Hopper).
 
-Replaces ``src/repro/kernels/aircomp/kernel.py::aircomp_pallas``:
-y = (Σᵢ wᵢ·x[i, :] + σ·z) · (1/k) over a row-major [K, M] buffer.
+Three kernels, one per source under ``csrc/``, each replacing a TPU kernel of
+``src/repro/kernels/aircomp/kernel.py``:
 
-Bound: memory. The kernel moves K·M·sizeof(x) + 2·M·4 + K·4 bytes for K·M
-multiply-adds and uses no tensor core, so its least time on an H100 is the
-bytes over 3.35 TB/s. What the design does about it: every byte is read
-once, each warp reads whole 128-byte lines of a row (one thread per column),
-the weights sit in shared memory, and σ and 1/k are read from device
-pointers so a round needs no host sync and a new σ no rebuild
-(``csrc/aircomp.cu`` has the details).
+  - ``aircomp.cu`` (``aircomp_pallas``): y = (Σᵢ wᵢ·x[i, :] + σ·z)·(1/k)
+    over a row-major [K, M] buffer;
+  - ``quant_aircomp.cu`` (``quant_aircomp_pallas``): the same sum over the
+    stochastically rounded rows q = ⌊x/d_c + u⌋·d_c (x where d_c = 0);
+  - ``sparse_aircomp.cu`` (``sparse_aircomp_pallas``): the same sum over the
+    compressed rows x·1{|x| ≥ thr_c}.
 
-The source is compiled by ``nvcc`` (sm_90a) into a shared library with a
-plain C interface at first use, into ``build/repro_torch/`` under the
-checkout (or ``$REPRO_TORCH_BUILD_DIR`` for an installed package), named by a
-hash of the source so an unchanged source is not rebuilt; ``ctypes`` loads
-it. Nothing is built or imported when this module
-is imported.
+Bound: memory. Each kernel reads its [K, M] input(s) once, writes [M] and
+uses no tensor core, so its least time on an H100 is the bytes over
+3.35 TB/s. What the designs do about it: every byte is read once, each warp
+reads whole 128-byte lines of a row (one thread per column), the per-row
+vectors sit in shared memory, and σ and 1/k are read from device pointers so
+a round needs no host sync and a new σ no rebuild (each ``csrc/*.cu`` has
+its details).
+
+Each source is compiled by ``nvcc`` (sm_90a) into its own shared library
+with a plain C interface at first use, all sources at once, into
+``build/repro_torch/`` under the checkout (or ``$REPRO_TORCH_BUILD_DIR`` for
+an installed package), named by a hash of the source and the flags so an
+unchanged source is not rebuilt; ``ctypes`` loads it. Nothing is built or
+imported when this module is imported.
 """
 from __future__ import annotations
 
@@ -31,11 +38,15 @@ from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "aircomp.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+KERNELS = ("aircomp", "quant_aircomp", "sparse_aircomp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-# the kernel keeps the K weights in the default 48 KB of shared memory
+# aircomp keeps the K weights in the default 48 KB of shared memory; the
+# quantized and sparse kernels keep two per-row vectors there
 MAX_ROWS = 48 * 1024 // 4
+MAX_ROWS_TWO_VECTORS = MAX_ROWS // 2
+F32 = (torch.float32,)
 
 
 def _nvcc() -> str:
@@ -46,7 +57,7 @@ def _nvcc() -> str:
     if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
         return str(Path(CUDA_HOME) / "bin" / "nvcc")
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       f"{SOURCE.name}")
+                       f"the kernels under {CSRC}")
 
 
 def build_dir() -> Path:
@@ -64,38 +75,66 @@ def build_dir() -> Path:
         "REPRO_TORCH_BUILD_DIR to a writable directory for the kernel build")
 
 
-def build() -> Path:
-    """Compile the source (unless a build of the same source exists) and
-    return the library's path."""
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` lives: named by a hash of
+    its source and the nvcc flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build() -> dict[str, Path]:
+    """Compile every kernel whose library of the same source does not exist
+    yet, one ``nvcc`` a source, all started together; return each kernel's
+    library path by name."""
+    libs = {name: library_path(name) for name in KERNELS}
+    todo = {name: lib for name, lib in libs.items() if not lib.exists()}
+    if not todo:
+        return libs
     out = build_dir()
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = out / f"libaircomp-{digest}.so"
-    if lib.exists():
-        return lib
     out.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out)
-    os.close(fd)
+    nvcc = _nvcc()
+    procs = {}
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{proc.stderr}")
-        os.replace(tmp, lib)  # atomic: a concurrent builder sees all or nothing
+        for name in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out)
+            os.close(fd)
+            procs[name] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {name}.cu:\n{err}")
+            else:
+                os.replace(tmp, todo[name])  # atomic: a concurrent build sees all or nothing
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return lib
+        for tmp, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return libs
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
-    p = ctypes.c_void_p
-    lib.aircomp_launch.argtypes = [p, ctypes.c_int, p, p, p, p, p,
-                                   ctypes.c_int64, ctypes.c_int64, p]
-    lib.aircomp_launch.restype = ctypes.c_int
-    lib.aircomp_error_string.argtypes = [ctypes.c_int]
-    lib.aircomp_error_string.restype = ctypes.c_char_p
+def _library(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()[name]))
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    launch = getattr(lib, f"{name}_launch")
+    launch.argtypes = {
+        "aircomp": [p, ctypes.c_int, p, p, p, p, p, i64, i64, p],
+        "quant_aircomp": [p, p, p, p, p, p, p, p, i64, i64, p],
+        "sparse_aircomp": [p, p, p, p, p, p, p, i64, i64, p],
+    }[name]
+    launch.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
     return lib
 
 
@@ -110,37 +149,93 @@ def _check(t: torch.Tensor, name: str, device, dtypes, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_rows(kernel: str, x: torch.Tensor, x_dtypes, max_rows: int):
+    """The shared checks on the [K, M] input; returns (K, M)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{kernel} takes CUDA tensors, got {x.device}")
+    if x.dim() != 2:
+        raise ValueError(f"x must be [K, M], got shape {tuple(x.shape)}")
+    rows, m = x.shape
+    if not 1 <= rows <= max_rows or m < 1:
+        raise ValueError(f"x of shape {tuple(x.shape)}: need 1 <= K <= "
+                         f"{max_rows} and M >= 1")
+    _check(x, "x", x.device, x_dtypes, (rows, m))
+    return rows, m
+
+
+def _launch(name: str, device, *args) -> None:
+    """Call ``<name>_launch(*args, stream)`` on ``device``'s current stream
+    and raise on a refused launch."""
+    lib = _library(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, f"{name}_launch")(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           + getattr(lib, f"{name}_error_string")(rc).decode())
+
+
+
 def aircomp_cuda(x: torch.Tensor, w: torch.Tensor, z: torch.Tensor,
                  sigma: torch.Tensor, inv_k: torch.Tensor) -> torch.Tensor:
     """x [K, M] f32/bf16; w [K], z [M], sigma [], inv_k [] f32, all on one
     CUDA device -> y [M] f32. Launches on the current stream, does not
     synchronise; ``aircomp_cuda.launches`` counts the launches."""
-    if x.device.type != "cuda":
-        raise ValueError(f"aircomp_cuda takes CUDA tensors, got {x.device}")
-    if x.dim() != 2:
-        raise ValueError(f"x must be [K, M], got shape {tuple(x.shape)}")
-    rows, m = x.shape
-    if not 1 <= rows <= MAX_ROWS or m < 1:
-        raise ValueError(f"x of shape {tuple(x.shape)}: need 1 <= K <= "
-                         f"{MAX_ROWS} and M >= 1")
-    f32 = (torch.float32,)
-    _check(x, "x", x.device, (torch.float32, torch.bfloat16), (rows, m))
-    _check(w, "w", x.device, f32, (rows,))
-    _check(z, "z", x.device, f32, (m,))
-    _check(sigma, "sigma", x.device, f32, ())
-    _check(inv_k, "inv_k", x.device, f32, ())
-    lib = _library()
+    rows, m = _check_rows("aircomp_cuda", x, (torch.float32, torch.bfloat16),
+                          MAX_ROWS)
+    _check(w, "w", x.device, F32, (rows,))
+    _check(z, "z", x.device, F32, (m,))
+    _check(sigma, "sigma", x.device, F32, ())
+    _check(inv_k, "inv_k", x.device, F32, ())
     y = torch.empty((m,), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.aircomp_launch(x.data_ptr(), int(x.dtype == torch.bfloat16),
-                                w.data_ptr(), z.data_ptr(), sigma.data_ptr(),
-                                inv_k.data_ptr(), y.data_ptr(), rows, m, stream)
-    if rc != 0:
-        raise RuntimeError("aircomp kernel launch failed: "
-                           + lib.aircomp_error_string(rc).decode())
+    _launch("aircomp", x.device, x.data_ptr(), int(x.dtype == torch.bfloat16),
+            w.data_ptr(), z.data_ptr(), sigma.data_ptr(), inv_k.data_ptr(),
+            y.data_ptr(), rows, m)
     aircomp_cuda.launches += 1
     return y
 
 
+def quant_aircomp_cuda(x: torch.Tensor, w: torch.Tensor, d: torch.Tensor,
+                       u: torch.Tensor, z: torch.Tensor, sigma: torch.Tensor,
+                       inv_k: torch.Tensor) -> torch.Tensor:
+    """x, u [C, M]; w, d [C]; z [M]; sigma, inv_k []: all f32 on one CUDA
+    device -> y [M] f32. Launches on the current stream, does not
+    synchronise; ``quant_aircomp_cuda.launches`` counts the launches."""
+    rows, m = _check_rows("quant_aircomp_cuda", x, F32, MAX_ROWS_TWO_VECTORS)
+    _check(u, "u", x.device, F32, (rows, m))
+    _check(w, "w", x.device, F32, (rows,))
+    _check(d, "d", x.device, F32, (rows,))
+    _check(z, "z", x.device, F32, (m,))
+    _check(sigma, "sigma", x.device, F32, ())
+    _check(inv_k, "inv_k", x.device, F32, ())
+    y = torch.empty((m,), dtype=torch.float32, device=x.device)
+    _launch("quant_aircomp", x.device, x.data_ptr(), u.data_ptr(),
+            w.data_ptr(), d.data_ptr(), z.data_ptr(), sigma.data_ptr(),
+            inv_k.data_ptr(), y.data_ptr(), rows, m)
+    quant_aircomp_cuda.launches += 1
+    return y
+
+
+def sparse_aircomp_cuda(x: torch.Tensor, w: torch.Tensor, thr: torch.Tensor,
+                        z: torch.Tensor, sigma: torch.Tensor,
+                        inv_k: torch.Tensor) -> torch.Tensor:
+    """x [C, M]; w, thr [C]; z [M]; sigma, inv_k []: all f32 on one CUDA
+    device -> y [M] f32. Launches on the current stream, does not
+    synchronise; ``sparse_aircomp_cuda.launches`` counts the launches."""
+    rows, m = _check_rows("sparse_aircomp_cuda", x, F32, MAX_ROWS_TWO_VECTORS)
+    _check(w, "w", x.device, F32, (rows,))
+    _check(thr, "thr", x.device, F32, (rows,))
+    _check(z, "z", x.device, F32, (m,))
+    _check(sigma, "sigma", x.device, F32, ())
+    _check(inv_k, "inv_k", x.device, F32, ())
+    y = torch.empty((m,), dtype=torch.float32, device=x.device)
+    _launch("sparse_aircomp", x.device, x.data_ptr(), w.data_ptr(),
+            thr.data_ptr(), z.data_ptr(), sigma.data_ptr(), inv_k.data_ptr(),
+            y.data_ptr(), rows, m)
+    sparse_aircomp_cuda.launches += 1
+    return y
+
+
 aircomp_cuda.launches = 0
+quant_aircomp_cuda.launches = 0
+sparse_aircomp_cuda.launches = 0

@@ -25,6 +25,13 @@ def tree_size(tree: dict) -> int:
     return sum(int(v.numel()) for v in tree.values())
 
 
+def ravel(tree: dict, dtype=None) -> torch.Tensor:
+    """An unstacked tree as one contiguous [P] vector, leaves concatenated
+    in sorted-key order."""
+    return torch.cat([leaf.reshape(-1).to(dtype or leaf.dtype)
+                      for leaf in tree_leaves(tree)])
+
+
 def ravel_stack(trees: dict, dtype=None) -> torch.Tensor:
     """A stacked tree (leading axis K on every leaf) as one contiguous
     [K, P] buffer, leaves concatenated in sorted-key order."""

@@ -199,5 +199,5 @@ def test_analog_energy_ledger(scen):
     np.testing.assert_allclose(
         float(transport.downlink_energy("analog", tp, m, scn)),
         float(jtransport.downlink_energy("analog", jtp, m, jscn, num_tx=8)), rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        transport.uplink_energy("quantized", tp, t(h), m, scn)
+    with pytest.raises(ValueError, match="unknown transport"):
+        transport.uplink_energy("morse", tp, t(h), m, scn)

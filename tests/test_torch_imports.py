@@ -1,5 +1,7 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-its entry points never fall back to the CPU on their own."""
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+does ``chip_smoke.py``, the port's proof on the card), and its entry points
+never fall back to the CPU on their own."""
+import os
 import pkgutil
 import subprocess
 import sys
@@ -16,6 +18,7 @@ from repro_torch.core.simulator import run_simulation  # noqa: E402
 from repro_torch.models.logreg import logistic_regression  # noqa: E402
 
 SRC = Path(repro_torch.__file__).resolve().parent
+CHIP_SMOKE = SRC.parents[1] / "chip_smoke.py"
 
 
 def test_port_imports_no_jax_and_no_reference_package():
@@ -32,7 +35,8 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 
 def test_port_sources_name_no_jax_or_reference_import():
-    for path in SRC.rglob("*.py"):
+    assert CHIP_SMOKE.is_file()
+    for path in [*SRC.rglob("*.py"), CHIP_SMOKE]:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
@@ -47,3 +51,17 @@ def test_entry_point_without_device_raises_when_no_card(monkeypatch):
     fl = FLConfig(num_clients=4, clients_per_round=2, rounds=1, batch_size=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_simulation(logistic_regression(3, 10), fl, (x, y, x, y))
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    """Without a CUDA card the script exits non-zero and prints no result
+    line, both in the checkout and alone in an empty directory. Any card is
+    hidden from it, so the test means the same on a machine that has one."""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_bytes(CHIP_SMOKE.read_bytes())
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    for script in (CHIP_SMOKE, alone):
+        out = subprocess.run([sys.executable, str(script)], capture_output=True,
+                             text=True, cwd=script.parent, timeout=120, env=env)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout

@@ -3,7 +3,8 @@
 A helper replays the reference's key discipline with ``jax.random`` (the
 7-way per-round split of ``repro/core/simulator.py``) and hands the numbers
 to the port as ``RoundDraws``, so both packages see the same channels,
-Gumbel noise, batches and AWGN. Tolerances: ``num_scheduled`` exact;
+Gumbel noise, batches, AWGN and quantization uniforms (the reference's own
+``_client_uniforms`` of the round's noise key, for all N clients). Tolerances: ``num_scheduled`` exact;
 energy rtol 1e-5 (a different selected set would move it by a whole
 client's upload, far more); λ atol 1e-6 and loss rtol 1e-4 (f32 summation
 order differs between XLA and torch); accuracies within one test sample of
@@ -21,6 +22,7 @@ torch = pytest.importorskip("torch")
 
 from repro.configs.base import FLConfig as JFLConfig  # noqa: E402
 from repro.core.simulator import run_simulation as jax_run  # noqa: E402
+from repro.core.transport import _client_uniforms  # noqa: E402
 from repro.models.logreg import logistic_regression as jax_logreg  # noqa: E402
 from repro_torch.configs.base import FLConfig  # noqa: E402
 from repro_torch.core.draws import RoundDraws  # noqa: E402
@@ -38,6 +40,16 @@ CASES = {
     "ca_afl_C8": dict(method="ca_afl", energy_C=8.0),
     "greedy": dict(method="greedy"),
     "ca_afl_noisy_uplink": dict(method="ca_afl", energy_C=8.0, noise_std=1e-2),
+    "quantized_ca_afl": dict(method="ca_afl", energy_C=8.0,
+                             transport="quantized"),
+    "quantized_ca_afl_noisy": dict(method="ca_afl", energy_C=8.0,
+                                   noise_std=1e-2, transport="quantized"),
+    "sparse_ca_afl": dict(method="ca_afl", energy_C=8.0, transport="sparse",
+                          sparse_density=0.2),
+    "sparse_ca_afl_noisy": dict(method="ca_afl", energy_C=8.0, noise_std=1e-2,
+                                transport="sparse", sparse_density=0.2),
+    "digital_ca_afl_noisy": dict(method="ca_afl", energy_C=8.0, noise_std=1e-2,
+                                 transport="digital"),
 }
 
 
@@ -59,36 +71,42 @@ def data():
     return xs, ys, xts, yts
 
 
-@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5))
-def _reference_round(key, n, b, draw_sc, shard, leaf_shapes):
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5, 6))
+def _reference_round(key, n, b, draw_sc, shard, leaf_shapes, quantized):
     """One round of the reference's key discipline (``simulator.py``
     round_fn): the 7-way split and every draw made from it."""
     key, k_chan, k_sel, k_batch, k_noise, k_asel, k_abatch = jax.random.split(key, 7)
     keys = jax.random.split(k_noise, len(leaf_shapes))
     noise = jnp.concatenate([jax.random.normal(kk, s).reshape(-1)
                              for kk, s in zip(keys, leaf_shapes)])
+    quant_uniform = (_client_uniforms(k_noise, jnp.arange(n), noise.shape[0])
+                     if quantized else None)
     return key, (jax.random.normal(k_chan, (2, n, draw_sc)),
                  jax.random.normal(jax.random.fold_in(k_chan, 1), (n, 1)),
                  jax.random.gumbel(k_sel, (n,)),
                  jax.random.randint(k_batch, (n, b), 0, shard),
                  noise,
                  jax.random.gumbel(k_asel, (n,)),
-                 jax.random.randint(k_abatch, (n, b), 0, shard))
+                 jax.random.randint(k_abatch, (n, b), 0, shard),
+                 quant_uniform)
 
 
 def reference_draws(fl, seed, shard, leaf_shapes):
     """The reference's per-round random numbers, as ``RoundDraws``.
 
     ``leaf_shapes``: the model's parameter shapes in JAX's sorted-key order
-    (the per-leaf AWGN keys follow it). Greedy draws no selection Gumbel and
-    a noise-free config no AWGN, so those slots are None."""
+    (the per-leaf AWGN keys follow it). Greedy draws no selection Gumbel, a
+    noise-free config no AWGN and a transport other than quantized no
+    rounding uniforms, so those slots are None."""
     draw_sc = 1 if fl.flat_fading else fl.num_subcarriers
     _, key = jax.random.split(jax.random.PRNGKey(seed))
     out = []
     for _ in range(fl.rounds):
         key, vals = _reference_round(key, fl.num_clients, fl.batch_size,
-                                     draw_sc, shard, tuple(leaf_shapes))
-        d = RoundDraws(*(torch.from_numpy(np.array(v)) for v in vals))
+                                     draw_sc, shard, tuple(leaf_shapes),
+                                     fl.transport == "quantized")
+        d = RoundDraws(*(None if v is None else torch.from_numpy(np.array(v))
+                         for v in vals))
         out.append(d._replace(
             sel_gumbel=None if fl.method == "greedy" else d.sel_gumbel,
             noise=None if fl.noise_std == 0 else d.noise))
@@ -145,7 +163,9 @@ def test_cadences_match_reference(data):
     assert_history_close(port, ref, data[3].shape[1])
 
 
-@pytest.mark.parametrize("case", ["afl", "ca_afl_noisy_uplink", "greedy"])
+@pytest.mark.parametrize("case", ["afl", "ca_afl_noisy_uplink", "greedy",
+                                  "quantized_ca_afl_noisy",
+                                  "sparse_ca_afl_noisy"])
 def test_dense_path_equals_selected_k(case, data):
     """The [N, model] reference path and the selected-K path take the same
     decisions and agree to summation order (within the port)."""
@@ -202,7 +222,7 @@ def test_default_draws_run_is_seeded(data):
 
 def test_unported_paths_raise(data):
     model = logistic_regression(DIM, 10)
-    for kw in (dict(transport="quantized"), dict(temporal=True),
-               dict(method="gca"), dict(control_plane="sharded")):
+    for kw in (dict(temporal=True), dict(method="gca"),
+               dict(control_plane="sharded")):
         with pytest.raises(NotImplementedError):
             run_simulation(model, FLConfig(**{**BASE, **kw}), data, device="cpu")
