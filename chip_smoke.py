@@ -3,36 +3,52 @@
 
     python3 chip_smoke.py
 
-It builds the hand-written CUDA kernels from the sources in this checkout
+It builds every hand-written CUDA kernel from the sources in this checkout
 (into ``build/repro_torch/``, one nvcc a source, all at once), then runs
-four phases and fails (non-zero exit, no result line) if any of them fails:
+these phases and fails (non-zero exit, no result line) if any of them fails:
 
   1. the card: its name and power limit as nvidia-smi prints them, the
      torch version, the kernel build seconds;
   2. each kernel against its plain PyTorch version on the card, at the main
-     path's shapes and at the edge cases, with the f32 summation-order
-     bound |Δy| ≤ 2·K·ε₃₂·(Σᵢ|wᵢrᵢ| + |σz|)/k per element (r the row as
-     summed: x for aircomp, the rounded q for quant_aircomp, the compressed
-     c for sparse_aircomp); times of the kernel, the plain version and,
-     where one PyTorch call computes the same function, that call, from
-     CUDA events (warm-up first, median of 21 samples), beside the least
-     time the card's memory rate allows (bytes / 3.35 TB/s);
-  3. the main path at full width, once per uplink transport (analog,
-     quantized, sparse, digital): ``run_simulation`` of CA-AFL on the
-     784→10 logistic regression, N = 100, K = 40, batch 50, 60k/10k
+     paths' shapes and at the edge cases, each with its stated tolerance:
+     for the AirComp kernels the f32 summation-order bound
+     |Δy| ≤ 2·K·ε₃₂·(Σᵢ|wᵢrᵢ| + |σz|)/k per element (r the row as summed:
+     x for aircomp, the rounded q for quant_aircomp, the compressed c for
+     sparse_aircomp); for rmsnorm and flash_attention the bounds stated at
+     their phases; times of the kernel, the plain version and, where one
+     PyTorch call computes the same function, that call, from CUDA events
+     (warm-up first, median of 21 samples), beside the least time the card
+     allows (bytes / 3.35 TB/s, or operations / the peak rate of the
+     inputs' type, whichever is larger);
+  3. the simulator's main path at full width, once per uplink transport
+     (analog, quantized, sparse, digital): ``run_simulation`` of CA-AFL on
+     the 784→10 logistic regression, N = 100, K = 40, batch 50, 60k/10k
      samples, noisy uplink, T = 30 rounds, with every kernel's launch count
      set to 0 just before and read just after (the transport's kernel must
-     have launched once a round, the others never); then, after all four
-     timed runs, a torch.profiler window over 10 more rounds of each
-     (device time per round and by kernel, the device's busy share);
-  4. the card against the CPU on the same ``RoundDraws`` at quickstart
-     scale, for analog, quantized and sparse.
+     have launched once a round, the others never);
+  4. the serve path at full width: qwen2-0.5b (24 layers, d_model 896, 14
+     query / 2 KV heads, vocab 151936 padded to 152064, random weights from
+     a seed) through ``repro_torch.launch.serve``, f32 with TF32 off, run A
+     (the launcher's defaults: batch 4, prompt 32, 32 tokens) and run B (a
+     long prompt: batch 8, prompt 2048, 32 tokens), each with every launch
+     count set to 0 just before and read just after: rmsnorm exactly
+     49 × 32 = 1568 times (2L + 1 a forward), flash_attention 24 times (one
+     a prefill layer), the AirComp kernels never;
+  5. after all the timed runs of 3 and 4, a torch.profiler window over each
+     (device time, the device's busy share, device time by kernel);
+  6. the card against the CPU: the simulator on the same ``RoundDraws`` at
+     quickstart scale for analog, quantized and sparse; the serve path on
+     the same full-width weights (batch 2, prompt 64, 8 tokens, the card
+     fed the CPU's tokens), max |Δlogit| at the prefill and each step within
+     1e-3, and the greedy tokens equal wherever the CPU's top-2 margin
+     exceeds 100× that step's Δ, at no fewer than half the positions.
 
 It imports nothing of JAX and nothing of the JAX package. The last line of
 its output is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import copy
 import json
 import math
 import statistics
@@ -45,6 +61,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 EPS32 = 2.0 ** -23
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+F32_FLOPS = 67e12           # f32 outside the tensor cores
+BF16_FLOPS = 989e12         # bf16 tensor cores, dense
 SAMPLES = 21
 
 
@@ -82,9 +100,9 @@ def smi(query: str) -> str:
 def phase_card(torch):
     card = smi("name,power.limit")
     print(card, flush=True)
-    from repro_torch.kernels.aircomp import kernel as aircomp_kernel
+    from repro_torch.kernels import build
     t0 = time.perf_counter()
-    libs = aircomp_kernel.build()
+    libs = build.build()
     build_s = time.perf_counter() - t0
     emit({"card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernel_build_s": build_s,
@@ -386,12 +404,41 @@ def phase_main_path_trace(torch, data, transport):
     return trace
 
 
+def trace_summary(prof, wall_us, kernels):
+    """Device time, the device's busy share of the window's host wall time
+    (the profiler's own host cost lowers it), device launches, device time
+    by kernel, and each of ``kernels``' device µs a launch. None when the
+    trace holds no device events."""
+    from torch.autograd import DeviceType
+
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+    if not by_name:
+        return None
+    busy_us = sum(us for _, us in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    per_launch = {}
+    for kernel in kernels:
+        # demangled as "...::<kernel>_kernel...": the "::" keeps aircomp_kernel
+        # apart from quant_aircomp_kernel and sparse_aircomp_kernel
+        own = [(n, us) for name, (n, us) in by_name.items() if f"::{kernel}_kernel" in name]
+        per_launch[kernel] = (sum(us for _, us in own) / sum(n for n, _ in own)
+                              if own else None)
+    return {"device_ms": busy_us / 1e3, "wall_ms_profiled": wall_us / 1e3,
+            "device_busy_share": busy_us / wall_us,
+            "device_launches": sum(n for n, _ in by_name.values()),
+            "kernel_device_us_per_launch": per_launch,
+            "top_device_time": [{"name": name[:80], "count": n, "us": us}
+                                for name, (n, us) in top]}
+
+
 def profile_rounds(torch, model, fl, data, kernel):
     """A torch.profiler window over ``fl.rounds`` rounds: device time per
-    round, the device's busy share of the window's host wall time (the
-    profiler's own host cost lowers it), and device time by kernel. None
-    when the trace holds no device events."""
-    from torch.autograd import DeviceType
+    round, the device's busy share, and device time by kernel. None when the
+    trace holds no device events."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.simulator import run_simulation
@@ -402,28 +449,16 @@ def profile_rounds(torch, model, fl, data, kernel):
         run_simulation(model, fl, data, seed=2)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            n, us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    if not by_name:
+    s = trace_summary(prof, wall_us, (kernel,))
+    if s is None:
         return None
-    busy_us = sum(us for _, us in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    # demangled as "...::<kernel>_kernel...": the "::" keeps aircomp_kernel
-    # apart from quant_aircomp_kernel and sparse_aircomp_kernel
-    own = [(n, us) for name, (n, us) in by_name.items()
-           if f"::{kernel}_kernel" in name]
-    return {"rounds": fl.rounds, "device_ms_per_round": busy_us / fl.rounds / 1e3,
-            "wall_ms_per_round_profiled": wall_us / fl.rounds / 1e3,
-            "device_busy_share": busy_us / wall_us,
-            "device_launches_per_round": sum(n for n, _ in by_name.values()) / fl.rounds,
+    return {"rounds": fl.rounds, "device_ms_per_round": s["device_ms"] / fl.rounds,
+            "wall_ms_per_round_profiled": s["wall_ms_profiled"] / fl.rounds,
+            "device_busy_share": s["device_busy_share"],
+            "device_launches_per_round": s["device_launches"] / fl.rounds,
             "kernel": kernel,
-            "kernel_device_us_per_launch": (sum(us for _, us in own) / sum(n for n, _ in own)
-                                            if own else None),
-            "top_device_time": [{"name": name[:80], "count": n, "us": us}
-                                for name, (n, us) in top]}
+            "kernel_device_us_per_launch": s["kernel_device_us_per_launch"][kernel],
+            "top_device_time": s["top_device_time"]}
 
 
 def phase_card_vs_cpu(torch, transport):
@@ -461,16 +496,311 @@ def phase_card_vs_cpu(torch, transport):
                              f"round): {first}")
 
 
-def kernel_entry(name, tpu_line, launches, timing, trace):
-    return {"name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/aircomp/csrc/{name}.cu",
-            "replaces": f"src/repro/kernels/aircomp/kernel.py:{tpu_line}",
+# ---------------------------------------------------------------------------
+# rmsnorm and flash attention: the serve path's kernels
+# ---------------------------------------------------------------------------
+
+# rmsnorm's tolerance: f32, the sum-of-squares order differs (256 strided
+# partial sums and a tree against torch's), |Δ| ≤ (D/2 + 8)·ε₃₂·|plain| per
+# element; bf16, one bf16 rounding step, |Δ| ≤ 2⁻⁷·|plain|
+RMSNORM_CASES = [   # (name, rows, D, why this shape)
+    ("prefill_B", 16384, 896, "run B's prefill norms: 8 x 2048 tokens"),
+    ("decode", 8, 896, "run B's decode norms: one token a row"),
+    ("ragged", 300, 896, "a row count no tile divides"),
+    ("wide", 1, 4096, "one wide row"),
+]
+
+
+def rmsnorm_tolerance(dtype, d):
+    return 2.0 ** -7 if dtype != "float32" else (d / 2 + 8) * EPS32
+
+
+def phase_rmsnorm(torch):
+    """rmsnorm against its plain version at the serve path's shapes and the
+    edge cases, f32 and bf16 (bf16 with an f32 and a bf16 scale); timed at
+    run B's prefill shape and at decode's, in f32."""
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    checks, timings = [], []
+    for name, rows, d, why in RMSNORM_CASES:
+        for dtype, scale_dtype in (("float32", "float32"), ("bfloat16", "float32"),
+                                   ("bfloat16", "bfloat16")):
+            x = (3.0 * torch.randn((rows, d), generator=gen, device="cuda")).to(
+                getattr(torch, dtype))
+            scale = (1.0 + 0.1 * torch.randn((d,), generator=gen, device="cuda")).to(
+                getattr(torch, scale_dtype))
+            got = rmsnorm(x, scale, 1e-5)
+            plain = rmsnorm_ref(x, scale, 1e-5)
+            torch.cuda.synchronize()
+            err = torch.abs(got.float() - plain.float())
+            tol = rmsnorm_tolerance(dtype, d)
+            worst = float(torch.max(err - tol * torch.abs(plain.float())))
+            max_err = float(err.max())
+            checks.append({"case": name, "shape": [rows, d], "dtype": dtype,
+                           "scale_dtype": scale_dtype, "why": why,
+                           "tolerance": f"|d| <= {tol:.3g}*|plain|",
+                           "max_abs_err": max_err, "within": worst <= 0.0})
+            if not (worst <= 0.0 and math.isfinite(max_err) and got.dtype == x.dtype):
+                raise AssertionError(f"rmsnorm {name} {dtype}/{scale_dtype}: error "
+                                     f"exceeds the tolerance by {worst}")
+            if dtype == "float32" and name in ("prefill_B", "decode"):
+                nbytes = 2 * rows * d * 4 + d * 4
+                reps = 20 if rows > 1000 else 200
+                timings.append({
+                    "case": name, "shape": [rows, d], "dtype": dtype,
+                    "max_abs_err": max_err,
+                    "ms": time_ms(torch, lambda: rmsnorm_cuda(x, scale, 1e-5), reps),
+                    "plain_ms": time_ms(torch, lambda: rmsnorm_ref(x, scale, 1e-5), reps),
+                    "library_ms": time_ms(torch, lambda: torch.nn.functional.rms_norm(
+                        x, (d,), scale, 1e-5), reps),
+                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+                    "bound_by": "bytes",
+                    "bound_reason": "x read and out written once, f32; ~3 flops an "
+                                    "element is far below the f32 rate"})
+            del x, scale, got, plain, err
+    emit({"rmsnorm_checks": checks})
+    emit({"rmsnorm_timing": timings})
+    return timings
+
+
+# flash attention's tolerance: f32, the online softmax (rescaled running sums
+# over 64-key tiles) against a full softmax, |Δ| ≤ 1e-4 + 1e-4·|plain|;
+# bf16, one bf16 rounding step of the output on top, |Δ| ≤ 1e-4 + 2⁻⁷·|plain|
+FLASH_CASES = [   # (name, BHkv, G, Sq, T, d, causal, window, why)
+    ("run_A", 8, 7, 32, 32, 64, True, None, "run A's prefill: batch 4, prompt 32"),
+    ("ragged", 4, 7, 300, 300, 64, True, None, "S = 300: ragged q and kv tiles"),
+    ("run_B", 16, 7, 2048, 2048, 64, True, None, "run B's prefill: batch 8, prompt 2048"),
+    ("d128", 4, 6, 300, 300, 128, True, None, "head dim 128, G = 6"),
+    ("window64", 4, 7, 300, 300, 64, True, 64, "sliding window 64: skipped tiles"),
+    ("noncausal", 4, 7, 300, 300, 64, False, None, "non-causal"),
+]
+
+
+def allowed_pairs(torch, sq, t, causal, window):
+    """The (query, key) pairs the masks allow: the work this input needs."""
+    qp = torch.arange(sq)[:, None]
+    kp = torch.arange(t)[None, :]
+    allowed = torch.ones((sq, t), dtype=torch.bool)
+    if causal:
+        allowed &= kp <= qp
+    if window is not None:
+        allowed &= kp > qp - window
+    return int(allowed.sum())
+
+
+def flash_bound(torch, bhq, bhkv, sq, t, d, causal, window, dtype):
+    """The least time: the larger of 4·d flops an allowed pair (QKᵀ and PV)
+    over the peak rate of the inputs' type and q, k, v read and o written
+    once over the memory rate."""
+    elt = 4 if dtype == "float32" else 2
+    flops = 4 * d * allowed_pairs(torch, sq, t, causal, window) * bhq
+    nbytes = (2 * bhq * sq * d + 2 * bhkv * t * d) * elt
+    ops_ms = flops / (F32_FLOPS if dtype == "float32" else BF16_FLOPS) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"flops": flops, "bytes": nbytes, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def phase_flash(torch):
+    """flash_attention against its plain version at the serve path's shapes
+    and the edge cases, f32 and bf16; timed at runs A's and B's prefill
+    shapes (f32, and bf16 at B's)."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    checks, timings = [], []
+    for name, bhkv, g, sq, t, d, causal, window, why in FLASH_CASES:
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            q = (2.0 * torch.randn((bhkv * g, sq, d), generator=gen, device="cuda")).to(dt)
+            k = (2.0 * torch.randn((bhkv, t, d), generator=gen, device="cuda")).to(dt)
+            v = torch.randn((bhkv, t, d), generator=gen, device="cuda").to(dt)
+
+            def plain():
+                return attention_ref(q.reshape(1, bhkv * g, sq, d), k.reshape(1, bhkv, t, d),
+                                     v.reshape(1, bhkv, t, d), causal=causal,
+                                     window=window).reshape(bhkv * g, sq, d)
+
+            def kernel():
+                return flash_attention_cuda(q, k, v, group=g, causal=causal, window=window)
+
+            got, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            rtol = 2.0 ** -7 if dtype == "bfloat16" else 1e-4
+            err = torch.abs(got.float() - ref.float())
+            worst = float(torch.max(err - (1e-4 + rtol * torch.abs(ref.float()))))
+            max_err = float(err.max())
+            checks.append({"case": name, "shape": [bhkv * g, sq, t, d], "group": g,
+                           "causal": causal, "window": window, "dtype": dtype,
+                           "why": why, "tolerance": f"|d| <= 1e-4 + {rtol:.3g}*|plain|",
+                           "max_abs_err": max_err, "within": worst <= 0.0})
+            if not (worst <= 0.0 and math.isfinite(max_err) and got.dtype == dt):
+                raise AssertionError(f"flash_attention {name} {dtype}: error exceeds "
+                                     f"the tolerance by {worst}")
+            if name == "run_B" or (name == "run_A" and dtype == "float32"):
+                b = bhkv // 2   # qwen2-0.5b's 2 KV heads a sequence
+                sdpa_q = q.reshape(b, -1, sq, d)
+
+                def library():
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        sdpa_q, k.reshape(b, -1, t, d), v.reshape(b, -1, t, d),
+                        is_causal=True, enable_gqa=True)
+
+                reps = 3 if name == "run_B" else 100
+                timings.append({
+                    "case": name, "shape": [bhkv * g, sq, t, d], "group": g,
+                    "dtype": dtype, "max_abs_err": max_err,
+                    "ms": time_ms(torch, kernel, reps),
+                    "plain_ms": time_ms(torch, plain, reps),
+                    "library_ms": time_ms(torch, library, reps),
+                    **flash_bound(torch, bhkv * g, bhkv, sq, t, d, causal, window, dtype)})
+            del q, k, v, got, ref, err
+    emit({"flash_attention_checks": checks})
+    emit({"flash_attention_timing": timings})
+    return timings
+
+
+# ---------------------------------------------------------------------------
+# The serve path at full width
+# ---------------------------------------------------------------------------
+
+SERVE_RUNS = {"A": (4, 32, 32), "B": (8, 2048, 32)}   # batch, prompt, tokens
+# card vs CPU on the same f32 weights: the two sum in other orders (cuBLAS
+# and the kernels against the CPU's BLAS and the plain versions), which moved
+# the logits by 3.8e-5 to 1.0e-4 on an H100; 1e-3 is ten times that, far
+# below the 0.05 a wrong kernel would shift them by
+SERVE_DLOGIT_LIMIT = 1e-3
+
+
+def serve_setup(torch):
+    """qwen2-0.5b at full width, f32, random weights from seed 0 on the card."""
+    from repro_torch.launch.serve import init_params, serve_config
+    from repro_torch.models.api import build_model
+
+    cfg = serve_config("qwen2-0.5b")
+    model = build_model(cfg)
+    params = init_params(model, 0, "cuda")
+    n = sum(p.numel() for p in params.parameters())
+    emit({"serve_model": {"arch": cfg.name, "layers": cfg.num_layers,
+                          "d_model": cfg.d_model, "heads": cfg.num_heads,
+                          "kv_heads": cfg.num_kv_heads, "d_ff": cfg.d_ff,
+                          "vocab": cfg.vocab_size, "params": n, "dtype": cfg.dtype}})
+    return cfg, model, params
+
+
+def phase_serve(torch, counters, cfg, model, params, run):
+    """One timed serve run: exact launch counts, finite logits, real tokens."""
+    from repro_torch.launch.serve import device_name, generate, prompt_tokens
+
+    batch, prompt, gen = SERVE_RUNS[run]
+    tokens = prompt_tokens(cfg, batch, prompt, 0, "cuda")
+    generate(model, params, tokens, 2)   # warm-up: the same prefill and step shapes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    res = generate(model, params, tokens, gen, keep_logits=True)
+    launches = {name: c.launches for name, c in counters.items()}
+    want = {"rmsnorm": (2 * cfg.num_layers + 1) * gen, "flash_attention": cfg.num_layers}
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"serve run {run}: kernel {name} launched {n} times, "
+                                 f"expected {want.get(name, 0)}")
+    if tuple(res.tokens.shape) != (batch, gen) or not bool(
+            ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()):
+        raise AssertionError(f"serve run {run}: tokens {tuple(res.tokens.shape)} "
+                             "out of shape or outside the real vocabulary")
+    for i, lg in enumerate(res.logits):
+        if not bool(torch.isfinite(lg).all()) or not bool(
+                (lg[:, cfg.vocab_size:] == -1e30).all()):
+            raise AssertionError(f"serve run {run}: logits at step {i} not finite or "
+                                 "the padded vocabulary not masked")
+    emit({"serve": {"run": run, "arch": cfg.name, "batch": batch, "prompt": prompt,
+                    "gen": gen, "device": device_name("cuda"),
+                    "prefill_ms": res.prefill_ms, "decode_s": res.decode_s,
+                    "decode_tokens_per_s": res.decode_tokens_per_s(),
+                    "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "launches": launches, "tokens_0": res.tokens[0, :8].tolist()}})
+    return launches
+
+
+def profile_serve(torch, cfg, model, params, run):
+    """A torch.profiler window over one serve run (prefill + decode)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import generate, prompt_tokens
+
+    batch, prompt, gen = SERVE_RUNS[run]
+    tokens = prompt_tokens(cfg, batch, prompt, 0, "cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        generate(model, params, tokens, gen)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    summary = trace_summary(prof, wall_us, ("rmsnorm", "flash_attention"))
+    emit({"serve_trace": {"run": run, "batch": batch, "prompt": prompt, "gen": gen,
+                          **(summary or {})}})
+    return summary
+
+
+def phase_serve_card_vs_cpu(torch, cfg, model, params):
+    """The same full-width weights on the CPU and on the card: batch 2,
+    prompt 64, 8 tokens, the card fed the CPU's greedy tokens. max |Δlogit|
+    must stay within SERVE_DLOGIT_LIMIT at the prefill and at every step,
+    tokens must agree wherever the CPU's top-2 margin exceeds 100x that
+    step's max |Δlogit| (in the row), and at least half the positions must
+    be compared."""
+    from repro_torch.launch.serve import generate, prompt_tokens
+
+    tokens = prompt_tokens(cfg, 2, 64, 7, "cuda")
+    cpu_params = copy.deepcopy(params).cpu()
+    t0 = time.perf_counter()
+    cpu = generate(model, cpu_params, tokens.cpu(), 8, keep_logits=True)
+    cpu_s = time.perf_counter() - t0
+    del cpu_params
+    card = generate(model, params, tokens, 8, feed=cpu.tokens, keep_logits=True)
+    steps, compared = [], 0
+    for i, (a, b) in enumerate(zip(card.logits, cpu.logits, strict=True)):
+        delta = (a - b).abs().amax(dim=-1)                       # [B]
+        top2 = torch.topk(b, 2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        sure = margin > 100 * delta
+        compared += int(sure.sum())
+        bad = sure & (card.tokens[:, i] != cpu.tokens[:, i])
+        steps.append({"step": i, "max_abs_dlogit": float(delta.max()),
+                      "min_margin": float(margin.min()), "compared": int(sure.sum())})
+        if not bool(torch.isfinite(delta).all()) or float(delta.max()) > SERVE_DLOGIT_LIMIT:
+            raise AssertionError(f"serve card vs CPU: step {i} max |dlogit| "
+                                 f"{float(delta.max())} above {SERVE_DLOGIT_LIMIT}")
+        if bool(bad.any()):
+            raise AssertionError(f"serve card vs CPU: step {i} greedy tokens differ "
+                                 f"where the margin exceeds 100x the logit delta")
+    positions = card.tokens.numel()
+    if 2 * compared < positions:
+        raise AssertionError(f"serve card vs CPU: only {compared} of {positions} "
+                             "positions had a margin above 100x the logit delta")
+    emit({"serve_card_vs_cpu": {"batch": 2, "prompt": 64, "gen": 8, "cpu_s": cpu_s,
+                                "dlogit_limit": SERVE_DLOGIT_LIMIT,
+                                "positions_compared": compared, "positions": positions,
+                                "steps": steps}})
+    return steps
+
+
+def kernel_entry(name, source, replaces, launches, timing, device_us, **extra):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches,
             "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
             "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-            "bound_by": "bytes", "library_ms": timing["library_ms"],
-            "shape": timing["shape"],
-            "device_us_per_launch": trace and trace["kernel_device_us_per_launch"]}
+            "bound_by": timing.get("bound_by", "bytes"),
+            "library_ms": timing["library_ms"], "shape": timing["shape"],
+            "device_us_per_launch": device_us, **extra}
 
 
 def main() -> int:
@@ -483,14 +813,18 @@ def main() -> int:
     from repro_torch.kernels.aircomp.kernel import (aircomp_cuda,
                                                     quant_aircomp_cuda,
                                                     sparse_aircomp_cuda)
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
     torch.backends.cudnn.allow_tf32 = False
 
     counters = {"aircomp": aircomp_cuda, "quant_aircomp": quant_aircomp_cuda,
-                "sparse_aircomp": sparse_aircomp_cuda}
+                "sparse_aircomp": sparse_aircomp_cuda, "rmsnorm": rmsnorm_cuda,
+                "flash_attention": flash_attention_cuda}
     phase_card(torch)
     timings = {"aircomp": phase_aircomp(torch), "quant_aircomp": phase_quant(torch),
                "sparse_aircomp": phase_sparse(torch)}
+    rms_t, flash_t = phase_rmsnorm(torch), phase_flash(torch)
     emit({"clocks_after_kernel_timings":
           smi("clocks.sm,power.draw,temperature.gpu")})
     cfg, fl = fmnist_logreg.CONFIG, fmnist_logreg.FL
@@ -502,17 +836,36 @@ def main() -> int:
     for transport in TRANSPORT_KERNEL:
         launches.setdefault(TRANSPORT_KERNEL[transport],
                             phase_main_path(torch, counters, data, transport))
+    scfg, smodel, sparams = serve_setup(torch)
+    serve_launches = {run: phase_serve(torch, counters, scfg, smodel, sparams, run)
+                      for run in SERVE_RUNS}
     for transport in TRANSPORT_KERNEL:
         traces.setdefault(TRANSPORT_KERNEL[transport],
                           phase_main_path_trace(torch, data, transport))
+    serve_traces = {run: profile_serve(torch, scfg, smodel, sparams, run)
+                    for run in SERVE_RUNS}
     for transport in ("analog", "quantized", "sparse"):
         phase_card_vs_cpu(torch, transport)
+    phase_serve_card_vs_cpu(torch, scfg, smodel, sparams)
     main_t = {name: next(t for t in ts if t["case"] == "main")
               for name, ts in timings.items()}
-    emit({"kernels": [
-        kernel_entry(name, line, launches[name], main_t[name], traces[name])
-        for name, line in (("aircomp", 175), ("quant_aircomp", 131),
-                           ("sparse_aircomp", 90))]})
+    entries = [kernel_entry(name, f"src/repro_torch/kernels/aircomp/csrc/{name}.cu",
+                            f"src/repro/kernels/aircomp/kernel.py:{line}",
+                            launches[name], main_t[name],
+                            traces[name] and traces[name]["kernel_device_us_per_launch"])
+               for name, line in (("aircomp", 175), ("quant_aircomp", 131),
+                                  ("sparse_aircomp", 90))]
+    trace_b = serve_traces["B"] and serve_traces["B"]["kernel_device_us_per_launch"]
+    for name, tpu, timing in (
+            ("rmsnorm", "src/repro/kernels/rmsnorm/kernel.py:26",
+             next(t for t in rms_t if t["case"] == "prefill_B")),
+            ("flash_attention", "src/repro/kernels/flash_attention/kernel.py:74",
+             next(t for t in flash_t if t["case"] == "run_B" and t["dtype"] == "float32"))):
+        entries.append(kernel_entry(
+            name, f"src/repro_torch/kernels/{name}/csrc/{name}.cu", tpu,
+            serve_launches["B"][name], timing, trace_b and trace_b[name],
+            launches_by_run={run: ls[name] for run, ls in serve_launches.items()}))
+    emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,0 +1,47 @@
+"""Architecture registry: ``get_config(arch_id)`` / ``get_reduced(arch_id)``.
+
+Arch ids are the JAX package's (``repro.configs``). The port carries the
+ones whose paths it has ported; any other known id raises
+``NotImplementedError`` naming the ROADMAP item that ports it, and an
+unknown id raises ``KeyError`` as the JAX package does.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import INPUT_SHAPES, FLConfig, InputShape, ModelConfig
+
+_MODULES = {
+    "qwen2-0.5b": "qwen2_0_5b",
+    "fmnist-logreg": "fmnist_logreg",
+}
+
+# known to the JAX package, not ported yet: where the ROADMAP queues each
+_NOT_PORTED = {
+    "xlstm-1.3b": "ROADMAP Queue 1 item 10(b): the xLSTM family's serve path with "
+                  "the sLSTM kernel (Queue 2 item 6)",
+    **{arch: "ROADMAP Queue 1 item 10(c): the other families and their configs"
+       for arch in ("granite-34b", "qwen3-moe-30b-a3b", "qwen2-7b", "zamba2-1.2b",
+                    "llama-3.2-vision-11b", "seamless-m4t-medium", "qwen2-1.5b",
+                    "qwen3-moe-235b-a22b")},
+}
+
+
+def _module(arch: str):
+    if arch in _NOT_PORTED:
+        raise NotImplementedError(f"arch {arch!r} is not ported yet: {_NOT_PORTED[arch]}")
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted([*_MODULES, *_NOT_PORTED])}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
+
+
+def get_config(arch: str):
+    return _module(arch).CONFIG
+
+
+def get_reduced(arch: str):
+    return _module(arch).reduced()
+
+
+__all__ = ["ModelConfig", "InputShape", "INPUT_SHAPES", "FLConfig",
+           "get_config", "get_reduced"]

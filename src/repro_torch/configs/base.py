@@ -1,9 +1,104 @@
-"""FL run configuration: a field-for-field copy of ``repro.configs.base``'s
-``FLConfig`` and ``GCAParams`` (the port imports nothing from ``repro``)."""
+"""Config dataclasses: field-for-field copies of ``repro.configs.base``'s
+``ModelConfig``, ``InputShape``/``INPUT_SHAPES``, ``FLConfig`` and
+``GCAParams`` (the port imports nothing from ``repro``)."""
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import NamedTuple, Optional
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """A model architecture. Field meanings are documented on the reference
+    ``repro.configs.base.ModelConfig``; the port builds the ``dense`` family
+    only (``repro_torch.models.api.build_model``)."""
+
+    # identity
+    name: str
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
+    source: str
+
+    # transformer backbone
+    num_layers: int = 0
+    d_model: int = 0
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    head_dim: int = 0  # 0 -> d_model // num_heads
+    d_ff: int = 0
+    vocab_size: int = 0
+    qkv_bias: bool = False
+    rope_theta: float = 1e6
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+
+    # sliding-window attention variant
+    window: Optional[int] = None
+    # serving uses the rolling window cache only at/beyond this many positions
+    long_context_threshold: int = 131072
+
+    # MoE
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_aux_coef: float = 1e-2
+    moe_capacity_factor: float = 1.25
+
+    # SSM (Mamba2 / SSD)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_chunk: int = 256
+    conv_width: int = 4
+
+    # hybrid (zamba2): one shared attention block every k ssm layers
+    shared_attn_every: int = 0
+
+    # xLSTM: one sLSTM block per `slstm_group` layers (rest mLSTM)
+    slstm_group: int = 0
+
+    # VLM: a cross-attention (image) layer every k self-attn layers
+    cross_attn_every: int = 0
+    num_image_tokens: int = 1601
+
+    # audio / encoder-decoder
+    encoder_layers: int = 0
+    decoder_layers: int = 0
+    num_audio_frames: int = 1024
+
+    # numerics
+    dtype: str = "bfloat16"
+    remat: bool = True
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // max(self.num_heads, 1))
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.family == "audio"
+
+    @property
+    def has_attention(self) -> bool:
+        return self.family != "ssm" or self.name.startswith("zamba")
+
+    def with_(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
 
 
 class GCAParams(NamedTuple):

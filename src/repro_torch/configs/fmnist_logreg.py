@@ -27,3 +27,8 @@ CONFIG = LogRegConfig(name="fmnist-logreg", source="paper §IV-A", dim=784,
 # z-term is live
 FL = FLConfig(num_clients=100, clients_per_round=40, batch_size=50,
               method="ca_afl", energy_C=8.0, noise_std=1e-2)
+
+
+def reduced() -> LogRegConfig:
+    """The paper's model is small enough to run at full width everywhere."""
+    return CONFIG

@@ -18,124 +18,30 @@ vectors sit in shared memory, and σ and 1/k are read from device pointers so
 a round needs no host sync and a new σ no rebuild (each ``csrc/*.cu`` has
 its details).
 
-Each source is compiled by ``nvcc`` (sm_90a) into its own shared library
-with a plain C interface at first use, all sources at once, into
-``build/repro_torch/`` under the checkout (or ``$REPRO_TORCH_BUILD_DIR`` for
-an installed package), named by a hash of the source and the flags so an
-unchanged source is not rebuilt; ``ctypes`` loads it. Nothing is built or
-imported when this module is imported.
+Each source is built and loaded by ``repro_torch.kernels.build`` (one
+``nvcc`` a source for every kernel of the port, at first use). Nothing is
+built or imported when this module is imported.
 """
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("aircomp", "quant_aircomp", "sparse_aircomp")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+from repro_torch.kernels import build
+
 # aircomp keeps the K weights in the default 48 KB of shared memory; the
 # quantized and sparse kernels keep two per-row vectors there
 MAX_ROWS = 48 * 1024 // 4
 MAX_ROWS_TWO_VECTORS = MAX_ROWS // 2
 F32 = (torch.float32,)
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       f"the kernels under {CSRC}")
-
-
-def build_dir() -> Path:
-    """``$REPRO_TORCH_BUILD_DIR`` if set, else ``build/repro_torch/`` under
-    the ``src/`` checkout; an installed package has no checkout to build in,
-    so it must name the directory."""
-    explicit = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    if explicit:
-        return Path(explicit)
-    root = Path(__file__).resolve().parents[4]
-    if (root / "pyproject.toml").is_file() and (root / "src" / "repro_torch").is_dir():
-        return root / "build" / "repro_torch"
-    raise RuntimeError(
-        "repro_torch is not running from a source checkout; set "
-        "REPRO_TORCH_BUILD_DIR to a writable directory for the kernel build")
-
-
-def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` lives: named by a hash of
-    its source and the nvcc flags."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
-
-
-def build() -> dict[str, Path]:
-    """Compile every kernel whose library of the same source does not exist
-    yet, one ``nvcc`` a source, all started together; return each kernel's
-    library path by name."""
-    libs = {name: library_path(name) for name in KERNELS}
-    todo = {name: lib for name, lib in libs.items() if not lib.exists()}
-    if not todo:
-        return libs
-    out = build_dir()
-    out.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    procs = {}
-    try:
-        for name in todo:
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out)
-            os.close(fd)
-            procs[name] = (tmp, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-        failed = []
-        for name, (tmp, proc) in procs.items():
-            _, err = proc.communicate()
-            if proc.returncode != 0:
-                failed.append(f"nvcc failed on {name}.cu:\n{err}")
-            else:
-                os.replace(tmp, todo[name])  # atomic: a concurrent build sees all or nothing
-        if failed:
-            raise RuntimeError("\n".join(failed))
-    finally:
-        for tmp, proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            if os.path.exists(tmp):
-                os.remove(tmp)
-    return libs
-
-
-@functools.lru_cache(maxsize=None)
-def _library(name: str) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()[name]))
-    p, i64 = ctypes.c_void_p, ctypes.c_int64
-    launch = getattr(lib, f"{name}_launch")
-    launch.argtypes = {
-        "aircomp": [p, ctypes.c_int, p, p, p, p, p, i64, i64, p],
-        "quant_aircomp": [p, p, p, p, p, p, p, p, i64, i64, p],
-        "sparse_aircomp": [p, p, p, p, p, p, p, i64, i64, p],
-    }[name]
-    launch.restype = ctypes.c_int
-    err = getattr(lib, f"{name}_error_string")
-    err.argtypes = [ctypes.c_int]
-    err.restype = ctypes.c_char_p
-    return lib
+_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+# each kernel's C arguments before the stream
+ARGTYPES = {
+    "aircomp": (_P, ctypes.c_int, _P, _P, _P, _P, _P, _I64, _I64),
+    "quant_aircomp": (_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64),
+    "sparse_aircomp": (_P, _P, _P, _P, _P, _P, _P, _I64, _I64),
+}
 
 
 def _check(t: torch.Tensor, name: str, device, dtypes, shape) -> None:
@@ -164,16 +70,7 @@ def _check_rows(kernel: str, x: torch.Tensor, x_dtypes, max_rows: int):
 
 
 def _launch(name: str, device, *args) -> None:
-    """Call ``<name>_launch(*args, stream)`` on ``device``'s current stream
-    and raise on a refused launch."""
-    lib = _library(name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, f"{name}_launch")(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           + getattr(lib, f"{name}_error_string")(rc).decode())
-
+    build.launch(name, ARGTYPES[name], device, *args)
 
 
 def aircomp_cuda(x: torch.Tensor, w: torch.Tensor, z: torch.Tensor,

@@ -13,6 +13,7 @@ from repro_torch.kernels.aircomp.kernel import (aircomp_cuda,
                                                 sparse_aircomp_cuda)
 from repro_torch.kernels.aircomp.ref import (aircomp_ref, quant_aircomp_ref,
                                              sparse_aircomp_ref)
+from repro_torch.utils.device import on_cpu
 
 
 def device_scalar(v, device) -> torch.Tensor:
@@ -22,15 +23,6 @@ def device_scalar(v, device) -> torch.Tensor:
     if isinstance(v, torch.Tensor):
         return v.to(device=device, dtype=torch.float32).reshape(())
     return torch.full((), float(v), dtype=torch.float32, device=device)
-
-
-def _on_cpu(x: torch.Tensor, name: str) -> bool:
-    """True for a CPU tensor, False for a CUDA one; raises on any other."""
-    if x.device.type == "cpu":
-        return True
-    if x.device.type != "cuda":
-        raise ValueError(f"{name} runs on the CPU or a CUDA card, not {x.device}")
-    return False
 
 
 def _scalars(noise_std, k, device):
@@ -45,7 +37,7 @@ def aircomp_aggregate_flat(x: torch.Tensor, w: torch.Tensor, z: torch.Tensor,
     ``noise_std`` and ``k`` may be device scalars (the simulator's σ and the
     round's scheduled count) or Python numbers.
     """
-    if _on_cpu(x, "aircomp"):
+    if on_cpu(x, "aircomp"):
         return aircomp_ref(x, w, z, noise_std, k)
     sigma, inv_k = _scalars(noise_std, k, x.device)
     return aircomp_cuda(x, w.to(torch.float32), z, sigma, inv_k)
@@ -57,7 +49,7 @@ def quant_aircomp_flat(x: torch.Tensor, w: torch.Tensor, d: torch.Tensor,
     """Fused quantize-aggregate (Σ_c w_c·Q_c(x_c) + σz)/k over flat payload
     rows [C, M], with per-row steps ``d`` [C] and rounding uniforms ``u``
     [C, M] (the quantized transport's eq. (10) pass)."""
-    if _on_cpu(x, "quant_aircomp"):
+    if on_cpu(x, "quant_aircomp"):
         return quant_aircomp_ref(x, w, d, u, z, noise_std, k)
     sigma, inv_k = _scalars(noise_std, k, x.device)
     return quant_aircomp_cuda(x, w.to(torch.float32), d, u, z, sigma, inv_k)
@@ -68,7 +60,7 @@ def sparse_aircomp_flat(x: torch.Tensor, w: torch.Tensor, thr: torch.Tensor,
     """Fused compress-aggregate (Σ_c w_c·x_c·1{|x_c| ≥ thr_c} + σz)/k over
     flat payload rows [C, M], with per-row thresholds ``thr`` [C] (the
     sparse transport's eq. (10) pass)."""
-    if _on_cpu(x, "sparse_aircomp"):
+    if on_cpu(x, "sparse_aircomp"):
         return sparse_aircomp_ref(x, w, thr, z, noise_std, k)
     sigma, inv_k = _scalars(noise_std, k, x.device)
     return sparse_aircomp_cuda(x, w.to(torch.float32), thr, z, sigma, inv_k)

@@ -1,0 +1,135 @@
+"""Build, load and launch the port's hand-written CUDA kernels (Hopper).
+
+Every kernel source is ``kernels/<package>/csrc/<name>.cu`` with a plain C
+interface: ``int <name>_launch(..., void* stream)``, which launches on the
+given stream and returns ``cudaGetLastError()``, and
+``const char* <name>_error_string(int)``. Kernel names are unique across
+the packages.
+
+Each source is compiled by ``nvcc`` (sm_90a) into its own shared library at
+first use, all sources at once, one ``nvcc`` a source, into
+``build/repro_torch/`` under the checkout (or ``$REPRO_TORCH_BUILD_DIR`` for
+an installed package), named by a hash of the source and the flags so an
+unchanged source is not rebuilt; ``ctypes`` loads it. Nothing is built or
+imported when this module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+KERNELS_DIR = Path(__file__).resolve().parent
+# every kernel of the port by name: kernels/<package>/csrc/<name>.cu
+SOURCES = {p.stem: p for p in sorted(KERNELS_DIR.glob("*/csrc/*.cu"))}
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       f"the kernels under {KERNELS_DIR}")
+
+
+def build_dir() -> Path:
+    """``$REPRO_TORCH_BUILD_DIR`` if set, else ``build/repro_torch/`` under
+    the ``src/`` checkout; an installed package has no checkout to build in,
+    so it must name the directory."""
+    explicit = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if explicit:
+        return Path(explicit)
+    root = Path(__file__).resolve().parents[3]
+    if (root / "pyproject.toml").is_file() and (root / "src" / "repro_torch").is_dir():
+        return root / "build" / "repro_torch"
+    raise RuntimeError(
+        "repro_torch is not running from a source checkout; set "
+        "REPRO_TORCH_BUILD_DIR to a writable directory for the kernel build")
+
+
+def library_path(name: str) -> Path:
+    """Where the library of kernel ``name`` lives: named by a hash of its
+    source and the nvcc flags."""
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build() -> dict[str, Path]:
+    """Compile every kernel whose library of the same source does not exist
+    yet, one ``nvcc`` a source, all started together; return each kernel's
+    library path by name."""
+    libs = {name: library_path(name) for name in SOURCES}
+    todo = {name: lib for name, lib in libs.items() if not lib.exists()}
+    if not todo:
+        return libs
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    try:
+        for name in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out)
+            os.close(fd)
+            procs[name] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCES[name])],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {SOURCES[name].name}:\n{err}")
+            else:
+                os.replace(tmp, todo[name])  # atomic: a concurrent build sees all or nothing
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    finally:
+        for tmp, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return libs
+
+
+@functools.lru_cache(maxsize=None)
+def _library(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()[name]))
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str, argtypes: tuple):
+    fn = getattr(_library(name), f"{name}_launch")
+    fn.argtypes = [*argtypes, ctypes.c_void_p]   # the stream comes last
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(name: str, argtypes: tuple, device, *args) -> None:
+    """Call ``<name>_launch(*args, stream)`` on ``device``'s current stream
+    and raise on a refused launch. ``argtypes`` are the ctypes of ``args``
+    (``c_void_p`` for a pointer, never a bare int, or ctypes cuts it)."""
+    fn = _entry(name, argtypes)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        message = getattr(_library(name), f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {message}")

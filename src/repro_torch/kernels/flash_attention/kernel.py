@@ -1,0 +1,78 @@
+"""Launch the hand-written CUDA flash-attention kernel (Hopper).
+
+``csrc/flash_attention.cu`` replaces the TPU kernel
+``src/repro/kernels/flash_attention/kernel.py::flash_attention_pallas``:
+forward online-softmax GQA attention over q [BHq, Sq, d] and k, v
+[BHkv, T, d], q head b reading kv head b // G, causal and an optional
+sliding window (k_pos > q_pos − window), scale 1/√d, −1e30 masking, f32
+running max, denominator and accumulator; the output in q's dtype.
+
+Bound: operations. A causal launch at the long prefill (112 q heads,
+S = T = 2048, d = 64) is 60 GFLOP against 134 MB, so the least time is
+0.90 ms at the H100's 67 TFLOP/s of f32 outside the tensor cores (61 µs at
+989 TFLOP/s for bf16 inputs). What the design does about it, with SIMT FMAs
+only (mma/wgmma and TMA are later work): one block a (q head, 64-row q
+tile) looping over 64-row kv tiles staged in shared memory, so scores and
+probabilities never reach device memory; register tiles of 4 × 4 scores a
+thread; no repeated K/V for GQA; kv tiles wholly above the diagonal or
+outside the window skipped; the longest causal rows launched first.
+``csrc/flash_attention.cu`` has the details.
+
+The source is built and loaded by ``repro_torch.kernels.build``; nothing is
+built when this module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+
+HEAD_DIMS = (64, 128)
+DTYPES = (torch.float32, torch.bfloat16)
+_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+ARGTYPES = (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _I64, _I64, _I64, _I64,
+            ctypes.c_int, _I64, ctypes.c_float)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         group: int, causal: bool = True,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """q [BHq, Sq, d]; k, v [BHkv, T, d] with BHq = BHkv·group, one dtype
+    (f32 or bf16), d in {64, 128}, contiguous, on one CUDA device ->
+    [BHq, Sq, d] in q's dtype. ``window`` is None or >= 1. Launches on the
+    current stream, does not synchronise; ``flash_attention_cuda.launches``
+    counts the launches."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_cuda takes CUDA tensors, got {q.device}")
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
+        raise ValueError(f"q must be [BHq, Sq, d] and k, v one [BHkv, T, d] shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    bhq, sq, d = q.shape
+    bhkv, t, _ = k.shape
+    if d not in HEAD_DIMS or k.shape[2] != d:
+        raise ValueError(f"head dim must be one of {HEAD_DIMS} in q, k and v, got "
+                         f"{d} and {k.shape[2]}")
+    if group < 1 or bhq != bhkv * group or sq < 1 or t < 1:
+        raise ValueError(f"need BHq = BHkv·group and Sq, T >= 1: BHq={bhq}, "
+                         f"BHkv={bhkv}, group={group}, Sq={sq}, T={t}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.device != q.device or x.dtype != q.dtype or q.dtype not in DTYPES:
+            raise ValueError(f"{name} is {x.dtype} on {x.device}; the kernel takes "
+                             f"one of {DTYPES} on one device ({q.device})")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    o = torch.empty_like(q)
+    build.launch("flash_attention", ARGTYPES, q.device, q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), o.data_ptr(), int(q.dtype == torch.bfloat16), d, bhq,
+                 group, sq, t, int(causal), 0 if window is None else window,
+                 1.0 / (d ** 0.5))
+    flash_attention_cuda.launches += 1
+    return o
+
+
+flash_attention_cuda.launches = 0

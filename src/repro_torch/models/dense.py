@@ -1,0 +1,304 @@
+"""Llama-style dense decoder (qwen2-0.5b; port of ``repro.models.dense``).
+
+``DenseDecoder`` is an ``nn.Module`` whose parameters keep the JAX
+package's pytree layout leaf for leaf: every per-layer leaf is stacked on a
+leading [L] axis (wq [L, D, Hkv, G, hd], wo [L, Hkv, G, hd, D], ...), so
+``params_from_jax`` carries a JAX parameter tree across with no transposes,
+and the layer loop indexes [l] where the reference scans. Like the
+reference, it keeps a separate ``lm_head`` even where the config says
+``tie_embeddings=True``.
+
+It serves:
+
+  - the teacher-forced forward and next-token loss (forward only: this
+    slice has no backward);
+  - prefill, through the flash-attention kernel;
+  - single-token decode over a KV cache, full or rolling (sliding-window).
+
+Every RMSNorm goes through the fused kernel (``layers.rms_norm``): 2L + 1
+launches a forward, prefill or decode step.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.layers import (apply_rope, dense_init, embed_init, rms_norm,
+                                       swiglu)
+from repro_torch.models.specs import pad_vocab
+from repro_torch.utils.device import resolve_device
+
+NEG_INF = -1e30
+
+
+def _dt(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The reference's parameter tree, leaf shapes only."""
+    L, D, F = cfg.num_layers, cfg.d_model, cfg.d_ff
+    hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    g = cfg.num_heads // hkv
+    vp = pad_vocab(cfg.vocab_size)
+    layers = {
+        "attn_norm": (L, D), "wq": (L, D, hkv, g, hd), "wk": (L, D, hkv, hd),
+        "wv": (L, D, hkv, hd), "wo": (L, hkv, g, hd, D), "mlp_norm": (L, D),
+        "w_gate": (L, D, F), "w_up": (L, D, F), "w_down": (L, F, D),
+    }
+    if cfg.qkv_bias:
+        layers.update(bq=(L, hkv, g, hd), bk=(L, hkv, hd), bv=(L, hkv, hd))
+    return {"embed": (vp, D), "layers": layers, "final_norm": (D,),
+            "lm_head": (D, vp)}
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class DenseDecoder(nn.Module):
+    """The dense decoder's parameters and its serve / forward paths."""
+
+    def __init__(self, cfg: ModelConfig, tensors: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = _param(tensors["embed"])
+        self.layers = nn.ParameterDict({k: _param(v) for k, v in tensors["layers"].items()})
+        self.final_norm = _param(tensors["final_norm"])
+        self.lm_head = _param(tensors["lm_head"])
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    # --- layer pieces ------------------------------------------------------
+
+    def _qkv(self, l: int, x: torch.Tensor, positions: torch.Tensor):
+        cfg, lp = self.cfg, self.layers
+        hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        g = cfg.num_heads // hkv
+        b, s, d = x.shape
+        q = (x @ lp["wq"][l].reshape(d, -1)).reshape(b, s, hkv, g, hd)
+        k = (x @ lp["wk"][l].reshape(d, -1)).reshape(b, s, hkv, hd)
+        v = (x @ lp["wv"][l].reshape(d, -1)).reshape(b, s, hkv, hd)
+        if cfg.qkv_bias:
+            q = q + lp["bq"][l]
+            k = k + lp["bk"][l]
+            v = v + lp["bv"][l]
+        q = apply_rope(q.reshape(b, s, hkv * g, hd), positions, cfg.rope_theta)
+        q = q.reshape(b, s, hkv, g, hd)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        return q, k, v
+
+    def _attn_out(self, l: int, o: torch.Tensor) -> torch.Tensor:
+        b, s = o.shape[:2]
+        wo = self.layers["wo"][l]
+        return o.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
+
+    def _mlp(self, l: int, h: torch.Tensor) -> torch.Tensor:
+        lp = self.layers
+        return swiglu(h, lp["w_gate"][l], lp["w_up"][l], lp["w_down"][l])
+
+    def _layer(self, l: int, x: torch.Tensor, positions: torch.Tensor,
+               window: Optional[int]):
+        """One pre-norm GQA + SwiGLU block (forward / prefill path); returns
+        the new residual and the layer's (k, v)."""
+        cfg = self.cfg
+        h = rms_norm(x, self.layers["attn_norm"][l], cfg.norm_eps)
+        q, k, v = self._qkv(l, h, positions)
+        o = attn_lib.attention(q, k, v, causal=True, window=window)
+        x = x + self._attn_out(l, o)
+        h = rms_norm(x, self.layers["mlp_norm"][l], cfg.norm_eps)
+        return x + self._mlp(l, h), (k, v)
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return torch.nn.functional.embedding(tokens, self.embed).to(_dt(self.cfg))
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, S, D] -> f32 logits [B, S, Vp], the padded vocab set to -1e30."""
+        logits = (x @ self.lm_head).to(torch.float32)
+        if logits.shape[-1] != self.cfg.vocab_size:
+            logits[..., self.cfg.vocab_size:] = NEG_INF
+        return logits
+
+    # --- forward / loss ----------------------------------------------------
+
+    def forward(self, tokens: torch.Tensor, *, window: Optional[int] = None) -> torch.Tensor:
+        """Teacher-forced forward: tokens [B, S] -> logits [B, S, Vp]."""
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x = self._embed(tokens)
+        for l in range(self.cfg.num_layers):
+            x, _ = self._layer(l, x, positions, window)
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        return self._logits(x)
+
+    def loss_fn(self, batch: dict) -> torch.Tensor:
+        logits = self(batch["tokens"])
+        return token_xent(logits[:, :-1], batch["labels"][:, 1:], batch.get("weights"))
+
+    # --- serve -------------------------------------------------------------
+
+    def prefill(self, tokens: torch.Tensor):
+        """tokens [B, S] -> (last-token logits [B, Vp], cache {"k", "v"}:
+        [L, B, S, Hkv, hd] each)."""
+        cfg = self.cfg
+        b, s = tokens.shape
+        positions = torch.arange(s, device=tokens.device)
+        window = cfg.window if (cfg.window and s > cfg.window) else None
+        shape = (cfg.num_layers, b, s, cfg.num_kv_heads, cfg.resolved_head_dim)
+        cache = {"k": torch.empty(shape, dtype=_dt(cfg), device=tokens.device),
+                 "v": torch.empty(shape, dtype=_dt(cfg), device=tokens.device)}
+        x = self._embed(tokens)
+        for l in range(cfg.num_layers):
+            x, (k, v) = self._layer(l, x, positions, window)
+            cache["k"][l] = k
+            cache["v"][l] = v
+        x = rms_norm(x[:, -1:], self.final_norm, cfg.norm_eps)
+        return self._logits(x)[:, 0], cache
+
+    def decode_step(self, cache: dict, token: torch.Tensor, pos):
+        """One decode step: token [B] int, pos an int (the uniform batch's
+        position; a 0-dim tensor is read back to the host). Returns
+        (logits [B, Vp], cache). The new K/V are written into ``cache`` in
+        place (the reference returns an updated copy). The cache is rolling
+        iff it was allocated as long as the window (sliding-window serving)."""
+        cfg = self.cfg
+        pos = int(pos)
+        dev = token.device
+        t = cache["k"].shape[2]
+        positions = torch.arange(pos, pos + 1, device=dev)
+        rolling = cfg.window is not None and t == cfg.window
+        slot = pos % t if rolling else pos
+        if rolling:
+            kv_pos = _rolling_kv_pos(pos, t, dev)
+            # unwritten slots (pos < window) carry negative positions: mask
+            # them by pushing beyond the causal horizon
+            kv_pos = torch.where(kv_pos < 0, 2 ** 30, kv_pos)
+        else:
+            kv_pos = torch.arange(t, device=dev)
+        x = self._embed(token[:, None])
+        for l in range(cfg.num_layers):
+            h = rms_norm(x, self.layers["attn_norm"][l], cfg.norm_eps)
+            q, k, v = self._qkv(l, h, positions)
+            ck, cv = cache["k"][l], cache["v"][l]
+            ck[:, slot] = k[:, 0]
+            cv[:, slot] = v[:, 0]
+            o = attn_lib.attention(
+                q, ck, cv, q_pos=positions, kv_pos=kv_pos, causal=True,
+                window=cfg.window if rolling else None,
+                kv_len=None if rolling else pos + 1)
+            x = x + self._attn_out(l, o)
+            h = rms_norm(x, self.layers["mlp_norm"][l], cfg.norm_eps)
+            x = x + self._mlp(l, h)
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        return self._logits(x)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+
+def init(cfg: ModelConfig, generator: torch.Generator) -> DenseDecoder:
+    """Random parameters from ``generator``, on its device, drawn as the
+    reference draws them: truncated normals with its fan-in rule, norms at
+    1, biases at 0."""
+    dt = _dt(cfg)
+    shapes = param_shapes(cfg)
+    ls = shapes["layers"]
+    D = cfg.d_model
+
+    def stacked(name, scale=None):
+        return dense_init(ls[name], dt, generator, scale)
+
+    ones = lambda shape: torch.ones(shape, dtype=dt, device=generator.device)
+    zeros = lambda shape: torch.zeros(shape, dtype=dt, device=generator.device)
+    embed = embed_init(shapes["embed"], dt, generator)
+    layers = {"attn_norm": ones(ls["attn_norm"]), "wq": stacked("wq"),
+              "wk": stacked("wk"), "wv": stacked("wv"),
+              "wo": stacked("wo", scale=1.0 / D ** 0.5),
+              "mlp_norm": ones(ls["mlp_norm"]), "w_gate": stacked("w_gate"),
+              "w_up": stacked("w_up"), "w_down": stacked("w_down")}
+    lm_head = dense_init(shapes["lm_head"], dt, generator)
+    if cfg.qkv_bias:
+        layers.update(bq=zeros(ls["bq"]), bk=zeros(ls["bk"]), bv=zeros(ls["bv"]))
+    return DenseDecoder(cfg, {"embed": embed, "layers": layers,
+                              "final_norm": ones(shapes["final_norm"]),
+                              "lm_head": lm_head})
+
+
+def params_from_jax(cfg: ModelConfig, np_params: dict, device=None) -> DenseDecoder:
+    """The reference's parameter tree (numpy arrays, per-layer leaves stacked
+    on [L]) as a ``DenseDecoder`` on ``device`` (``None``: the card, raising
+    without one), leaf for leaf with no transposes."""
+    device = resolve_device(device)
+    dt = _dt(cfg)
+    shapes = param_shapes(cfg)
+
+    def tensor(a, shape):
+        a = np.asarray(a)
+        if tuple(a.shape) != tuple(shape):
+            raise ValueError(f"leaf of shape {a.shape}, expected {shape}")
+        t = torch.from_numpy(np.ascontiguousarray(a.astype(np.float32)))
+        return t.to(device=device, dtype=dt)
+
+    return DenseDecoder(cfg, {
+        "embed": tensor(np_params["embed"], shapes["embed"]),
+        "layers": {k: tensor(np_params["layers"][k], s)
+                   for k, s in shapes["layers"].items()},
+        "final_norm": tensor(np_params["final_norm"], shapes["final_norm"]),
+        "lm_head": tensor(np_params["lm_head"], shapes["lm_head"])})
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def per_token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """-log p(label) per token."""
+    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+    label_logit = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return lse - label_logit
+
+
+def token_xent(logits: torch.Tensor, labels: torch.Tensor,
+               weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy; weights: optional per-example [B]."""
+    per_ex = torch.mean(per_token_nll(logits, labels), dim=-1)  # [B]
+    if weights is not None:
+        return torch.mean(per_ex * weights)
+    return torch.mean(per_ex)
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+
+def cache_len(cfg: ModelConfig, seq_len: int) -> int:
+    """Rolling (sliding-window) cache for long contexts, full cache otherwise
+    (only beyond ``long_context_threshold``)."""
+    if (cfg.window is not None and seq_len > cfg.window
+            and seq_len >= cfg.long_context_threshold):
+        return cfg.window
+    return seq_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device) -> dict:
+    t = cache_len(cfg, seq_len)
+    shape = (cfg.num_layers, batch, t, cfg.num_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=_dt(cfg), device=device),
+            "v": torch.zeros(shape, dtype=_dt(cfg), device=device)}
+
+
+def _rolling_kv_pos(pos: int, t: int, device) -> torch.Tensor:
+    """Absolute positions held by each rolling-cache slot at write-time `pos`."""
+    slots = torch.arange(t, device=device)
+    return pos - torch.remainder(pos % t - slots, t)

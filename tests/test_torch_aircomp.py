@@ -24,7 +24,7 @@ from repro.kernels.aircomp.kernel import aircomp_pallas  # noqa: E402
 from repro.kernels.aircomp.ref import aircomp_ref as jax_aircomp_ref  # noqa: E402
 from repro_torch.core.aircomp import (aircomp_aggregate_stack_tree,  # noqa: E402
                                       aircomp_aggregate_tree)
-from repro_torch.kernels.aircomp import kernel as kernel_mod  # noqa: E402
+from repro_torch.kernels import build as build_mod  # noqa: E402
 from repro_torch.kernels.aircomp.kernel import aircomp_cuda  # noqa: E402
 from repro_torch.kernels.aircomp.ops import aircomp_aggregate_flat  # noqa: E402
 from repro_torch.kernels.aircomp.ref import aircomp_ref  # noqa: E402
@@ -144,14 +144,14 @@ def test_dispatch_refuses_other_devices():
 
 
 def test_build_dir_is_the_checkouts_or_the_named_one(monkeypatch, tmp_path):
-    """The kernel builds under the checkout's ``build/``; an installed
+    """The kernels build under the checkout's ``build/``; an installed
     package (no checkout around it) needs REPRO_TORCH_BUILD_DIR or raises."""
     monkeypatch.delenv("REPRO_TORCH_BUILD_DIR", raising=False)
-    root = Path(kernel_mod.__file__).resolve().parents[4]
-    assert kernel_mod.build_dir() == root / "build" / "repro_torch"
-    site = tmp_path / "lib" / "site-packages" / "repro_torch" / "kernels" / "aircomp"
-    monkeypatch.setattr(kernel_mod, "__file__", str(site / "kernel.py"))
+    root = Path(build_mod.__file__).resolve().parents[3]
+    assert build_mod.build_dir() == root / "build" / "repro_torch"
+    site = tmp_path / "lib" / "site-packages" / "repro_torch" / "kernels"
+    monkeypatch.setattr(build_mod, "__file__", str(site / "build.py"))
     with pytest.raises(RuntimeError, match="REPRO_TORCH_BUILD_DIR"):
-        kernel_mod.build_dir()
+        build_mod.build_dir()
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "kbuild"))
-    assert kernel_mod.build_dir() == tmp_path / "kbuild"
+    assert build_mod.build_dir() == tmp_path / "kbuild"

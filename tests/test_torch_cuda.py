@@ -6,13 +6,15 @@ file imports no JAX, so it runs on a machine that has only PyTorch
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance: the f32 summation-order bound |Δy| ≤ 2·K·ε₃₂·(Σᵢ|wᵢxᵢ| + |σz|)/k
+Tolerance of the AirComp kernels: the f32 summation-order bound |Δy| ≤ 2·K·ε₃₂·(Σᵢ|wᵢxᵢ| + |σz|)/k
 per element (the kernel sums rows in order and multiplies by 1/k; the
 plain version divides by k), over the rounded rows |w·q| for the quantized
 kernel and the compressed rows |w·c| for the sparse one. One rounding step
 moved to the next grid point (d/k ≈ 8e-4 at the main shape) lies orders of
 magnitude above the bound, so it also catches a wrong floor.
 """
+import copy
+
 import numpy as np
 import pytest
 
@@ -135,3 +137,130 @@ def test_sparse_aircomp_kernel_matches_plain(card):
     assert _within_bound(got, plain, w, kept, z, 1e-2, k)
     with pytest.raises(ValueError, match="dtype"):
         sparse_aircomp_flat(x.double(), w, thr, z.double(), noise_std=0.0, k=1.0)
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm and flash attention (the dense decoder's serve path)
+# ---------------------------------------------------------------------------
+#
+# Tolerances. rmsnorm f32: the sum-of-squares order differs (256 strided
+# partial sums and a tree against torch's), bounded by |Δ| ≤ (D/2 + 8)·ε₃₂
+# ·|plain| per element; bf16: one bf16 rounding step, |Δ| ≤ 2⁻⁷·|plain|.
+# flash attention f32: online softmax (rescaled running sums, 64-key tiles)
+# against a full softmax, atol = rtol = 1e-4 on outputs of |o| ≤ max|v|;
+# bf16 outputs: one bf16 rounding step on top, rtol 2⁻⁷. A wrong kv head,
+# mask or dropped tile moves outputs by O(0.1).
+
+from repro_torch.configs import get_reduced  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda  # noqa: E402
+from repro_torch.kernels.rmsnorm.ops import rmsnorm  # noqa: E402
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref  # noqa: E402
+from repro_torch.launch.serve import generate, init_params, prompt_tokens  # noqa: E402
+from repro_torch.models.api import build_model  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(300, 896), (8, 896), (1, 4096), (1024, 64)])
+@pytest.mark.parametrize("dtype,scale_dtype", [("float32", "float32"),
+                                               ("bfloat16", "float32"),
+                                               ("bfloat16", "bfloat16")])
+def test_rmsnorm_kernel_matches_plain(card, rows, d, dtype, scale_dtype):
+    gen = torch.Generator(device=card)
+    gen.manual_seed(3)
+    x = (3.0 * torch.randn((rows, d), generator=gen, device=card)).to(getattr(torch, dtype))
+    scale = (1.0 + 0.1 * torch.randn((d,), generator=gen, device=card)).to(
+        getattr(torch, scale_dtype))
+    before = rmsnorm_cuda.launches
+    got = rmsnorm(x.reshape(rows, 1, d), scale, 1e-5).reshape(rows, d)
+    torch.cuda.synchronize()
+    assert rmsnorm_cuda.launches == before + 1
+    assert got.dtype == x.dtype
+    plain = rmsnorm_ref(x, scale, 1e-5)
+    tol = 2.0 ** -7 if x.dtype == torch.bfloat16 else (d / 2 + 8) * EPS32
+    assert bool((torch.abs(got.float() - plain.float())
+                 <= tol * torch.abs(plain.float())).all())
+
+
+@pytest.mark.cuda
+def test_rmsnorm_kernel_refuses_what_it_does_not_take(card):
+    with pytest.raises(ValueError, match="dtype"):
+        rmsnorm(torch.zeros((4, 8), dtype=torch.float64, device=card),
+                torch.ones(8, dtype=torch.float64, device=card))
+    with pytest.raises(ValueError, match="D <= 8192"):
+        rmsnorm(torch.zeros((2, 8193), device=card), torch.ones(8193, device=card))
+    with pytest.raises(ValueError, match="scale has dtype"):
+        rmsnorm(torch.zeros((2, 8), device=card),
+                torch.ones(8, dtype=torch.bfloat16, device=card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bhkv,g,sq,t,d,causal,window", [
+    (2, 7, 300, 300, 64, True, None),    # qwen2-0.5b's G, ragged tiles
+    (1, 7, 32, 32, 64, True, None),      # one partial tile
+    (2, 6, 130, 130, 128, True, None),   # d = 128
+    (2, 2, 300, 300, 64, True, 64),      # sliding window: skipped tiles
+    (1, 1, 200, 200, 64, True, 1),       # window 1: the diagonal only
+    (2, 2, 100, 300, 64, False, None),   # non-causal, Sq != T
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_kernel_matches_plain(card, bhkv, g, sq, t, d, causal,
+                                              window, dtype):
+    gen = torch.Generator(device=card)
+    gen.manual_seed(4)
+    dt = getattr(torch, dtype)
+    q = (2.0 * torch.randn((bhkv * g, sq, d), generator=gen, device=card)).to(dt)
+    k = (2.0 * torch.randn((bhkv, t, d), generator=gen, device=card)).to(dt)
+    v = torch.randn((bhkv, t, d), generator=gen, device=card).to(dt)
+    before = flash_attention_cuda.launches
+    got = flash_attention_cuda(q, k, v, group=g, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    assert got.dtype == dt
+    plain = attention_ref(q.reshape(1, bhkv * g, sq, d), k.reshape(1, bhkv, t, d),
+                          v.reshape(1, bhkv, t, d), causal=causal,
+                          window=window).reshape(bhkv * g, sq, d)
+    rtol = 2.0 ** -7 if dt == torch.bfloat16 else 1e-4
+    assert bool((torch.abs(got.float() - plain.float())
+                 <= 1e-4 + rtol * torch.abs(plain.float())).all())
+
+
+@pytest.mark.cuda
+def test_flash_attention_model_layout_and_refusals(card):
+    """ops.flash_attention in the model layout (G = 7) equals the plain
+    version on the flattened heads; d = 96 and f64 raise."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(5)
+    q = torch.randn((2, 64, 2, 7, 64), generator=gen, device=card)
+    k = torch.randn((2, 64, 2, 64), generator=gen, device=card)
+    v = torch.randn((2, 64, 2, 64), generator=gen, device=card)
+    got = flash_attention(q, k, v, causal=True)
+    plain = flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=True)
+    assert torch.allclose(got.cpu(), plain, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_cuda(torch.zeros((2, 8, 96), device=card),
+                             torch.zeros((1, 8, 96), device=card),
+                             torch.zeros((1, 8, 96), device=card), group=2)
+    with pytest.raises(ValueError, match="float64"):
+        flash_attention(q.double(), k.double(), v.double())
+
+
+@pytest.mark.cuda
+def test_reduced_serve_launches_the_kernels(card):
+    """Reduced qwen2-0.5b (2 layers): prefill + 3 decode steps launch
+    rmsnorm 4 × (2L + 1) times and flash attention L times, and give the
+    CPU's greedy tokens when fed the CPU's tokens."""
+    cfg = get_reduced("qwen2-0.5b").with_(dtype="float32", remat=False)
+    model = build_model(cfg)
+    params = init_params(model, 0, card)
+    tokens = prompt_tokens(cfg, 2, 16, 0, card)
+    cpu = generate(model, copy.deepcopy(params).cpu(), tokens.cpu(), 4,
+                   keep_logits=True)
+    r0, f0 = rmsnorm_cuda.launches, flash_attention_cuda.launches
+    got = generate(model, params, tokens, 4, feed=cpu.tokens, keep_logits=True)
+    assert rmsnorm_cuda.launches - r0 == 4 * (2 * cfg.num_layers + 1)
+    assert flash_attention_cuda.launches - f0 == cfg.num_layers
+    for a, b in zip(got.logits, cpu.logits, strict=True):
+        assert torch.allclose(a, b, rtol=1e-3, atol=1e-3)
