@@ -14,34 +14,40 @@ these phases and fails (non-zero exit, no result line) if any of them fails:
      for the AirComp kernels the f32 summation-order bound
      |Δy| ≤ 2·K·ε₃₂·(Σᵢ|wᵢrᵢ| + |σz|)/k per element (r the row as summed:
      x for aircomp, the rounded q for quant_aircomp, the compressed c for
-     sparse_aircomp); for rmsnorm and flash_attention the bounds stated at
-     their phases; times of the kernel, the plain version and, where one
-     PyTorch call computes the same function, that call, from CUDA events
-     (warm-up first, median of 21 samples), beside the least time the card
-     allows (bytes / 3.35 TB/s, or operations / the peak rate of the
-     inputs' type, whichever is larger);
+     sparse_aircomp); for rmsnorm, flash_attention and slstm the bounds
+     stated at their phases; times of the kernel, the plain version and,
+     where one PyTorch call computes the same function, that call, from CUDA
+     events (warm-up first, median of 21 samples; 3 of the plain sLSTM scan
+     at S = 2048), beside the least time the card allows (bytes / 3.35 TB/s,
+     or operations / the peak rate of the inputs' type, whichever is larger);
   3. the simulator's main path at full width, once per uplink transport
      (analog, quantized, sparse, digital): ``run_simulation`` of CA-AFL on
      the 784→10 logistic regression, N = 100, K = 40, batch 50, 60k/10k
      samples, noisy uplink, T = 30 rounds, with every kernel's launch count
      set to 0 just before and read just after (the transport's kernel must
      have launched once a round, the others never);
-  4. the serve path at full width: qwen2-0.5b (24 layers, d_model 896, 14
-     query / 2 KV heads, vocab 151936 padded to 152064, random weights from
-     a seed) through ``repro_torch.launch.serve``, f32 with TF32 off, run A
-     (the launcher's defaults: batch 4, prompt 32, 32 tokens) and run B (a
-     long prompt: batch 8, prompt 2048, 32 tokens), each with every launch
-     count set to 0 just before and read just after: rmsnorm exactly
-     49 × 32 = 1568 times (2L + 1 a forward), flash_attention 24 times (one
-     a prefill layer), the AirComp kernels never;
+  4. the serve path at full width, f32 with TF32 off, through
+     ``repro_torch.launch.serve``, random weights from a seed, run A (the
+     launcher's defaults: batch 4, prompt 32, 32 tokens) and run B (a long
+     prompt: batch 8, prompt 2048, 32 tokens), each with every launch count
+     set to 0 just before and read just after, for two models:
+     qwen2-0.5b (24 layers, d_model 896, 14 query / 2 KV heads, vocab
+     151936 padded to 152064): rmsnorm exactly 49 × 32 = 1568 times (2L + 1
+     a forward), flash_attention 24 times (one a prefill layer), the others
+     never; and xlstm-1.3b at full width and depth (48 layers in 6
+     super-blocks of 7 mLSTM + 1 sLSTM blocks, d_model 2048, 4 heads, vocab
+     50304 padded to 50688, 2.22 B parameters): slstm exactly 6 × 32 = 192
+     times (one a super-block a forward), rmsnorm 97 × 32 = 3104 times, the
+     others never;
   5. after all the timed runs of 3 and 4, a torch.profiler window over each
      (device time, the device's busy share, device time by kernel);
   6. the card against the CPU: the simulator on the same ``RoundDraws`` at
-     quickstart scale for analog, quantized and sparse; the serve path on
-     the same full-width weights (batch 2, prompt 64, 8 tokens, the card
-     fed the CPU's tokens), max |Δlogit| at the prefill and each step within
-     1e-3, and the greedy tokens equal wherever the CPU's top-2 margin
-     exceeds 100× that step's Δ, at no fewer than half the positions.
+     quickstart scale for analog, quantized and sparse; each serve path on
+     the same full-width weights (xlstm-1.3b cut to one super-block, 8
+     layers; batch 2, prompt 64, 8 tokens, the card fed the CPU's tokens),
+     max |Δlogit| at the prefill and each step within 1e-3, and the greedy
+     tokens equal wherever the CPU's top-2 margin exceeds 100× that step's
+     Δ, at no fewer than half the positions.
 
 It imports nothing of JAX and nothing of the JAX package. The last line of
 its output is ``{"ok": true, "device": {...}}``.
@@ -70,14 +76,15 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(torch, fn, reps: int) -> float:
-    """Median over SAMPLES of the CUDA-event time of ``reps`` back-to-back
-    calls, per call (three warm-up calls first)."""
-    for _ in range(3):
+def time_ms(torch, fn, reps: int, samples: int = SAMPLES) -> float:
+    """Median over ``samples`` of the CUDA-event time of ``reps``
+    back-to-back calls, per call (three warm-up calls first; one when
+    ``samples`` is below SAMPLES, for a slow plain version)."""
+    for _ in range(3 if samples >= SAMPLES else 1):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(SAMPLES):
+    for _ in range(samples):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -667,9 +674,150 @@ def phase_flash(torch):
 
 
 # ---------------------------------------------------------------------------
+# slstm: the xLSTM decoder's time-scan kernel
+# ---------------------------------------------------------------------------
+
+# slstm's tolerance, per output X (hs and the final h, c, n, m):
+# |Δ| ≤ d·ε₃₂·max Σ_k|h_k||r_k| + 4·max|X_plain − X_f64|: the f32 bound of one
+# length-d dot product at the pre-activation (where the two sums part; |h| ≤
+# 1) plus four times what the plain version's own f32 arithmetic moves X
+# over the scan, measured against its f64 run on the same inputs (the
+# recurrence carries and, over thousands of steps, amplifies a rounding
+# difference); a bf16 hs adds one bf16 step of |X|
+SLSTM_CASES = [   # (name, S, B, H, d, gx dtype, R dtype, state, why)
+    ("serve_B", 2048, 8, 4, 512, "float32", "float32", "init",
+     "serve B's prefill scan: batch 8, prompt 2048"),
+    ("serve_A", 32, 4, 4, 512, "float32", "float32", "init",
+     "serve A's prefill scan: batch 4, prompt 32"),
+    ("decode_B4", 1, 4, 4, 512, "float32", "float32", "random", "serve A's decode step"),
+    ("decode_B8", 1, 8, 4, 512, "float32", "float32", "random", "serve B's decode step"),
+    ("reduced_d64", 37, 3, 4, 64, "float32", "float32", "random",
+     "the reduced config's d = 64, S = 37"),
+    ("S37", 37, 8, 4, 512, "float32", "float32", "random", "S = 37 from a carried state"),
+    ("B13", 16, 13, 4, 512, "float32", "float32", "random", "13 rows: two passes of 8"),
+    ("bf16_r", 64, 8, 4, 512, "float32", "bfloat16", "init", "bf16 R: h rounded to bf16"),
+    ("bf16_gx", 64, 8, 4, 512, "bfloat16", "float32", "random", "bf16 gx and hs"),
+]
+
+
+def slstm_inputs(torch, gen, s, b, h, d, gx_dtype, r_dtype, state):
+    """gx ~ N(0, 1) as the model's u·W_gates is, R ~ N(0, 1/d) as its init,
+    and the initial state (m = −1e30) or one a scan could have left."""
+    dev = "cuda"
+    gx = torch.randn((s, b, 4, h, d), generator=gen, device=dev).to(getattr(torch, gx_dtype))
+    r = (torch.randn((h, d, 4, d), generator=gen, device=dev) / d ** 0.5).to(
+        getattr(torch, r_dtype))
+    bias = 0.1 * torch.randn((4, h, d), generator=gen, device=dev)
+    if state == "init":
+        z = torch.zeros((b, h, d), device=dev)
+        return gx, r, bias, z, z.clone(), z.clone(), torch.full((b, h, d), -1e30, device=dev)
+    n0 = 1.0 + torch.rand((b, h, d), generator=gen, device=dev)
+    c0 = (2.0 * torch.rand((b, h, d), generator=gen, device=dev) - 1.0) * n0
+    h0 = torch.tanh(torch.randn((b, h, d), generator=gen, device=dev))
+    return gx, r, bias, h0, c0, n0, 3.0 * torch.randn((b, h, d), generator=gen, device=dev)
+
+
+def slstm_check(torch, args, got):
+    """Each output of the kernel against the plain version under the
+    tolerance above: (max |Δ| over the outputs, worst excess, the dot bound,
+    max |plain − f64| over the outputs, both by output)."""
+    from repro_torch.kernels.slstm.ref import slstm_ref
+
+    gx, r, bias, *states = args
+    plain = slstm_ref(*args)
+    exact = slstm_ref(gx.double(), r.double() if r.dtype == torch.float32 else r,
+                      bias, *states)
+    dot = r.shape[1] * EPS32 * float(r.float().abs().sum(dim=1).amax())
+    worst, by_output = -math.inf, {}
+    for name, ours, ref, acc in zip(("hs", "h", "c", "n", "m"), [got[0], *got[1]],
+                                    [plain[0], *plain[1]], [exact[0], *exact[1]],
+                                    strict=True):
+        ref64 = ref.double()
+        moved = float((ref64 - acc).abs().max())
+        tol = dot + 4.0 * moved
+        if ours.dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -8 * ref64.abs()
+        err = (ours.double() - ref64).abs()
+        by_output[name] = {"max_abs_err": float(err.max()), "plain_vs_f64": moved}
+        worst = max(worst, float((err - tol).max()))
+    max_err = max(v["max_abs_err"] for v in by_output.values())
+    drift = max(v["plain_vs_f64"] for v in by_output.values())
+    return max_err, worst, dot, drift, by_output
+
+
+def slstm_bound(s, b, h, d, gx_bytes, r_bytes):
+    """The least time: 2·S·B·4·H·d² flops of f32 FMAs (the recurrent
+    products) over the f32 rate, or gx, R, the bias and the four states read
+    once and hs and the four final states written once over the memory rate."""
+    flops = 2 * s * b * 4 * h * d * d
+    nbytes = (s * b * 4 * h * d * gx_bytes + h * d * 4 * d * r_bytes + 4 * h * d * 4
+              + s * b * h * d * gx_bytes + 8 * b * h * d * 4)
+    ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    return {"flops": flops, "bytes": nbytes, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def phase_slstm(torch):
+    """slstm against its plain version at the serve path's scan shapes and
+    the edge cases (one launch a scan; a scan split in two equals one call,
+    bit for bit); timed at serve B's prefill scan (the main shape), serve
+    A's and a decode step (B = 4)."""
+    from repro_torch.kernels.slstm.kernel import slstm_cuda
+    from repro_torch.kernels.slstm.ops import slstm_scan
+    from repro_torch.kernels.slstm.ref import slstm_ref
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    checks, timings = [], []
+    for name, s, b, h, d, gx_dt, r_dt, state, why in SLSTM_CASES:
+        args = slstm_inputs(torch, gen, s, b, h, d, gx_dt, r_dt, state)
+        before = slstm_cuda.launches
+        got = slstm_scan(*args)
+        torch.cuda.synchronize()
+        if slstm_cuda.launches != before + 1:
+            raise AssertionError(f"slstm {name}: {slstm_cuda.launches - before} launches")
+        max_err, worst, dot, drift, by_output = slstm_check(torch, args, got)
+        checks.append({"case": name, "shape": [s, b, h, d], "gx": gx_dt, "r": r_dt,
+                       "state": state, "why": why, "dot_bound": dot,
+                       "plain_vs_f64": drift, "max_abs_err": max_err,
+                       "by_output": by_output, "within": worst <= 0.0})
+        if not (worst <= 0.0 and math.isfinite(max_err)
+                and bool(torch.isfinite(got[0].float()).all())):
+            raise AssertionError(f"slstm {name}: error exceeds the tolerance by {worst}")
+        if name in ("serve_B", "serve_A", "decode_B4"):
+            reps, plain_samples = {"serve_B": (3, 3), "serve_A": (20, SAMPLES),
+                                   "decode_B4": (200, SAMPLES)}[name]
+            timings.append({
+                "case": name, "shape": [s, b, h, d], "why": why, "max_abs_err": max_err,
+                "ms": time_ms(torch, lambda: slstm_cuda(*args), reps),
+                "plain_ms": time_ms(torch, lambda: slstm_ref(*args),
+                                    1 if plain_samples < SAMPLES else reps, plain_samples),
+                "plain_samples": plain_samples, "library_ms": None,
+                **slstm_bound(s, b, h, d, args[0].element_size(), args[1].element_size())})
+        del args, got
+    # a scan split in two calls, the second from the first's final state
+    gx, r, bias, *states = slstm_inputs(torch, gen, 256, 8, 4, 512, "float32", "float32",
+                                        "init")
+    hs, final = slstm_cuda(gx, r, bias, *states)
+    hs1, mid = slstm_cuda(gx[:100].contiguous(), r, bias, *states)
+    hs2, end = slstm_cuda(gx[100:].contiguous(), r, bias, *mid)
+    split_equal = bool(torch.equal(torch.cat([hs1, hs2]), hs)) and all(
+        bool(torch.equal(a, b)) for a, b in zip(end, final, strict=True))
+    checks.append({"case": "split_100_156", "shape": [256, 8, 4, 512],
+                   "why": "two calls (decode after prefill) against one",
+                   "bitwise_equal": split_equal})
+    if not split_equal:
+        raise AssertionError("slstm: a scan split in two calls differs from one call")
+    emit({"slstm_checks": checks})
+    emit({"slstm_timing": timings})
+    return timings
+
+
+# ---------------------------------------------------------------------------
 # The serve path at full width
 # ---------------------------------------------------------------------------
 
+SERVE_ARCHS = ("qwen2-0.5b", "xlstm-1.3b")
 SERVE_RUNS = {"A": (4, 32, 32), "B": (8, 2048, 32)}   # batch, prompt, tokens
 # card vs CPU on the same f32 weights: the two sum in other orders (cuBLAS
 # and the kernels against the CPU's BLAS and the plain versions), which moved
@@ -678,20 +826,38 @@ SERVE_RUNS = {"A": (4, 32, 32), "B": (8, 2048, 32)}   # batch, prompt, tokens
 SERVE_DLOGIT_LIMIT = 1e-3
 
 
-def serve_setup(torch):
-    """qwen2-0.5b at full width, f32, random weights from seed 0 on the card."""
+def serve_setup(torch, arch, **cut):
+    """``arch`` at full width (depth cut by ``cut``, if given), f32, random
+    weights from seed 0 on the card."""
     from repro_torch.launch.serve import init_params, serve_config
     from repro_torch.models.api import build_model
 
-    cfg = serve_config("qwen2-0.5b")
+    cfg = serve_config(arch).with_(**cut)
     model = build_model(cfg)
     params = init_params(model, 0, "cuda")
     n = sum(p.numel() for p in params.parameters())
-    emit({"serve_model": {"arch": cfg.name, "layers": cfg.num_layers,
+    emit({"serve_model": {"arch": cfg.name, "family": cfg.family, "layers": cfg.num_layers,
                           "d_model": cfg.d_model, "heads": cfg.num_heads,
                           "kv_heads": cfg.num_kv_heads, "d_ff": cfg.d_ff,
-                          "vocab": cfg.vocab_size, "params": n, "dtype": cfg.dtype}})
+                          "slstm_group": cfg.slstm_group, "vocab": cfg.vocab_size,
+                          "params": n, "dtype": cfg.dtype}})
     return cfg, model, params
+
+
+def serve_launches(cfg, gen):
+    """The kernel launches a serve of ``gen`` tokens must make: 2L + 1
+    norms a forward; a flash attention a dense prefill layer; an sLSTM scan
+    an xLSTM super-block a forward; nothing else."""
+    want = {"rmsnorm": (2 * cfg.num_layers + 1) * gen}
+    if cfg.family == "ssm":
+        want["slstm"] = cfg.num_layers // cfg.slstm_group * gen
+    else:
+        want["flash_attention"] = cfg.num_layers
+    return want
+
+
+# the kernels each family's serve path runs, for the profiler windows
+SERVE_KERNELS = {"dense": ("rmsnorm", "flash_attention"), "ssm": ("rmsnorm", "slstm")}
 
 
 def phase_serve(torch, counters, cfg, model, params, run):
@@ -707,19 +873,19 @@ def phase_serve(torch, counters, cfg, model, params, run):
         c.launches = 0
     res = generate(model, params, tokens, gen, keep_logits=True)
     launches = {name: c.launches for name, c in counters.items()}
-    want = {"rmsnorm": (2 * cfg.num_layers + 1) * gen, "flash_attention": cfg.num_layers}
+    want = serve_launches(cfg, gen)
     for name, n in launches.items():
         if n != want.get(name, 0):
-            raise AssertionError(f"serve run {run}: kernel {name} launched {n} times, "
-                                 f"expected {want.get(name, 0)}")
+            raise AssertionError(f"serve {cfg.name} run {run}: kernel {name} launched "
+                                 f"{n} times, expected {want.get(name, 0)}")
     if tuple(res.tokens.shape) != (batch, gen) or not bool(
             ((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()):
-        raise AssertionError(f"serve run {run}: tokens {tuple(res.tokens.shape)} "
+        raise AssertionError(f"serve {cfg.name} run {run}: tokens {tuple(res.tokens.shape)} "
                              "out of shape or outside the real vocabulary")
     for i, lg in enumerate(res.logits):
         if not bool(torch.isfinite(lg).all()) or not bool(
                 (lg[:, cfg.vocab_size:] == -1e30).all()):
-            raise AssertionError(f"serve run {run}: logits at step {i} not finite or "
+            raise AssertionError(f"serve {cfg.name} run {run}: logits at step {i} not finite or "
                                  "the padded vocabulary not masked")
     emit({"serve": {"run": run, "arch": cfg.name, "batch": batch, "prompt": prompt,
                     "gen": gen, "device": device_name("cuda"),
@@ -744,9 +910,9 @@ def profile_serve(torch, cfg, model, params, run):
         generate(model, params, tokens, gen)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    summary = trace_summary(prof, wall_us, ("rmsnorm", "flash_attention"))
-    emit({"serve_trace": {"run": run, "batch": batch, "prompt": prompt, "gen": gen,
-                          **(summary or {})}})
+    summary = trace_summary(prof, wall_us, SERVE_KERNELS[cfg.family])
+    emit({"serve_trace": {"arch": cfg.name, "run": run, "batch": batch, "prompt": prompt,
+                          "gen": gen, **(summary or {})}})
     return summary
 
 
@@ -777,16 +943,18 @@ def phase_serve_card_vs_cpu(torch, cfg, model, params):
         steps.append({"step": i, "max_abs_dlogit": float(delta.max()),
                       "min_margin": float(margin.min()), "compared": int(sure.sum())})
         if not bool(torch.isfinite(delta).all()) or float(delta.max()) > SERVE_DLOGIT_LIMIT:
-            raise AssertionError(f"serve card vs CPU: step {i} max |dlogit| "
+            raise AssertionError(f"serve {cfg.name} card vs CPU: step {i} max |dlogit| "
                                  f"{float(delta.max())} above {SERVE_DLOGIT_LIMIT}")
         if bool(bad.any()):
-            raise AssertionError(f"serve card vs CPU: step {i} greedy tokens differ "
-                                 f"where the margin exceeds 100x the logit delta")
+            raise AssertionError(f"serve {cfg.name} card vs CPU: step {i} greedy tokens "
+                                 f"differ where the margin exceeds 100x the logit delta")
     positions = card.tokens.numel()
     if 2 * compared < positions:
-        raise AssertionError(f"serve card vs CPU: only {compared} of {positions} "
-                             "positions had a margin above 100x the logit delta")
-    emit({"serve_card_vs_cpu": {"batch": 2, "prompt": 64, "gen": 8, "cpu_s": cpu_s,
+        raise AssertionError(f"serve {cfg.name} card vs CPU: only {compared} of "
+                             f"{positions} positions had a margin above 100x the logit "
+                             "delta")
+    emit({"serve_card_vs_cpu": {"arch": cfg.name, "layers": cfg.num_layers,
+                                "batch": 2, "prompt": 64, "gen": 8, "cpu_s": cpu_s,
                                 "dlogit_limit": SERVE_DLOGIT_LIMIT,
                                 "positions_compared": compared, "positions": positions,
                                 "steps": steps}})
@@ -815,16 +983,19 @@ def main() -> int:
                                                     sparse_aircomp_cuda)
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
+    from repro_torch.kernels.slstm.kernel import slstm_cuda
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 products
     torch.backends.cudnn.allow_tf32 = False
 
     counters = {"aircomp": aircomp_cuda, "quant_aircomp": quant_aircomp_cuda,
                 "sparse_aircomp": sparse_aircomp_cuda, "rmsnorm": rmsnorm_cuda,
-                "flash_attention": flash_attention_cuda}
+                "flash_attention": flash_attention_cuda, "slstm": slstm_cuda}
+    t_start = time.perf_counter()
     phase_card(torch)
     timings = {"aircomp": phase_aircomp(torch), "quant_aircomp": phase_quant(torch),
                "sparse_aircomp": phase_sparse(torch)}
     rms_t, flash_t = phase_rmsnorm(torch), phase_flash(torch)
+    slstm_t = phase_slstm(torch)
     emit({"clocks_after_kernel_timings":
           smi("clocks.sm,power.draw,temperature.gpu")})
     cfg, fl = fmnist_logreg.CONFIG, fmnist_logreg.FL
@@ -836,17 +1007,28 @@ def main() -> int:
     for transport in TRANSPORT_KERNEL:
         launches.setdefault(TRANSPORT_KERNEL[transport],
                             phase_main_path(torch, counters, data, transport))
-    scfg, smodel, sparams = serve_setup(torch)
-    serve_launches = {run: phase_serve(torch, counters, scfg, smodel, sparams, run)
-                      for run in SERVE_RUNS}
+    # one model on the card at a time, so each run's peak memory is its
+    # own; a model is made again from its seed for its profiler windows
+    serve_counts, serve_traces = {}, {}
+    for arch in SERVE_ARCHS:
+        served = serve_setup(torch, arch)
+        for run in SERVE_RUNS:
+            serve_counts[arch, run] = phase_serve(torch, counters, *served, run)
+        del served
     for transport in TRANSPORT_KERNEL:
         traces.setdefault(TRANSPORT_KERNEL[transport],
                           phase_main_path_trace(torch, data, transport))
-    serve_traces = {run: profile_serve(torch, scfg, smodel, sparams, run)
-                    for run in SERVE_RUNS}
+    for arch in SERVE_ARCHS:
+        served = serve_setup(torch, arch)
+        for run in SERVE_RUNS:
+            serve_traces[arch, run] = profile_serve(torch, *served, run)
+        del served
     for transport in ("analog", "quantized", "sparse"):
         phase_card_vs_cpu(torch, transport)
-    phase_serve_card_vs_cpu(torch, scfg, smodel, sparams)
+    phase_serve_card_vs_cpu(torch, *serve_setup(torch, "qwen2-0.5b"))
+    # xlstm-1.3b at full width, its depth cut to one super-block (8 layers)
+    # so that the CPU's side stays short
+    phase_serve_card_vs_cpu(torch, *serve_setup(torch, "xlstm-1.3b", num_layers=8))
     main_t = {name: next(t for t in ts if t["case"] == "main")
               for name, ts in timings.items()}
     entries = [kernel_entry(name, f"src/repro_torch/kernels/aircomp/csrc/{name}.cu",
@@ -855,16 +1037,21 @@ def main() -> int:
                             traces[name] and traces[name]["kernel_device_us_per_launch"])
                for name, line in (("aircomp", 175), ("quant_aircomp", 131),
                                   ("sparse_aircomp", 90))]
-    trace_b = serve_traces["B"] and serve_traces["B"]["kernel_device_us_per_launch"]
-    for name, tpu, timing in (
-            ("rmsnorm", "src/repro/kernels/rmsnorm/kernel.py:26",
+    for name, tpu, arch, timing in (
+            ("rmsnorm", "src/repro/kernels/rmsnorm/kernel.py:26", "qwen2-0.5b",
              next(t for t in rms_t if t["case"] == "prefill_B")),
             ("flash_attention", "src/repro/kernels/flash_attention/kernel.py:74",
-             next(t for t in flash_t if t["case"] == "run_B" and t["dtype"] == "float32"))):
+             "qwen2-0.5b",
+             next(t for t in flash_t if t["case"] == "run_B" and t["dtype"] == "float32")),
+            ("slstm", "src/repro/kernels/slstm/kernel.py:82", "xlstm-1.3b",
+             next(t for t in slstm_t if t["case"] == "serve_B"))):
+        trace_b = serve_traces[arch, "B"]
         entries.append(kernel_entry(
             name, f"src/repro_torch/kernels/{name}/csrc/{name}.cu", tpu,
-            serve_launches["B"][name], timing, trace_b and trace_b[name],
-            launches_by_run={run: ls[name] for run, ls in serve_launches.items()}))
+            serve_counts[arch, "B"][name], timing,
+            trace_b and trace_b["kernel_device_us_per_launch"][name],
+            launches_by_run={f"{a} {run}": ls[name] for (a, run), ls in serve_counts.items()}))
+    emit({"script_s": time.perf_counter() - t_start})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -13,13 +13,12 @@ from repro_torch.configs.base import INPUT_SHAPES, FLConfig, InputShape, ModelCo
 
 _MODULES = {
     "qwen2-0.5b": "qwen2_0_5b",
+    "xlstm-1.3b": "xlstm_1_3b",
     "fmnist-logreg": "fmnist_logreg",
 }
 
 # known to the JAX package, not ported yet: where the ROADMAP queues each
 _NOT_PORTED = {
-    "xlstm-1.3b": "ROADMAP Queue 1 item 10(b): the xLSTM family's serve path with "
-                  "the sLSTM kernel (Queue 2 item 6)",
     **{arch: "ROADMAP Queue 1 item 10(c): the other families and their configs"
        for arch in ("granite-34b", "qwen3-moe-30b-a3b", "qwen2-7b", "zamba2-1.2b",
                     "llama-3.2-vision-11b", "seamless-m4t-medium", "qwen2-1.5b",

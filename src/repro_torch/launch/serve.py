@@ -2,12 +2,16 @@
 ``repro.launch.serve``).
 
 A static batch of random prompts of one length is prefilled once, the KV
-cache grown to prompt + gen, and decoded greedily one step at a time, with
-random weights from ``--seed``. Every RMSNorm runs through the fused kernel
-and every prefill self-attention through the flash-attention kernel.
+cache grown to prompt + gen (an xLSTM state cache passes through), and
+decoded greedily one step at a time, with random weights from ``--seed``.
+Every RMSNorm runs through the fused kernel; for the dense family
+(qwen2-0.5b) every prefill self-attention runs through the flash-attention
+kernel, for the xLSTM family (xlstm-1.3b) every sLSTM time scan, prefill
+and decode, through the sLSTM kernel.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen2-0.5b --batch 4 --prompt-len 32 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b
 
 The default device is the CUDA card (it raises without one); ``--device
 cpu`` runs the kernels' plain versions on the CPU (use ``--reduced`` there).

@@ -116,26 +116,17 @@ class DenseDecoder(nn.Module):
         h = rms_norm(x, self.layers["mlp_norm"][l], cfg.norm_eps)
         return x + self._mlp(l, h), (k, v)
 
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return torch.nn.functional.embedding(tokens, self.embed).to(_dt(self.cfg))
-
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, S, D] -> f32 logits [B, S, Vp], the padded vocab set to -1e30."""
-        logits = (x @ self.lm_head).to(torch.float32)
-        if logits.shape[-1] != self.cfg.vocab_size:
-            logits[..., self.cfg.vocab_size:] = NEG_INF
-        return logits
-
     # --- forward / loss ----------------------------------------------------
 
     def forward(self, tokens: torch.Tensor, *, window: Optional[int] = None) -> torch.Tensor:
         """Teacher-forced forward: tokens [B, S] -> logits [B, S, Vp]."""
+        cfg = self.cfg
         positions = torch.arange(tokens.shape[1], device=tokens.device)
-        x = self._embed(tokens)
-        for l in range(self.cfg.num_layers):
+        x = _embed(cfg, self, tokens)
+        for l in range(cfg.num_layers):
             x, _ = self._layer(l, x, positions, window)
-        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        return self._logits(x)
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        return _logits(cfg, self, x)
 
     def loss_fn(self, batch: dict) -> torch.Tensor:
         logits = self(batch["tokens"])
@@ -153,13 +144,13 @@ class DenseDecoder(nn.Module):
         shape = (cfg.num_layers, b, s, cfg.num_kv_heads, cfg.resolved_head_dim)
         cache = {"k": torch.empty(shape, dtype=_dt(cfg), device=tokens.device),
                  "v": torch.empty(shape, dtype=_dt(cfg), device=tokens.device)}
-        x = self._embed(tokens)
+        x = _embed(cfg, self, tokens)
         for l in range(cfg.num_layers):
             x, (k, v) = self._layer(l, x, positions, window)
             cache["k"][l] = k
             cache["v"][l] = v
         x = rms_norm(x[:, -1:], self.final_norm, cfg.norm_eps)
-        return self._logits(x)[:, 0], cache
+        return _logits(cfg, self, x)[:, 0], cache
 
     def decode_step(self, cache: dict, token: torch.Tensor, pos):
         """One decode step: token [B] int, pos an int (the uniform batch's
@@ -181,7 +172,7 @@ class DenseDecoder(nn.Module):
             kv_pos = torch.where(kv_pos < 0, 2 ** 30, kv_pos)
         else:
             kv_pos = torch.arange(t, device=dev)
-        x = self._embed(token[:, None])
+        x = _embed(cfg, self, token[:, None])
         for l in range(cfg.num_layers):
             h = rms_norm(x, self.layers["attn_norm"][l], cfg.norm_eps)
             q, k, v = self._qkv(l, h, positions)
@@ -196,7 +187,21 @@ class DenseDecoder(nn.Module):
             h = rms_norm(x, self.layers["mlp_norm"][l], cfg.norm_eps)
             x = x + self._mlp(l, h)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
-        return self._logits(x)[:, 0], cache
+        return _logits(cfg, self, x)[:, 0], cache
+
+
+def _embed(cfg: ModelConfig, params: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens [B, S] -> [B, S, D] rows of ``params.embed`` in the config's dtype."""
+    return torch.nn.functional.embedding(tokens, params.embed).to(_dt(cfg))
+
+
+def _logits(cfg: ModelConfig, params: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """[B, S, D] -> f32 logits [B, S, Vp] through ``params.lm_head``, the
+    padded vocab set to -1e30."""
+    logits = (x @ params.lm_head).to(torch.float32)
+    if logits.shape[-1] != cfg.vocab_size:
+        logits[..., cfg.vocab_size:] = NEG_INF
+    return logits
 
 
 # ---------------------------------------------------------------------------

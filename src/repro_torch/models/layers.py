@@ -1,6 +1,7 @@
 """Common transformer building blocks (port of ``repro.models.layers``).
 
-``layer_norm`` and ``gelu_mlp`` wait for the families that use them.
+``layer_norm`` and ``gelu_mlp`` (with biases) wait for the families that
+use them.
 """
 from __future__ import annotations
 
@@ -16,6 +17,12 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     """RMSNorm in f32 accumulation, cast back to x's dtype: the fused kernel
     on the card, its plain version on the CPU."""
     return rmsnorm(x, scale, eps)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU as the reference calls it: ``jax.nn.gelu`` defaults to the tanh
+    approximation, ``F.gelu`` to the exact erf form."""
+    return F.gelu(x, approximate="tanh")
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

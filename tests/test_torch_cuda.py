@@ -264,3 +264,134 @@ def test_reduced_serve_launches_the_kernels(card):
     assert flash_attention_cuda.launches - f0 == cfg.num_layers
     for a, b in zip(got.logits, cpu.logits, strict=True):
         assert torch.allclose(a, b, rtol=1e-3, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# slstm (the xLSTM decoder's serve path)
+# ---------------------------------------------------------------------------
+#
+# Tolerance of the sLSTM scan, per output X (hs and the final h, c, n, m):
+# |Δ| ≤ d·ε₃₂·max Σ_k|h_k||r_k| + 4·max|X_plain − X_f64|, the f32 bound of one
+# length-d dot product at the pre-activation (where the kernel's and the
+# plain version's sums part) plus four times what the plain version's own
+# f32 arithmetic moves X over the scan, measured against its f64 run on the
+# same inputs (the recurrence carries and, over long scans, amplifies a
+# rounding difference; a wrong gate, state or stale h moves X by O(0.1)).
+# A bf16 hs adds one bf16 step of |X|.
+
+from repro_torch.kernels.slstm.kernel import slstm_cuda  # noqa: E402
+from repro_torch.kernels.slstm.ops import slstm_scan  # noqa: E402
+from repro_torch.kernels.slstm.ref import slstm_ref  # noqa: E402
+
+
+def _slstm_inputs(card, s, b, h, d, gx_dtype, r_dtype, state, seed=0):
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    gx = torch.randn((s, b, 4, h, d), generator=gen, device=card).to(gx_dtype)
+    r = (torch.randn((h, d, 4, d), generator=gen, device=card) / d ** 0.5).to(r_dtype)
+    bias = 0.1 * torch.randn((4, h, d), generator=gen, device=card)
+    if state == "init":
+        z = torch.zeros((b, h, d), device=card)
+        return gx, r, bias, z, z.clone(), z.clone(), torch.full((b, h, d), -1e30, device=card)
+    n0 = 1.0 + torch.rand((b, h, d), generator=gen, device=card)
+    c0 = (2.0 * torch.rand((b, h, d), generator=gen, device=card) - 1.0) * n0
+    h0 = torch.tanh(torch.randn((b, h, d), generator=gen, device=card))
+    return gx, r, bias, h0, c0, n0, 3.0 * torch.randn((b, h, d), generator=gen, device=card)
+
+
+def _slstm_within_tolerance(args, got):
+    """(every output within its tolerance, the worst excess) for the
+    kernel's ``got`` against the plain version on the same inputs."""
+    gx, r, bias, *states = args
+    plain = slstm_ref(*args)
+    exact = slstm_ref(gx.double(), r.double() if r.dtype == torch.float32 else r,
+                      bias, *states)
+    d = r.shape[1]
+    dot = d * EPS32 * float(r.float().abs().sum(dim=1).amax())   # |h| <= 1
+    worst = -1.0
+    for ours, ref, acc in zip([got[0], *got[1]], [plain[0], *plain[1]],
+                              [exact[0], *exact[1]], strict=True):
+        tol = dot + 4.0 * (ref.double() - acc).abs().max()
+        if ours.dtype == torch.bfloat16:
+            tol = tol + 2.0 ** -8 * ref.double().abs()
+        worst = max(worst, float(((ours.double() - ref.double()).abs() - tol).max()))
+    return worst <= 0.0, worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,b,h,d,gx_dtype,r_dtype,state", [
+    (32, 4, 4, 512, "float32", "float32", "init"),       # serve A's prefill scan
+    (1, 4, 4, 512, "float32", "float32", "random"),      # a decode step
+    (1, 8, 4, 512, "float32", "float32", "random"),
+    (37, 3, 4, 64, "float32", "float32", "random"),      # the reduced d
+    (40, 13, 1, 8, "float32", "float32", "random"),      # two passes of rows
+    (64, 8, 4, 512, "float32", "bfloat16", "init"),      # bf16 R: h rounded
+    (64, 8, 4, 512, "bfloat16", "float32", "random"),    # bf16 gx and hs
+])
+def test_slstm_kernel_matches_plain(card, s, b, h, d, gx_dtype, r_dtype, state):
+    args = _slstm_inputs(card, s, b, h, d, getattr(torch, gx_dtype),
+                         getattr(torch, r_dtype), state)
+    before = slstm_cuda.launches
+    got = slstm_scan(*args)
+    torch.cuda.synchronize()
+    assert slstm_cuda.launches == before + 1
+    assert got[0].dtype == args[0].dtype and got[0].shape == (s, b, h, d)
+    assert all(x.dtype == torch.float32 and x.shape == (b, h, d) for x in got[1])
+    assert bool(torch.isfinite(got[0].float()).all())
+    ok, worst = _slstm_within_tolerance(args, got)
+    assert ok, worst
+
+
+@pytest.mark.cuda
+def test_slstm_split_scan_equals_one_call(card):
+    """Decode continues a prefill from its final state: two calls give the
+    one call's hs and states bit for bit."""
+    gx, r, bias, *states = _slstm_inputs(card, 48, 8, 4, 512, torch.float32,
+                                         torch.float32, "init", seed=1)
+    hs, final = slstm_cuda(gx, r, bias, *states)
+    hs1, mid = slstm_cuda(gx[:20].contiguous(), r, bias, *states)
+    hs2, end = slstm_cuda(gx[20:].contiguous(), r, bias, *mid)
+    assert torch.equal(torch.cat([hs1, hs2]), hs)
+    assert all(torch.equal(a, b) for a, b in zip(end, final, strict=True))
+
+
+@pytest.mark.cuda
+def test_slstm_kernel_refuses_what_it_does_not_take(card):
+    gx, r, bias, *states = _slstm_inputs(card, 4, 2, 4, 64, torch.float32,
+                                         torch.float32, "init")
+    with pytest.raises(ValueError, match="dtypes"):
+        slstm_scan(gx.double(), r, bias, *states)
+    with pytest.raises(ValueError, match="r must be"):
+        slstm_cuda(gx, r[:, :32].contiguous(), bias, *states)
+    with pytest.raises(ValueError, match="contiguous"):   # r [H, d, 4, d], d's swapped
+        slstm_cuda(gx, r.transpose(1, 3).contiguous().transpose(1, 3), bias, *states)
+    with pytest.raises(ValueError, match="float32"):
+        slstm_cuda(gx, r, bias, states[0].double(), *states[1:])
+    # one head of d = 4096: no block count of one an SM holds its R slice
+    big = _slstm_inputs(card, 1, 1, 1, 4096, torch.float32, torch.float32, "init")
+    with pytest.raises(RuntimeError, match="slstm kernel launch failed"):
+        slstm_cuda(*big)
+    got = slstm_cuda(gx, r, bias, *states)     # the refusal left no error behind
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got[0]).all())
+
+
+@pytest.mark.cuda
+def test_reduced_xlstm_serve_launches_the_kernels(card):
+    """Reduced xlstm-1.3b (2 super-blocks of 1 mLSTM + 1 sLSTM): prefill + 3
+    decode steps launch the sLSTM kernel 4 × G times and rmsnorm 4 × (2L +
+    1) times, and give the CPU's logits when fed the CPU's tokens."""
+    cfg = get_reduced("xlstm-1.3b").with_(dtype="float32", remat=False)
+    model = build_model(cfg)
+    params = init_params(model, 0, card)
+    tokens = prompt_tokens(cfg, 2, 40, 0, card)
+    cpu = generate(model, copy.deepcopy(params).cpu(), tokens.cpu(), 4,
+                   keep_logits=True)
+    s0, r0, f0 = slstm_cuda.launches, rmsnorm_cuda.launches, flash_attention_cuda.launches
+    got = generate(model, params, tokens, 4, feed=cpu.tokens, keep_logits=True)
+    groups = cfg.num_layers // cfg.slstm_group
+    assert slstm_cuda.launches - s0 == 4 * groups
+    assert rmsnorm_cuda.launches - r0 == 4 * (2 * cfg.num_layers + 1)
+    assert flash_attention_cuda.launches == f0
+    for a, b in zip(got.logits, cpu.logits, strict=True):
+        assert torch.allclose(a, b, rtol=1e-3, atol=1e-3)

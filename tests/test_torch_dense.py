@@ -106,7 +106,7 @@ def test_configs_are_field_for_field_copies():
 
 def test_unported_and_unknown_archs():
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        get_config("xlstm-1.3b")
+        get_config("zamba2-1.2b")
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         get_reduced("granite-34b")
     with pytest.raises(KeyError):

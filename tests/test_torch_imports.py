@@ -23,7 +23,8 @@ CHIP_SMOKE = SRC.parents[1] / "chip_smoke.py"
 
 def test_port_imports_no_jax_and_no_reference_package():
     modules = sorted(m.name for m in pkgutil.walk_packages([str(SRC)], "repro_torch."))
-    assert "repro_torch.core.simulator" in modules
+    assert {"repro_torch.core.simulator", "repro_torch.models.xlstm",
+            "repro_torch.kernels.slstm.ops", "repro_torch.configs.xlstm_1_3b"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"

@@ -99,8 +99,8 @@ def test_builder_knows_every_kernel_source():
     """One shared builder compiles every ``csrc/*.cu`` of the port, each into
     its own library named by a hash of its source."""
     assert set(build.SOURCES) == {"aircomp", "quant_aircomp", "sparse_aircomp",
-                                  "rmsnorm", "flash_attention"}
+                                  "rmsnorm", "flash_attention", "slstm"}
     for name, src in build.SOURCES.items():
         assert src.parent.name == "csrc" and src.suffix == ".cu"
         assert build.library_path(name).name.startswith(f"lib{name}-")
-    assert len({build.library_path(n) for n in build.SOURCES}) == 5
+    assert len({build.library_path(n) for n in build.SOURCES}) == 6
