@@ -20,6 +20,10 @@ these phases and fails (non-zero exit, no result line) if any of them fails:
      events (warm-up first, median of 21 samples; 3 of the plain sLSTM scan
      at S = 2048), beside the least time the card allows (bytes / 3.35 TB/s,
      or operations / the peak rate of the inputs' type, whichever is larger);
+     the device time a launch of the short calls (rmsnorm and slstm at
+     decode) with the card kept ahead of the host; and how a step of the
+     sLSTM scan at serve B's shape splits (barrier, h exchange, products,
+     cell: the kernel built four times, ``kernels/slstm/step_split.py``);
   3. the simulator's main path at full width, once per uplink transport
      (analog, quantized, sparse, digital): ``run_simulation`` of CA-AFL on
      the 784→10 logistic regression, N = 100, K = 40, batch 50, 60k/10k
@@ -96,6 +100,27 @@ def time_ms(torch, fn, reps: int, samples: int = SAMPLES) -> float:
     return statistics.median(times)
 
 
+def device_ms(torch, fn, launches: int = 50, samples: int = 7) -> float:
+    """Device time a call of ``fn`` when the card runs ``launches`` calls
+    back to back: the card is first held busy (``torch.cuda._sleep``) while
+    the host enqueues them all, so the host's time a launch, larger than a
+    short kernel's, does not open gaps between them. Median of ``samples``."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)   # ~25 ms at 1.98 GHz
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return statistics.median(times)
+
+
 def smi(query: str) -> str:
     """The first card's line of an nvidia-smi query."""
     return subprocess.run(
@@ -108,12 +133,14 @@ def phase_card(torch):
     card = smi("name,power.limit")
     print(card, flush=True)
     from repro_torch.kernels import build
+    from repro_torch.kernels.slstm import step_split
     t0 = time.perf_counter()
-    libs = build.build()
+    libs = build.build(step_split.variants())   # with slstm's step-split builds
     build_s = time.perf_counter() - t0
     emit({"card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernel_build_s": build_s,
-          "kernels_built": sorted(libs)})
+          "kernels_built": sorted(libs),
+          "slstm_step_split_builds": len(step_split.variants())})
     return card
 
 
@@ -507,15 +534,25 @@ def phase_card_vs_cpu(torch, transport):
 # rmsnorm and flash attention: the serve path's kernels
 # ---------------------------------------------------------------------------
 
-# rmsnorm's tolerance: f32, the sum-of-squares order differs (256 strided
-# partial sums and a tree against torch's), |Δ| ≤ (D/2 + 8)·ε₃₂·|plain| per
-# element; bf16, one bf16 rounding step, |Δ| ≤ 2⁻⁷·|plain|
-RMSNORM_CASES = [   # (name, rows, D, why this shape)
-    ("prefill_B", 16384, 896, "run B's prefill norms: 8 x 2048 tokens"),
-    ("decode", 8, 896, "run B's decode norms: one token a row"),
-    ("ragged", 300, 896, "a row count no tile divides"),
-    ("wide", 1, 4096, "one wide row"),
+# rmsnorm's tolerance: f32, the sum-of-squares order differs (32 or 256
+# strided partial sums and a shuffle tree against torch's), |Δ| ≤ (D/2 +
+# 8)·ε₃₂·|plain| per element; bf16, one bf16 rounding step, |Δ| ≤ 2⁻⁷·|plain|
+RMSNORM_CASES = [   # (name, rows, D, x's offset into its storage, why this shape)
+    ("prefill_B", 16384, 896, 0, "qwen2-0.5b run B's prefill norms: 8 x 2048 tokens"),
+    ("prefill_B_xlstm", 16384, 2048, 0,
+     "xlstm-1.3b run B's prefill norms: 8 x 2048 tokens, 16 vectors a lane"),
+    ("prefill_B_xlstm_inner", 16384, 4096, 0,
+     "xlstm-1.3b run B's prefill mLSTM out-norms over d_inner 4096: 32 vectors a lane"),
+    ("decode", 8, 896, 0, "run B's decode norms: one token a row"),
+    ("decode_xlstm_inner", 8, 4096, 0,
+     "xlstm-1.3b run B's decode mLSTM out-norms: 8 rows, one a block"),
+    ("ragged", 300, 896, 0, "a row count no block of 8 rows divides"),
+    ("wide", 1, 4096, 0, "one wide row"),
+    ("d4095", 64, 4095, 0, "no whole 16-byte vectors: one element a load"),
+    ("misaligned", 300, 896, 1, "x one element into its storage: not 16-byte aligned"),
 ]
+RMSNORM_TIMED = ("prefill_B", "prefill_B_xlstm", "prefill_B_xlstm_inner", "decode",
+                 "decode_xlstm_inner")
 
 
 def rmsnorm_tolerance(dtype, d):
@@ -525,7 +562,7 @@ def rmsnorm_tolerance(dtype, d):
 def phase_rmsnorm(torch):
     """rmsnorm against its plain version at the serve path's shapes and the
     edge cases, f32 and bf16 (bf16 with an f32 and a bf16 scale); timed at
-    run B's prefill shape and at decode's, in f32."""
+    run B's prefill shapes (both models' widths) and at decode's, in f32."""
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_cuda
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
@@ -533,11 +570,14 @@ def phase_rmsnorm(torch):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
     checks, timings = [], []
-    for name, rows, d, why in RMSNORM_CASES:
+    for name, rows, d, offset, why in RMSNORM_CASES:
         for dtype, scale_dtype in (("float32", "float32"), ("bfloat16", "float32"),
                                    ("bfloat16", "bfloat16")):
-            x = (3.0 * torch.randn((rows, d), generator=gen, device="cuda")).to(
-                getattr(torch, dtype))
+            flat = (3.0 * torch.randn((rows * d + offset,), generator=gen,
+                                      device="cuda")).to(getattr(torch, dtype))
+            x = flat[offset:].view(rows, d)
+            if (x.data_ptr() % 16 != 0) != (offset > 0):
+                raise AssertionError(f"rmsnorm {name}: x's alignment is not the case's")
             scale = (1.0 + 0.1 * torch.randn((d,), generator=gen, device="cuda")).to(
                 getattr(torch, scale_dtype))
             got = rmsnorm(x, scale, 1e-5)
@@ -554,21 +594,26 @@ def phase_rmsnorm(torch):
             if not (worst <= 0.0 and math.isfinite(max_err) and got.dtype == x.dtype):
                 raise AssertionError(f"rmsnorm {name} {dtype}/{scale_dtype}: error "
                                      f"exceeds the tolerance by {worst}")
-            if dtype == "float32" and name in ("prefill_B", "decode"):
+            if dtype == "float32" and name in RMSNORM_TIMED:
                 nbytes = 2 * rows * d * 4 + d * 4
                 reps = 20 if rows > 1000 else 200
                 timings.append({
                     "case": name, "shape": [rows, d], "dtype": dtype,
                     "max_abs_err": max_err,
                     "ms": time_ms(torch, lambda: rmsnorm_cuda(x, scale, 1e-5), reps),
+                    "device_ms": device_ms(torch, lambda: rmsnorm_cuda(x, scale, 1e-5)),
                     "plain_ms": time_ms(torch, lambda: rmsnorm_ref(x, scale, 1e-5), reps),
                     "library_ms": time_ms(torch, lambda: torch.nn.functional.rms_norm(
                         x, (d,), scale, 1e-5), reps),
+                    # the same device-side measure as device_ms: the wrapper's host
+                    # time a call exceeds F.rms_norm's and can show in ms
+                    "library_device_ms": device_ms(torch, lambda: torch.nn.functional.rms_norm(
+                        x, (d,), scale, 1e-5)),
                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
                     "bound_by": "bytes",
                     "bound_reason": "x read and out written once, f32; ~3 flops an "
                                     "element is far below the f32 rate"})
-            del x, scale, got, plain, err
+            del flat, x, scale, got, plain, err
     emit({"rmsnorm_checks": checks})
     emit({"rmsnorm_timing": timings})
     return timings
@@ -694,7 +739,12 @@ SLSTM_CASES = [   # (name, S, B, H, d, gx dtype, R dtype, state, why)
     ("reduced_d64", 37, 3, 4, 64, "float32", "float32", "random",
      "the reduced config's d = 64, S = 37"),
     ("S37", 37, 8, 4, 512, "float32", "float32", "random", "S = 37 from a carried state"),
-    ("B13", 16, 13, 4, 512, "float32", "float32", "random", "13 rows: two passes of 8"),
+    ("B13", 16, 13, 4, 512, "float32", "float32", "random",
+     "13 rows: a pass of 8 and a ragged one of 5"),
+    ("H1", 64, 8, 1, 512, "float32", "float32", "random",
+     "one head: 128 blocks of 4 channels, one barrier group"),
+    ("H8", 64, 8, 8, 256, "float32", "float32", "random",
+     "8 heads: 8 barrier groups of 16 blocks"),
     ("bf16_r", 64, 8, 4, 512, "float32", "bfloat16", "init", "bf16 R: h rounded to bf16"),
     ("bf16_gx", 64, 8, 4, 512, "bfloat16", "float32", "random", "bf16 gx and hs"),
 ]
@@ -790,6 +840,8 @@ def phase_slstm(torch):
             timings.append({
                 "case": name, "shape": [s, b, h, d], "why": why, "max_abs_err": max_err,
                 "ms": time_ms(torch, lambda: slstm_cuda(*args), reps),
+                "device_ms": (device_ms(torch, lambda: slstm_cuda(*args))
+                              if name == "decode_B4" else None),
                 "plain_ms": time_ms(torch, lambda: slstm_ref(*args),
                                     1 if plain_samples < SAMPLES else reps, plain_samples),
                 "plain_samples": plain_samples, "library_ms": None,
@@ -810,6 +862,10 @@ def phase_slstm(torch):
         raise AssertionError("slstm: a scan split in two calls differs from one call")
     emit({"slstm_checks": checks})
     emit({"slstm_timing": timings})
+    # where a step of serve B's scan goes: the kernel built with its first 1,
+    # 2, 3 and 4 parts (barrier, h exchange, products, cell)
+    from repro_torch.kernels.slstm.step_split import step_split
+    emit({"slstm_step_split": step_split(torch)})
     return timings
 
 

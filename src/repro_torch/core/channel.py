@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.energy import TRUNCATION_FLOOR, clamp_floor
+from repro_torch.utils.device import resolve_device
 
 
 def effective_channel(h_mag: torch.Tensor) -> torch.Tensor:
@@ -41,8 +42,10 @@ class ChannelScenario:
     flat: bool = True
 
 
-def scenario_from_config(fl: FLConfig, device="cpu") -> ChannelScenario:
-    """The scenario of ``fl`` with every knob an f32 scalar on ``device``."""
+def scenario_from_config(fl: FLConfig, device=None) -> ChannelScenario:
+    """The scenario of ``fl`` with every knob an f32 scalar on ``device``
+    (``None``: the card)."""
+    device = resolve_device(device)
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)  # noqa: E731
     if fl.pathloss_db_spread:
         db = torch.linspace(-fl.pathloss_db_spread / 2, fl.pathloss_db_spread / 2,

@@ -271,9 +271,11 @@ def make_param_round_fn(model: SimModel, fl: FLConfig, data, model_size: int,
     return round_fn
 
 
-def init_sim_state(model: SimModel, fl: FLConfig, device="cpu") -> SimState:
+def init_sim_state(model: SimModel, fl: FLConfig, device=None) -> SimState:
     """Initial state: the model's init, uniform λ, zero energy (and zero
-    error-feedback residuals for the sparse transport)."""
+    error-feedback residuals for the sparse transport), on ``device``
+    (``None``: the card)."""
+    device = resolve_device(device)
     e = fl.record_lambda_every
     n = fl.num_clients
     f32 = dict(dtype=torch.float32, device=device)

@@ -15,6 +15,7 @@ import torch
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.channel import ChannelScenario, scenario_from_config
 from repro_torch.core.transport import TransportParams, transport_from_config
+from repro_torch.utils.device import resolve_device
 
 
 @dataclass(frozen=True)
@@ -31,8 +32,10 @@ class SweepPoint:
     method: str = "ca_afl"
 
 
-def sweep_point_from_config(fl: FLConfig, device="cpu") -> SweepPoint:
-    """Promote an ``FLConfig``'s scalar knobs to f32 scalars on ``device``."""
+def sweep_point_from_config(fl: FLConfig, device=None) -> SweepPoint:
+    """Promote an ``FLConfig``'s scalar knobs to f32 scalars on ``device``
+    (``None``: the card)."""
+    device = resolve_device(device)
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)  # noqa: E731
     return SweepPoint(
         scenario=scenario_from_config(fl, device),

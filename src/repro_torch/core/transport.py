@@ -42,6 +42,7 @@ from repro_torch.core.energy import (TRUNCATION_FLOOR, clamp_floor,
                                      transmit_energy)
 from repro_torch.kernels.aircomp.ops import (quant_aircomp_flat,
                                              sparse_aircomp_flat)
+from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import ravel, ravel_stack, unravel
 
 TRANSPORTS = ("analog", "quantized", "digital", "sparse")
@@ -79,9 +80,11 @@ class TransportParams:
     scheme: str = "analog"
 
 
-def transport_from_config(fl: FLConfig, device="cpu") -> TransportParams:
-    """Promote the ``FLConfig`` transport knobs to f32 device scalars."""
+def transport_from_config(fl: FLConfig, device=None) -> TransportParams:
+    """Promote the ``FLConfig`` transport knobs to f32 scalars on ``device``
+    (``None``: the card)."""
     require_ported(fl.transport)
+    device = resolve_device(device)
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)  # noqa: E731
     return TransportParams(
         bits=f32(fl.quant_bits),

@@ -59,20 +59,29 @@ def build_dir() -> Path:
         "REPRO_TORCH_BUILD_DIR to a writable directory for the kernel build")
 
 
+def variant_path(source: Path, flags: tuple[str, ...] = ()) -> Path:
+    """Where the library of ``source`` built with the extra nvcc ``flags``
+    (e.g. ``-D`` macros) lives: named by a hash of the source and all the
+    flags."""
+    h = hashlib.sha256(Path(source).read_bytes())
+    h.update(" ".join((*NVCC_FLAGS, *flags)).encode())
+    return build_dir() / f"lib{Path(source).stem}-{h.hexdigest()[:16]}.so"
+
+
 def library_path(name: str) -> Path:
-    """Where the library of kernel ``name`` lives: named by a hash of its
-    source and the nvcc flags."""
-    h = hashlib.sha256(SOURCES[name].read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
+    """Where the library of kernel ``name`` lives."""
+    return variant_path(SOURCES[name])
 
 
-def build() -> dict[str, Path]:
-    """Compile every kernel whose library of the same source does not exist
-    yet, one ``nvcc`` a source, all started together; return each kernel's
-    library path by name."""
+def build(extra=()) -> dict[str, Path]:
+    """Compile every kernel, and every ``(source, flags)`` variant of
+    ``extra``, whose library does not exist yet, one ``nvcc`` a library, all
+    started together; return each kernel's library path by name."""
     libs = {name: library_path(name) for name in SOURCES}
-    todo = {name: lib for name, lib in libs.items() if not lib.exists()}
+    jobs = {lib: (SOURCES[name], ()) for name, lib in libs.items()}
+    jobs.update({variant_path(src, tuple(flags)): (Path(src), tuple(flags))
+                 for src, flags in extra})
+    todo = {lib: job for lib, job in jobs.items() if not lib.exists()}
     if not todo:
         return libs
     out = build_dir()
@@ -80,19 +89,20 @@ def build() -> dict[str, Path]:
     nvcc = _nvcc()
     procs = {}
     try:
-        for name in todo:
+        for lib, (src, flags) in todo.items():
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=out)
             os.close(fd)
-            procs[name] = (tmp, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCES[name])],
+            procs[lib] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *flags, "-o", tmp, str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
         failed = []
-        for name, (tmp, proc) in procs.items():
+        for lib, (tmp, proc) in procs.items():
             _, err = proc.communicate()
             if proc.returncode != 0:
-                failed.append(f"nvcc failed on {SOURCES[name].name}:\n{err}")
+                src, flags = todo[lib]
+                failed.append(f"nvcc failed on {src.name} {' '.join(flags)}:\n{err}")
             else:
-                os.replace(tmp, todo[name])  # atomic: a concurrent build sees all or nothing
+                os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
         if failed:
             raise RuntimeError("\n".join(failed))
     finally:

@@ -7,10 +7,12 @@
 Bound: memory. Each row is read once and written once with about three
 operations an element, so the least time on an H100 is the bytes over
 3.35 TB/s (35 µs at the long prefill's [16384, 896] f32; decode's [8, 896]
-is launch-bound). What the design does about it: one block a row, the row
-staged in shared memory in f32 on the first (coalesced) read, the sum of
-squares reduced by warp shuffles, the scaled row written once from shared
-memory. ``csrc/rmsnorm.cu`` has the details and the tolerance.
+is launch-bound). What the design does about it: one warp a row and 8 rows
+a block (a block of 8 warps a row when there are fewer rows than SMs, as at
+decode), the row read once in 16-byte vectors and kept in registers between
+the sum of squares (reduced by warp shuffles) and the scaling, the scaled row written in 16-byte vectors;
+one element a vector where D or a pointer does not allow 16 bytes.
+``csrc/rmsnorm.cu`` has the details and the tolerance.
 
 The source is built and loaded by ``repro_torch.kernels.build``; nothing is
 built when this module is imported.
@@ -23,7 +25,7 @@ import torch
 
 from repro_torch.kernels import build
 
-MAX_D = 8192   # the row in f32 fits the default 48 KB of shared memory
+MAX_D = 8192
 DTYPES = (torch.float32, torch.bfloat16)
 _P = ctypes.c_void_p
 ARGTYPES = (_P, ctypes.c_int, _P, ctypes.c_int, _P, ctypes.c_int64,

@@ -9,17 +9,20 @@ does) and the rest in f32.
 
 Bound: operations at the long prefill (S = 2048, B = 8, H = 4, d = 512,
 f32: 137.4 GFLOP, 2.05 ms at 67 TFLOP/s of f32 outside the tensor cores;
-the bytes need 0.21 ms), bytes at decode (S = 1: R's 16.8 MB, 5.0 µs).
+the bytes need 0.21 ms), bytes at decode (S = 1: R's 16.8 MB, 5.1 µs).
 What the design does about it: a persistent cooperative grid, one block an
-SM, each keeping its slice of R in shared memory and its part of the state
-on chip for all S steps; h is exchanged through a double-buffered global
-buffer with one grid barrier a step. ``csrc/slstm.cu`` has the details.
+SM, each keeping its slice of R in shared memory (copied in by 16-byte
+``cp.async``) and its part of the state on chip for all S steps; the
+products register-tiled (4 gate-channels × 8 rows a thread: 128 FMAs for
+12 shared-memory loads); h exchanged through a double-buffered global buffer
+with one barrier a step among the blocks of a head only, the next step's
+gx loaded while waiting at it. ``csrc/slstm.cu`` has the details.
 
 The launch raises when the grid cannot be resident at once (no block count
-of at most one an SM fits, or the occupancy calculator refuses it); there
-is no fallback. The source is built and loaded by
-``repro_torch.kernels.build``; nothing is built when this module is
-imported.
+of at most one an SM fits, or the occupancy calculator refuses it) and when
+the slice of R and the state exceed shared memory; there is no fallback.
+The source is built and loaded by ``repro_torch.kernels.build``; nothing is
+built when this module is imported.
 """
 from __future__ import annotations
 
@@ -37,10 +40,10 @@ ARGTYPES = (_P, ctypes.c_int, _P, ctypes.c_int, *(_P,) * 11, _I64, _I64, _I64, _
 def slstm_cuda(gx: torch.Tensor, r: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
                c0: torch.Tensor, n0: torch.Tensor, m0: torch.Tensor):
     """gx [S, B, 4, H, d] f32/bf16; r [H, d, 4, d] f32/bf16; b [4, H, d] f32;
-    h0, c0, n0, m0 [B, H, d] f32; all contiguous on one CUDA device ->
-    (hs [S, B, H, d] in gx's dtype, (h, c, n, m) [B, H, d] f32). Launches on
-    the current stream, does not synchronise; ``slstm_cuda.launches``
-    counts the launches."""
+    h0, c0, n0, m0 [B, H, d] f32; d % 4 == 0; all contiguous on one CUDA
+    device -> (hs [S, B, H, d] in gx's dtype, (h, c, n, m) [B, H, d] f32).
+    Launches on the current stream, does not synchronise;
+    ``slstm_cuda.launches`` counts the launches."""
     if gx.device.type != "cuda":
         raise ValueError(f"slstm_cuda takes CUDA tensors, got {gx.device}")
     if gx.dim() != 5 or gx.shape[2] != 4 or min(gx.shape) < 1:
@@ -63,9 +66,15 @@ def slstm_cuda(gx: torch.Tensor, r: torch.Tensor, b: torch.Tensor, h0: torch.Ten
         raise ValueError(f"every input must be on {gx.device}")
     if not all(x.is_contiguous() for x in (gx, r, b, *states)):
         raise ValueError("every input must be contiguous")
+    if dim % 4:
+        raise ValueError(f"d must be a multiple of 4, got {dim}")
+    if h0.data_ptr() % 16:   # the kernel reads h in 16-byte loads
+        states = (h0.clone(), c0, n0, m0)
     hs = torch.empty((s, bsz, heads, dim), dtype=gx.dtype, device=gx.device)
     finals = torch.empty((4, bsz, heads, dim), dtype=torch.float32, device=gx.device)
-    hbuf = torch.empty((2, bsz, heads, dim), dtype=torch.float32, device=gx.device)
+    # the h exchange [2, B, H, d] f32, then H int32 arrival counters
+    hbuf = torch.empty((2 * bsz * heads * dim + heads,), dtype=torch.float32,
+                       device=gx.device)
     build.launch("slstm", ARGTYPES, gx.device, gx.data_ptr(),
                  int(gx.dtype == torch.bfloat16), r.data_ptr(),
                  int(r.dtype == torch.bfloat16), b.data_ptr(),

@@ -14,6 +14,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.utils.device import resolve_device
+
 
 class SimModel(NamedTuple):
     init: Callable      # device -> params
@@ -34,7 +36,8 @@ def _log_probs(params, x):
 
 
 def logistic_regression(dim: int = 784, num_classes: int = 10) -> SimModel:
-    def init(device="cpu"):
+    def init(device=None):
+        device = resolve_device(device)
         return {
             "b": torch.zeros((num_classes,), dtype=torch.float32, device=device),
             "w": torch.zeros((dim, num_classes), dtype=torch.float32, device=device),
@@ -59,9 +62,10 @@ def logistic_regression(dim: int = 784, num_classes: int = 10) -> SimModel:
     return SimModel(init, loss, accuracy, grad)
 
 
-def params_from_jax(np_params, device="cpu") -> dict:
+def params_from_jax(np_params, device=None) -> dict:
     """Carry the JAX package's parameters (a dict of numpy-convertible
-    arrays) into the port: same layout and dtype, keys in JAX's sorted leaf
-    order."""
+    arrays) into the port on ``device`` (``None``: the card): same layout
+    and dtype, keys in JAX's sorted leaf order."""
+    device = resolve_device(device)
     return {k: torch.as_tensor(np.array(np_params[k])).to(device)
             for k in sorted(np_params)}

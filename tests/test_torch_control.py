@@ -82,7 +82,7 @@ def test_channel_draw_and_effective_channel(scen):
     ref = jchannel.draw_channels_scenario(key, jchannel.scenario_from_config(jfl),
                                           N, fl.num_subcarriers)
     got = channel.draw_channels_scenario(t(normals), t(shadow),
-                                         channel.scenario_from_config(fl),
+                                         channel.scenario_from_config(fl, "cpu"),
                                          fl.num_subcarriers)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6)
     np.testing.assert_allclose(channel.effective_channel(got).numpy(),
@@ -190,8 +190,9 @@ def test_analog_energy_ledger(scen):
     h = rng.uniform(0.01, 2.0, size=N).astype(np.float32)
     mask = (rng.uniform(size=N) > 0.5).astype(np.float32)
     m = 7850
-    scn, jscn = channel.scenario_from_config(fl), jchannel.scenario_from_config(jfl)
-    tp, jtp = transport.transport_from_config(fl), jtransport.transport_from_config(jfl)
+    scn, jscn = channel.scenario_from_config(fl, "cpu"), jchannel.scenario_from_config(jfl)
+    tp, jtp = (transport.transport_from_config(fl, "cpu"),
+               jtransport.transport_from_config(jfl))
     got = transport.round_energy("analog", tp, t(h), t(mask), m, scn)
     ref = jtransport.round_energy("analog", jtp, jnp.asarray(h), jnp.asarray(mask),
                                   m, jscn)

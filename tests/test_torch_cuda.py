@@ -163,7 +163,11 @@ from repro_torch.models.api import build_model  # noqa: E402
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,d", [(300, 896), (8, 896), (1, 4096), (1024, 64)])
+@pytest.mark.parametrize("rows,d", [(300, 896), (8, 896), (1, 4096), (1024, 64),
+                                    (64, 2048),    # xLSTM's width: 16 vectors a lane
+                                    (5, 4095),     # no whole 16-byte vectors
+                                    (8, 4096),     # xLSTM's inner width: 32 vectors a lane
+                                    (3, 8192)])    # the strided loop past 32
 @pytest.mark.parametrize("dtype,scale_dtype", [("float32", "float32"),
                                                ("bfloat16", "float32"),
                                                ("bfloat16", "bfloat16")])
@@ -178,6 +182,29 @@ def test_rmsnorm_kernel_matches_plain(card, rows, d, dtype, scale_dtype):
     torch.cuda.synchronize()
     assert rmsnorm_cuda.launches == before + 1
     assert got.dtype == x.dtype
+    plain = rmsnorm_ref(x, scale, 1e-5)
+    tol = 2.0 ** -7 if x.dtype == torch.bfloat16 else (d / 2 + 8) * EPS32
+    assert bool((torch.abs(got.float() - plain.float())
+                 <= tol * torch.abs(plain.float())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_kernel_on_a_misaligned_view(card, dtype):
+    """x a contiguous view one element into its storage: not 16-byte
+    aligned, so the kernel reads it one element at a time."""
+    rows, d = 37, 896
+    gen = torch.Generator(device=card)
+    gen.manual_seed(4)
+    flat = (3.0 * torch.randn((rows * d + 1,), generator=gen, device=card)).to(
+        getattr(torch, dtype))
+    x = flat[1:].view(rows, d)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    scale = 1.0 + 0.1 * torch.randn((d,), generator=gen, device=card)
+    before = rmsnorm_cuda.launches
+    got = rmsnorm_cuda(x, scale, 1e-5)
+    torch.cuda.synchronize()
+    assert rmsnorm_cuda.launches == before + 1
     plain = rmsnorm_ref(x, scale, 1e-5)
     tol = 2.0 ** -7 if x.dtype == torch.bfloat16 else (d / 2 + 8) * EPS32
     assert bool((torch.abs(got.float() - plain.float())
@@ -327,6 +354,9 @@ def _slstm_within_tolerance(args, got):
     (40, 13, 1, 8, "float32", "float32", "random"),      # two passes of rows
     (64, 8, 4, 512, "float32", "bfloat16", "init"),      # bf16 R: h rounded
     (64, 8, 4, 512, "bfloat16", "float32", "random"),    # bf16 gx and hs
+    (64, 8, 1, 512, "float32", "float32", "random"),     # one head: 128 blocks of 4 channels
+    (64, 8, 8, 256, "float32", "float32", "random"),     # 8 heads: 8 barrier groups
+    (16, 13, 4, 512, "float32", "float32", "random"),    # 13 rows: a pass of 8, one of 5
 ])
 def test_slstm_kernel_matches_plain(card, s, b, h, d, gx_dtype, r_dtype, state):
     args = _slstm_inputs(card, s, b, h, d, getattr(torch, gx_dtype),
@@ -371,9 +401,17 @@ def test_slstm_kernel_refuses_what_it_does_not_take(card):
     big = _slstm_inputs(card, 1, 1, 1, 4096, torch.float32, torch.float32, "init")
     with pytest.raises(RuntimeError, match="slstm kernel launch failed"):
         slstm_cuda(*big)
+    with pytest.raises(ValueError, match="multiple of 4"):   # 16-byte h loads
+        slstm_cuda(*_slstm_inputs(card, 2, 2, 4, 6, torch.float32, torch.float32, "init"))
     got = slstm_cuda(gx, r, bias, *states)     # the refusal left no error behind
     torch.cuda.synchronize()
     assert bool(torch.isfinite(got[0]).all())
+    # an h0 view that is not 16-byte aligned is copied, not refused
+    flat = torch.empty((states[0].numel() + 1,), device=card)
+    h0 = flat[1:].view(states[0].shape)
+    h0.copy_(states[0])
+    again = slstm_cuda(gx, r, bias, h0, *states[1:])
+    assert torch.equal(again[0], got[0])
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package (nor
 does ``chip_smoke.py``, the port's proof on the card), and its entry points
 never fall back to the CPU on their own."""
+import dataclasses
 import os
 import pkgutil
 import subprocess
@@ -52,6 +53,41 @@ def test_entry_point_without_device_raises_when_no_card(monkeypatch):
     fl = FLConfig(num_clients=4, clients_per_round=2, rounds=1, batch_size=2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_simulation(logistic_regression(3, 10), fl, (x, y, x, y))
+
+
+@pytest.mark.parametrize("entry", ["init_sim_state", "transport_from_config",
+                                   "scenario_from_config", "sweep_point_from_config",
+                                   "logreg_init", "logreg_params_from_jax"])
+def test_public_function_without_device_raises_when_no_card(monkeypatch, entry):
+    """``device=None`` means the card, as at every entry point: without one
+    these raise, and with ``device="cpu"`` they build on the CPU."""
+    from repro_torch.core import channel, simulator, sweep, transport
+    from repro_torch.models import logreg
+    fl = FLConfig(num_clients=4, clients_per_round=2, rounds=1, batch_size=2)
+    model = logistic_regression(3, 10)
+    params = {"b": np.zeros(10, np.float32), "w": np.zeros((3, 10), np.float32)}
+    call = {"init_sim_state": lambda dev: simulator.init_sim_state(model, fl, dev),
+            "transport_from_config": lambda dev: transport.transport_from_config(fl, dev),
+            "scenario_from_config": lambda dev: channel.scenario_from_config(fl, dev),
+            "sweep_point_from_config": lambda dev: sweep.sweep_point_from_config(fl, dev),
+            "logreg_init": lambda dev: model.init(dev),
+            "logreg_params_from_jax": lambda dev: logreg.params_from_jax(params, dev)}[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call(None)
+
+    def tensors(obj):
+        if isinstance(obj, torch.Tensor):
+            return [obj]
+        if dataclasses.is_dataclass(obj):
+            obj = [getattr(obj, f.name) for f in dataclasses.fields(obj)]
+        elif isinstance(obj, dict):
+            obj = list(obj.values())
+        return ([x for v in obj for x in tensors(v)]
+                if isinstance(obj, (list, tuple)) else [])
+
+    leaves = tensors(call("cpu"))
+    assert leaves and all(x.device.type == "cpu" for x in leaves)
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -41,13 +41,13 @@ def inputs():
 def test_params_from_jax_layout(inputs):
     params, _, _ = inputs
     jp = jax_logreg(32, 10).init(jax.random.PRNGKey(0))
-    tp = params_from_jax(jp)
+    tp = params_from_jax(jp, "cpu")
     assert list(tp) == sorted(jp) == ["b", "w"]
     for name in jp:
         assert tuple(tp[name].shape) == jp[name].shape
         assert str(tp[name].dtype) == f"torch.{jp[name].dtype}"
     assert tree_size(tp) == 32 * 10 + 10
-    np.testing.assert_array_equal(params_from_jax(params)["w"].numpy(), params["w"])
+    np.testing.assert_array_equal(params_from_jax(params, "cpu")["w"].numpy(), params["w"])
 
 
 def test_init_matches(inputs):
@@ -64,7 +64,7 @@ def test_per_client_metrics(inputs, fn):
     jm, tm = jax_logreg(32, 10), logistic_regression(32, 10)
     jparams = {k: jnp.asarray(v) for k, v in params.items()}
     ref = jax.vmap(getattr(jm, fn), in_axes=(None, 0, 0))(jparams, x, y)
-    got = getattr(tm, fn)(params_from_jax(params), torch.from_numpy(x),
+    got = getattr(tm, fn)(params_from_jax(params, "cpu"), torch.from_numpy(x),
                           torch.from_numpy(y))
     assert got.shape == (x.shape[0],)
     if fn == "accuracy":
@@ -72,7 +72,7 @@ def test_per_client_metrics(inputs, fn):
     else:
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
     # one client, no client axis
-    one = getattr(tm, fn)(params_from_jax(params), torch.from_numpy(x[0]),
+    one = getattr(tm, fn)(params_from_jax(params, "cpu"), torch.from_numpy(x[0]),
                           torch.from_numpy(y[0]))
     np.testing.assert_allclose(one.numpy(), np.asarray(ref)[0], **TOL)
 
@@ -93,7 +93,7 @@ def test_per_client_gradients(inputs, stacked):
         axes = (None, 0, 0)
     jparams = {k: jnp.asarray(v) for k, v in params.items()}
     ref = jax.vmap(jax.grad(jm.loss), in_axes=axes)(jparams, x, y)
-    got = tm.grad(params_from_jax(params), torch.from_numpy(x), torch.from_numpy(y))
+    got = tm.grad(params_from_jax(params, "cpu"), torch.from_numpy(x), torch.from_numpy(y))
     for name in ("b", "w"):
         assert tuple(got[name].shape) == ref[name].shape
         np.testing.assert_allclose(got[name].numpy(), np.asarray(ref[name]), **TOL)

@@ -96,8 +96,9 @@ def test_energy_functions_bitwise(scheme, knobs):
     h = rng.uniform(0.0, 2.0, size=N).astype(np.float32)
     h[0] = 0.0                        # a deep fade, clamped at the floor
     mask = (rng.uniform(size=N) > 0.5).astype(np.float32)
-    scn, jscn = channel.scenario_from_config(fl), jchannel.scenario_from_config(jfl)
-    tp, jtp = transport.transport_from_config(fl), jtransport.transport_from_config(jfl)
+    scn, jscn = channel.scenario_from_config(fl, "cpu"), jchannel.scenario_from_config(jfl)
+    tp, jtp = (transport.transport_from_config(fl, "cpu"),
+               jtransport.transport_from_config(jfl))
     th, jh = t(h), jnp.asarray(h)
     log_ulps = 4   # the digital scheme's log (module docstring)
     for m in (P, 7850):
