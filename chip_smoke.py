@@ -19,7 +19,10 @@ these phases and fails (non-zero exit, no result line) if any of them fails:
      where one PyTorch call computes the same function, that call, from CUDA
      events (warm-up first, median of 21 samples; 3 of the plain sLSTM scan
      at S = 2048), beside the least time the card allows (bytes / 3.35 TB/s,
-     or operations / the peak rate of the inputs' type, whichever is larger);
+     or operations / the peak rate of the inputs' type, whichever is larger;
+     flash_attention's f32 route counts its three TF32 passes at the TF32
+     rate), and the count of HMMA instructions in each flash_attention
+     instantiation's SASS (none fails the phase);
      the device time a launch of the short calls (rmsnorm and slstm at
      decode) with the card kept ahead of the host; and how a step of the
      sLSTM scan at serve B's shape splits (barrier, h exchange, products,
@@ -73,6 +76,7 @@ EPS32 = 2.0 ** -23
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS = 67e12           # f32 outside the tensor cores
 BF16_FLOPS = 989e12         # bf16 tensor cores, dense
+TF32_FLOPS = 495e12         # TF32 tensor cores, dense
 SAMPLES = 21
 
 
@@ -619,17 +623,30 @@ def phase_rmsnorm(torch):
     return timings
 
 
-# flash attention's tolerance: f32, the online softmax (rescaled running sums
-# over 64-key tiles) against a full softmax, |Δ| ≤ 1e-4 + 1e-4·|plain|;
-# bf16, one bf16 rounding step of the output on top, |Δ| ≤ 1e-4 + 2⁻⁷·|plain|
-FLASH_CASES = [   # (name, BHkv, G, Sq, T, d, causal, window, why)
-    ("run_A", 8, 7, 32, 32, 64, True, None, "run A's prefill: batch 4, prompt 32"),
-    ("ragged", 4, 7, 300, 300, 64, True, None, "S = 300: ragged q and kv tiles"),
-    ("run_B", 16, 7, 2048, 2048, 64, True, None, "run B's prefill: batch 8, prompt 2048"),
-    ("d128", 4, 6, 300, 300, 128, True, None, "head dim 128, G = 6"),
-    ("window64", 4, 7, 300, 300, 64, True, 64, "sliding window 64: skipped tiles"),
-    ("noncausal", 4, 7, 300, 300, 64, False, None, "non-causal"),
+# flash attention's tolerance: f32 (3×TF32 products on the tensor cores,
+# ~3·2⁻²² a product, and the online softmax's rescaled running sums over
+# 32-key tiles against a full softmax), |Δ| ≤ 1e-4 + 1e-4·|plain|; bf16 (P
+# split in two bf16 passes), one bf16 rounding step of the output on top,
+# |Δ| ≤ 1e-4 + 2⁻⁷·|plain|
+FLASH_CASES = [   # (name, BHkv, G, Sq, T, d, causal, window, q's scale, why)
+    ("run_A", 8, 7, 32, 32, 64, True, None, 2.0, "run A's prefill: batch 4, prompt 32"),
+    ("ragged", 4, 7, 300, 300, 64, True, None, 2.0, "S = 300: ragged q and kv tiles"),
+    ("run_B", 16, 7, 2048, 2048, 64, True, None, 2.0, "run B's prefill: batch 8, prompt 2048"),
+    ("d128", 4, 6, 300, 300, 128, True, None, 2.0, "head dim 128, G = 6"),
+    ("window64", 4, 7, 300, 300, 64, True, 64, 2.0, "sliding window 64: skipped tiles"),
+    ("noncausal", 4, 7, 300, 300, 64, False, None, 2.0, "non-causal"),
+    ("one", 1, 2, 1, 1, 64, True, None, 2.0, "Sq = T = 1"),
+    ("sq9_t17", 1, 3, 9, 17, 64, True, None, 2.0,
+     "Sq = 9, T = 17: no multiple of the 8-key fragments or 16-row warp tiles"),
+    ("sq9_t17_d128", 1, 3, 9, 17, 128, False, None, 2.0, "the same at d = 128, non-causal"),
+    ("d128_window1", 1, 2, 200, 200, 128, True, 1, 2.0, "d = 128, window 1: the diagonal"),
+    ("g1_d128", 2, 1, 100, 300, 128, False, None, 2.0, "G = 1, non-causal, Sq != T, d = 128"),
+    ("q_x8", 4, 7, 300, 300, 64, True, None, 16.0, "q 8x larger: the running max moves far"),
+    ("d128_B", 16, 6, 2048, 2048, 128, True, None, 2.0,
+     "qwen2-1.5b's attention (12 q / 2 kv heads, d = 128) at batch 8, prompt 2048"),
 ]
+FLASH_TIMED = {"run_A": ("float32",), "run_B": ("float32", "bfloat16"),
+               "d128_B": ("float32", "bfloat16")}
 
 
 def allowed_pairs(torch, sq, t, causal, window):
@@ -645,32 +662,55 @@ def allowed_pairs(torch, sq, t, causal, window):
 
 
 def flash_bound(torch, bhq, bhkv, sq, t, d, causal, window, dtype):
-    """The least time: the larger of 4·d flops an allowed pair (QKᵀ and PV)
-    over the peak rate of the inputs' type and q, k, v read and o written
-    once over the memory rate."""
+    """The least time for the kernel's route: the larger of its tensor-core
+    work over their peak rate and q, k, v read and o written once over the
+    memory rate. 4·d flops an allowed pair (QKᵀ and PV); f32 runs 3×TF32,
+    three passes at the TF32 rate (the f32-accurate work on this card), with
+    the SIMT f32 bound beside it; bf16 one pass at the bf16 rate (the kernel
+    itself does 1.5×: its PV takes two passes of a split P)."""
     elt = 4 if dtype == "float32" else 2
     flops = 4 * d * allowed_pairs(torch, sq, t, causal, window) * bhq
     nbytes = (2 * bhq * sq * d + 2 * bhkv * t * d) * elt
-    ops_ms = flops / (F32_FLOPS if dtype == "float32" else BF16_FLOPS) * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    if dtype == "float32":
+        ops_ms = 3 * flops / TF32_FLOPS * 1e3
+        route = {"precision_route": "3xTF32 mma.sync",
+                 "simt_f32_bound_ms": flops / F32_FLOPS * 1e3}
+    else:
+        ops_ms = flops / BF16_FLOPS * 1e3
+        route = {"precision_route": "bf16 mma.sync, split P",
+                 "kernel_tensor_core_ms": 1.5 * flops / BF16_FLOPS * 1e3}
     return {"flops": flops, "bytes": nbytes, "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", **route}
+
+
+def flash_hmma():
+    """The HMMA (tensor-core) instructions in each flash instantiation's SASS,
+    read with cuobjdump from the built library; fails if one has none, so a
+    SIMT path cannot pass for the tensor-core one."""
+    from repro_torch.kernels import build
+    counts = {name: n for name, n in build.hmma_counts(build.library_path("flash_attention")).items()
+              if "flash_attention_kernel" in name}
+    emit({"flash_attention_hmma": counts})
+    if len(counts) != 4 or min(counts.values()) == 0:
+        raise AssertionError(f"flash_attention: an instantiation without HMMA: {counts}")
 
 
 def phase_flash(torch):
     """flash_attention against its plain version at the serve path's shapes
     and the edge cases, f32 and bf16; timed at runs A's and B's prefill
-    shapes (f32, and bf16 at B's)."""
+    shapes (f32, and bf16 at B's) and at d128_B (f32 and bf16), SDPA beside."""
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     checks, timings = [], []
-    for name, bhkv, g, sq, t, d, causal, window, why in FLASH_CASES:
+    flash_hmma()
+    for name, bhkv, g, sq, t, d, causal, window, q_scale, why in FLASH_CASES:
         for dtype in ("float32", "bfloat16"):
             dt = getattr(torch, dtype)
-            q = (2.0 * torch.randn((bhkv * g, sq, d), generator=gen, device="cuda")).to(dt)
+            q = (q_scale * torch.randn((bhkv * g, sq, d), generator=gen, device="cuda")).to(dt)
             k = (2.0 * torch.randn((bhkv, t, d), generator=gen, device="cuda")).to(dt)
             v = torch.randn((bhkv, t, d), generator=gen, device="cuda").to(dt)
 
@@ -690,13 +730,14 @@ def phase_flash(torch):
             max_err = float(err.max())
             checks.append({"case": name, "shape": [bhkv * g, sq, t, d], "group": g,
                            "causal": causal, "window": window, "dtype": dtype,
-                           "why": why, "tolerance": f"|d| <= 1e-4 + {rtol:.3g}*|plain|",
+                           "q_scale": q_scale, "why": why,
+                           "tolerance": f"|d| <= 1e-4 + {rtol:.3g}*|plain|",
                            "max_abs_err": max_err, "within": worst <= 0.0})
             if not (worst <= 0.0 and math.isfinite(max_err) and got.dtype == dt):
                 raise AssertionError(f"flash_attention {name} {dtype}: error exceeds "
                                      f"the tolerance by {worst}")
-            if name == "run_B" or (name == "run_A" and dtype == "float32"):
-                b = bhkv // 2   # qwen2-0.5b's 2 KV heads a sequence
+            if dtype in FLASH_TIMED.get(name, ()):
+                b = bhkv // 2   # 2 KV heads a sequence (qwen2-0.5b, qwen2-1.5b)
                 sdpa_q = q.reshape(b, -1, sq, d)
 
                 def library():
@@ -704,7 +745,7 @@ def phase_flash(torch):
                         sdpa_q, k.reshape(b, -1, t, d), v.reshape(b, -1, t, d),
                         is_causal=True, enable_gqa=True)
 
-                reps = 3 if name == "run_B" else 100
+                reps = 3 if sq >= 2048 else 100
                 timings.append({
                     "case": name, "shape": [bhkv * g, sq, t, d], "group": g,
                     "dtype": dtype, "max_abs_err": max_err,

@@ -19,6 +19,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -33,15 +34,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def _toolkit(tool: str) -> str:
+    """The path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
+    found = shutil.which(tool)
     if found:
         return found
     from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
-        return str(Path(CUDA_HOME) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       f"the kernels under {KERNELS_DIR}")
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / tool).exists():
+        return str(Path(CUDA_HOME) / "bin" / tool)
+    raise RuntimeError(f"{tool} not found: the CUDA toolkit is needed to build "
+                       f"and read the kernels under {KERNELS_DIR}")
 
 
 def build_dir() -> Path:
@@ -86,7 +88,7 @@ def build(extra=()) -> dict[str, Path]:
         return libs
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = _toolkit("nvcc")
     procs = {}
     try:
         for lib, (src, flags) in todo.items():
@@ -115,31 +117,43 @@ def build(extra=()) -> dict[str, Path]:
     return libs
 
 
+def hmma_counts(library: Path) -> dict[str, int]:
+    """The number of HMMA (tensor-core) instructions in the SASS of each
+    kernel function of a built library, by mangled function name."""
+    sass = subprocess.run([_toolkit("cuobjdump"), "-sass", str(library)],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            counts[name] = 0
+        elif name is not None and "HMMA" in line:
+            counts[name] += 1
+    return counts
+
+
 @functools.lru_cache(maxsize=None)
-def _library(name: str) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()[name]))
+def _entry(name: str, argtypes: tuple, library: Path | None):
+    lib = ctypes.CDLL(str(library or build()[name]))
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = [*argtypes, ctypes.c_void_p]   # the stream comes last
+    fn.restype = ctypes.c_int
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
-    return lib
+    return fn, err
 
 
-@functools.lru_cache(maxsize=None)
-def _entry(name: str, argtypes: tuple):
-    fn = getattr(_library(name), f"{name}_launch")
-    fn.argtypes = [*argtypes, ctypes.c_void_p]   # the stream comes last
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def launch(name: str, argtypes: tuple, device, *args) -> None:
+def launch(name: str, argtypes: tuple, device, *args, library: Path | None = None) -> None:
     """Call ``<name>_launch(*args, stream)`` on ``device``'s current stream
     and raise on a refused launch. ``argtypes`` are the ctypes of ``args``
-    (``c_void_p`` for a pointer, never a bare int, or ctypes cuts it)."""
-    fn = _entry(name, argtypes)
+    (``c_void_p`` for a pointer, never a bare int, or ctypes cuts it).
+    ``library``: a variant built by ``build(extra)`` (``variant_path``), by
+    default kernel ``name``'s own library, built at first use."""
+    fn, err = _entry(name, argtypes, library)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*args, stream)
     if rc != 0:
-        message = getattr(_library(name), f"{name}_error_string")(rc).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {message}")
+        raise RuntimeError(f"{name} kernel launch failed: {err(rc).decode()}")

@@ -8,13 +8,16 @@ sliding window (k_pos > q_pos − window), scale 1/√d, −1e30 masking, f32
 running max, denominator and accumulator; the output in q's dtype.
 
 Bound: operations. A causal launch at the long prefill (112 q heads,
-S = T = 2048, d = 64) is 60 GFLOP against 134 MB, so the least time is
-0.90 ms at the H100's 67 TFLOP/s of f32 outside the tensor cores (61 µs at
-989 TFLOP/s for bf16 inputs). What the design does about it, with SIMT FMAs
-only (mma/wgmma and TMA are later work): one block a (q head, 64-row q
-tile) looping over 64-row kv tiles staged in shared memory, so scores and
-probabilities never reach device memory; register tiles of 4 × 4 scores a
-thread; no repeated K/V for GQA; kv tiles wholly above the diagonal or
+S = T = 2048, d = 64) is 60 GFLOP against 134 MB. Both products run on the
+tensor cores (warp-level ``mma.sync``) at a precision that keeps the plain
+version's tolerances: f32 inputs as 3×TF32 (each operand split into two
+TF32 parts, three passes: 0.365 ms at 495 TFLOP/s, where SIMT f32 would
+need 0.90 ms), bf16 inputs with one pass for QKᵀ and a P split into two
+bf16 parts for PV (61 µs for one pass at 989 TFLOP/s). A block of 4 warps
+owns 16 or 32 q rows a warp of a q head, with the score tile in registers
+as accumulator fragments that are re-packed as PV's operand (P never
+reaches shared memory); K/V tiles stream through a two-stage ``cp.async``
+ring; no repeated K/V for GQA; kv tiles wholly above the diagonal or
 outside the window skipped; the longest causal rows launched first.
 ``csrc/flash_attention.cu`` has the details.
 

@@ -15,7 +15,6 @@ time the step's parts and their outputs mean nothing.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import statistics
 import subprocess
@@ -54,14 +53,10 @@ def step_split(torch, source=SOURCE, s=2048, b=8, h=4, d=512, samples=7) -> dict
             *(x.data_ptr() for x in finals), hbuf.data_ptr(), s, b, h, d]
     stages = {}
     for name, (src, flags) in zip(STAGES, builds, strict=True):
-        fn = ctypes.CDLL(str(build.variant_path(src, flags))).slstm_launch
-        fn.argtypes = [*ARGTYPES, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        lib = build.variant_path(src, flags)
 
         def call():
-            rc = fn(*ptrs, torch.cuda.current_stream().cuda_stream)
-            if rc != 0:
-                raise RuntimeError(f"slstm {name} variant: launch failed with CUDA error {rc}")
+            build.launch("slstm", ARGTYPES, dev, *ptrs, library=lib)
 
         call()
         torch.cuda.synchronize()

@@ -48,3 +48,26 @@ def test_step_split_refuses_without_a_card():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=Path(build.__file__).resolve().parents[2], timeout=120)
     assert out.returncode != 0 and "no CUDA device" in out.stderr
+
+
+def test_hmma_counts_reads_each_function_of_the_sass(monkeypatch):
+    """``hmma_counts`` counts HMMA lines under each ``Function :`` header of
+    cuobjdump's SASS listing (a function with none counts 0)."""
+    sass = """
+        Function : _Z5firstv
+        /*0000*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
+        /*0010*/                   FFMA R1, R2, R3, R1 ;
+        /*0020*/                   HMMA.16816.F32.BF16 R16, R8, R12, R16 ;
+        Function : _Z6secondv
+        /*0000*/                   FFMA R1, R2, R3, R1 ;
+    """
+    calls = []
+
+    def run(cmd, **kwargs):
+        calls.append(cmd)
+        return subprocess.CompletedProcess(cmd, 0, stdout=sass)
+
+    monkeypatch.setattr(build, "_toolkit", lambda tool: tool)
+    monkeypatch.setattr(build.subprocess, "run", run)
+    assert build.hmma_counts(Path("lib.so")) == {"_Z5firstv": 2, "_Z6secondv": 0}
+    assert calls == [["cuobjdump", "-sass", "lib.so"]]

@@ -146,10 +146,12 @@ def test_sparse_aircomp_kernel_matches_plain(card):
 # Tolerances. rmsnorm f32: the sum-of-squares order differs (256 strided
 # partial sums and a tree against torch's), bounded by |Δ| ≤ (D/2 + 8)·ε₃₂
 # ·|plain| per element; bf16: one bf16 rounding step, |Δ| ≤ 2⁻⁷·|plain|.
-# flash attention f32: online softmax (rescaled running sums, 64-key tiles)
+# flash attention f32: 3×TF32 products on the tensor cores (~3·2⁻²² of a
+# product) and an online softmax (rescaled running sums over 32-key tiles)
 # against a full softmax, atol = rtol = 1e-4 on outputs of |o| ≤ max|v|;
-# bf16 outputs: one bf16 rounding step on top, rtol 2⁻⁷. A wrong kv head,
-# mask or dropped tile moves outputs by O(0.1).
+# bf16 outputs (P split in two bf16 passes, so P keeps ~2⁻¹⁸): one bf16
+# rounding step on top, rtol 2⁻⁷. A wrong kv head, mask or dropped tile
+# moves outputs by O(0.1).
 
 from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda  # noqa: E402
@@ -224,21 +226,29 @@ def test_rmsnorm_kernel_refuses_what_it_does_not_take(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bhkv,g,sq,t,d,causal,window", [
-    (2, 7, 300, 300, 64, True, None),    # qwen2-0.5b's G, ragged tiles
-    (1, 7, 32, 32, 64, True, None),      # one partial tile
-    (2, 6, 130, 130, 128, True, None),   # d = 128
-    (2, 2, 300, 300, 64, True, 64),      # sliding window: skipped tiles
-    (1, 1, 200, 200, 64, True, 1),       # window 1: the diagonal only
-    (2, 2, 100, 300, 64, False, None),   # non-causal, Sq != T
+@pytest.mark.parametrize("bhkv,g,sq,t,d,causal,window,q_scale", [
+    (2, 7, 300, 300, 64, True, None, 2.0),    # qwen2-0.5b's G, ragged tiles
+    (1, 7, 32, 32, 64, True, None, 2.0),      # one partial tile
+    (2, 6, 130, 130, 128, True, None, 2.0),   # d = 128
+    (2, 2, 300, 300, 64, True, 64, 2.0),      # sliding window: skipped tiles
+    (1, 1, 200, 200, 64, True, 1, 2.0),       # window 1: the diagonal only
+    (2, 2, 100, 300, 64, False, None, 2.0),   # non-causal, Sq != T
+    # the edges of the mma tiling (16 q rows a warp, 8-key fragments, 32- or
+    # 64-key tiles) and of the zero-filled cp.async ring
+    (1, 2, 1, 1, 64, True, None, 2.0),        # Sq = T = 1
+    (1, 3, 9, 17, 64, True, None, 2.0),       # Sq = 9, T = 17: no multiple of 8 or 16
+    (1, 3, 9, 17, 128, False, None, 2.0),     # the same at d = 128, non-causal
+    (1, 2, 200, 200, 128, True, 1, 2.0),      # d = 128, window 1
+    (2, 1, 100, 300, 128, False, None, 2.0),  # G = 1, non-causal, Sq != T, d = 128
+    (2, 7, 300, 300, 64, True, None, 16.0),   # q 8x larger: the running max moves far
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_kernel_matches_plain(card, bhkv, g, sq, t, d, causal,
-                                              window, dtype):
+                                              window, q_scale, dtype):
     gen = torch.Generator(device=card)
     gen.manual_seed(4)
     dt = getattr(torch, dtype)
-    q = (2.0 * torch.randn((bhkv * g, sq, d), generator=gen, device=card)).to(dt)
+    q = (q_scale * torch.randn((bhkv * g, sq, d), generator=gen, device=card)).to(dt)
     k = (2.0 * torch.randn((bhkv, t, d), generator=gen, device=card)).to(dt)
     v = torch.randn((bhkv, t, d), generator=gen, device=card).to(dt)
     before = flash_attention_cuda.launches
@@ -252,6 +262,68 @@ def test_flash_attention_kernel_matches_plain(card, bhkv, g, sq, t, d, causal,
     rtol = 2.0 ** -7 if dt == torch.bfloat16 else 1e-4
     assert bool((torch.abs(got.float() - plain.float())
                  <= 1e-4 + rtol * torch.abs(plain.float())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_f32_route_is_f32_class(card, d):
+    """The f32 kernel (3×TF32 on the tensor cores) against the plain version
+    computed in f64, within 1e-5 + 1e-5·|o|: ten times tighter than the f32
+    tolerance. Each product carries ≤ 3·2⁻²² of relative error (a_lo·b_lo
+    dropped, both lo parts rounded to TF32), so a score moves by at most
+    3·2⁻²²·scale·Σᵢ|qᵢkᵢ| ≈ 1.4e-5 at these inputs (scale·Σᵢ|qᵢkᵢ| ≈ 20) and
+    typically a few 1e-6; the CPU emulation of the route reaches 8.4e-6
+    (``tests/test_torch_flash_numerics.py``). One TF32 pass (2⁻¹¹ a product)
+    misses this bound by ~500×, so a TF32-only kernel cannot pass."""
+    bhkv, g, s = 2, 7, 300
+    gen = torch.Generator(device=card)
+    gen.manual_seed(4)
+    q = 2.0 * torch.randn((bhkv * g, s, d), generator=gen, device=card)
+    k = 2.0 * torch.randn((bhkv, s, d), generator=gen, device=card)
+    v = torch.randn((bhkv, s, d), generator=gen, device=card)
+    got = flash_attention_cuda(q, k, v, group=g, causal=True)
+    kk = k.double().repeat_interleave(g, dim=0)
+    vv = v.double().repeat_interleave(g, dim=0)
+    sc = q.double() @ kk.transpose(1, 2) / d ** 0.5
+    allowed = torch.ones((s, s), dtype=torch.bool, device=card).tril()
+    want = torch.softmax(torch.where(allowed, sc, -1e30), dim=-1) @ vv
+    err = torch.abs(got.double() - want)
+    assert bool((err <= 1e-5 + 1e-5 * torch.abs(want)).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_keeps_nan(card, d, dtype):
+    """A NaN made on the card (0/0) in q and in v reaches the outputs as NaN,
+    as in the plain version: all of q's row, and v's column in every row that
+    may see v's key. Every output the plain version gives finite is finite
+    and within the tolerance. (The plain version sums over all keys, so its
+    0·NaN also spreads v's NaN to rows that may not see the key; the kernel
+    skips tiles wholly above the diagonal, so such rows are not asserted.)"""
+    bhkv, g, s, row, key, col = 2, 2, 80, 5, 40, 7
+    gen = torch.Generator(device=card)
+    gen.manual_seed(4)
+    dt = getattr(torch, dtype)
+    q = (2.0 * torch.randn((bhkv * g, s, d), generator=gen, device=card)).to(dt)
+    k = (2.0 * torch.randn((bhkv, s, d), generator=gen, device=card)).to(dt)
+    v = torch.randn((bhkv, s, d), generator=gen, device=card).to(dt)
+    nan = torch.zeros((), device=card) / torch.zeros((), device=card)
+    q[0, row, 3] = nan
+    v[1, key, col] = nan
+    got = flash_attention_cuda(q, k, v, group=g, causal=True).float()
+    plain = attention_ref(q.reshape(1, bhkv * g, s, d), k.reshape(1, bhkv, s, d),
+                          v.reshape(1, bhkv, s, d)).reshape(bhkv * g, s, d).float()
+    reached = torch.zeros((bhkv * g, s, d), dtype=torch.bool, device=card)
+    reached[0, row, :] = True
+    reached[g:2 * g, key:, col] = True   # kv head 1's q heads, rows >= key
+    assert bool(torch.isnan(plain[reached]).all())
+    assert bool(torch.isnan(got[reached]).all())
+    finite = torch.isfinite(plain)
+    assert bool(torch.isfinite(got[finite]).all())
+    rtol = 2.0 ** -7 if dt == torch.bfloat16 else 1e-4
+    assert bool((torch.abs(got[finite] - plain[finite])
+                 <= 1e-4 + rtol * torch.abs(plain[finite])).all())
 
 
 @pytest.mark.cuda
