@@ -14,7 +14,12 @@ these phases and fails (non-zero exit, no result line) if any of them fails:
      for the AirComp kernels the f32 summation-order bound
      |Δy| ≤ 2·K·ε₃₂·(Σᵢ|wᵢrᵢ| + |σz|)/k per element (r the row as summed:
      x for aircomp, the rounded q for quant_aircomp, the compressed c for
-     sparse_aircomp); for rmsnorm, flash_attention and slstm the bounds
+     sparse_aircomp), and for quant_aircomp and sparse_aircomp also the
+     edges of their tiling (odd M, M = 31 and 63 against tiles of 32 and
+     64 columns, a misaligned x, C = 6144, the first M of the wide
+     layout), two launches bit-identical and, with σ = 0 and k = 1, a
+     one-hot w giving that row as summed bit for bit (each edge case's
+     rounding or mask); for rmsnorm, flash_attention and slstm the bounds
      stated at their phases; times of the kernel, the plain version and,
      where one PyTorch call computes the same function, that call, from CUDA
      events (warm-up first, median of 21 samples; 3 of the plain sLSTM scan
@@ -23,8 +28,9 @@ these phases and fails (non-zero exit, no result line) if any of them fails:
      flash_attention's f32 route counts its three TF32 passes at the TF32
      rate), and the count of HMMA instructions in each flash_attention
      instantiation's SASS (none fails the phase);
-     the device time a launch of the short calls (rmsnorm and slstm at
-     decode) with the card kept ahead of the host; and how a step of the
+     the device time a launch of the short calls (the AirComp kernels and
+     aircomp's library call, rmsnorm, slstm at decode) with the card kept
+     ahead of the host; and how a step of the
      sLSTM scan at serve B's shape splits (barrier, h exchange, products,
      cell: the kernel built four times, ``kernels/slstm/step_split.py``);
   3. the simulator's main path at full width, once per uplink transport
@@ -207,8 +213,13 @@ def phase_aircomp(torch):
             "case": name, "shape": [rows, m], "dtype": str(dtype),
             "max_abs_err": max_err,
             "ms": time_ms(torch, lambda: aircomp_cuda(x, w, z, s, inv_k), reps),
+            "device_ms": device_ms(torch, lambda: aircomp_cuda(x, w, z, s, inv_k),
+                                   launches=min(reps, 50)),
             "plain_ms": time_ms(torch, lambda: aircomp_ref(x, w, z, s, k), reps),
             "library_ms": time_ms(torch, lambda: (w @ xf + s * z) / k, reps),
+            # the library call's device time, taken the same way as the kernel's
+            "library_device_ms": device_ms(torch, lambda: (w @ xf + s * z) / k,
+                                           launches=min(reps, 50)),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes})
         del x, xf, w, z, got, plain, mag, bound, err
     emit({"aircomp_checks": checks})
@@ -256,12 +267,60 @@ QUANT_EDGES = [("d_zero_rows", 40, 7850, "mask", "d_zero"),
 SPARSE_EDGES = [("ties", 40, 7850, "mask", "ties"),
                 ("thr_zero_row", 40, 7850, "mask", "thr_zero"),
                 ("k1", 40, 7850, "mask", "k1"), ("kP", 40, 7850, "mask", "kP")]
+# the edges of the kernels' tiling (up to 33,792 columns, tiles of 32 columns
+# for quant and 64 for sparse whose 8 warps split the rows; above, 512-column
+# tiles whose warps sum whole rows): odd M, M below one tile, M = 63, x 4
+# bytes off an 8-byte boundary, C at the wrapper's limit, the first wide M (a
+# 1-column last tile)
+TILE_EDGES = [("odd_M", 40, 7851, "mask", None), ("M_below_tile", 40, 31, "mask", None),
+              ("M63", 40, 63, "mask", None),
+              ("misaligned", 40, 7850, "mask", "misaligned"),
+              ("C6144", 6144, 300, "mask", None), ("wide_ragged", 40, 33793, "mask", None)]
+
+
+def row_buffer(torch, gen, rows, m, edge):
+    """randn [rows, m] on the card; for the ``misaligned`` edge a contiguous
+    view one float into its buffer (4 bytes off an 8-byte boundary)."""
+    off = int(edge == "misaligned")
+    flat = torch.randn((rows * m + off,), generator=gen, device="cuda")
+    x = flat[off:].view(rows, m)
+    if (x.data_ptr() % 8 != 0) != (off > 0):
+        raise AssertionError("row_buffer: x's alignment is not the case's")
+    return x
+
+
+def one_hot_row(rows):
+    """A row in the fifth of the kernels' 8 row slices, not the first's."""
+    return rows * 4 // 7
+
+
+def exact_checks(torch, kernel, name, launch, rows, sigma, one_hot, checks):
+    """Two launches give the same bits; and for each (i, row, launch_i) of
+    ``one_hot``, w = e_i, σ = 0 and k = 1 give ``row`` (row i as summed) bit
+    for bit. ``launch(w, sigma, k)`` calls the kernel on the case's inputs
+    (``launch_i`` on the one-hot case's, None: the same). Records each check
+    and raises on a miss."""
+    bits = lambda t: t.view(torch.int32)   # noqa: E731
+    w1 = torch.ones((rows,), device="cuda")
+    same = torch.equal(bits(launch(w1, sigma, 1.0)), bits(launch(w1, sigma, 1.0)))
+    checks.append({"case": name, "sigma": sigma, "deterministic": same})
+    if not same:
+        raise AssertionError(f"{kernel} {name}: two launches differ")
+    for i, row, launch_i in one_hot:
+        w = torch.zeros((rows,), device="cuda")
+        w[i] = 1.0
+        exact = torch.equal(bits((launch_i or launch)(w, 0.0, 1.0)), bits(row))
+        checks.append({"case": name, "one_hot_row": i, "bit_exact": exact})
+        if not exact:
+            raise AssertionError(f"{kernel} {name}: y with w = e_{i} is not row {i} "
+                                 "bit for bit")
 
 
 def time_kernel(torch, name, rows, m, max_err, kernel_fn, plain_fn, nbytes):
     reps = 200 if m < 10 ** 6 else 5
     return {"case": name, "shape": [rows, m], "max_abs_err": max_err,
             "ms": time_ms(torch, kernel_fn, reps),
+            "device_ms": device_ms(torch, kernel_fn, launches=min(reps, 50)),
             "plain_ms": time_ms(torch, plain_fn, reps),
             "library_ms": None,   # no single PyTorch call computes it
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
@@ -269,7 +328,10 @@ def time_kernel(torch, name, rows, m, max_err, kernel_fn, plain_fn, nbytes):
 
 def phase_quant(torch):
     """quant_aircomp against its plain version: the main shapes, a zero
-    row and a non-zero row sent unrounded (step 0), 1 and 32 bits."""
+    row and a non-zero row sent unrounded (step 0), 1 and 32 bits, and the
+    edges of the tiling; with σ = 0, y from a one-hot w equal to that
+    rounded row bit for bit (a zero row and a step-0 row among them); two
+    launches bit-identical."""
     from repro_torch.core.transport import quant_step, sround
     from repro_torch.kernels.aircomp.kernel import quant_aircomp_cuda
     from repro_torch.kernels.aircomp.ops import quant_aircomp_flat
@@ -279,8 +341,9 @@ def phase_quant(torch):
     gen.manual_seed(1)
     checks, timings = [], []
     for sigma in (0.0, 1e-2):
-        for name, rows, m, weights, edge in ROW_CASES + QUANT_EDGES:
-            x = torch.randn((rows, m), generator=gen, device="cuda") * 0.05
+        for name, rows, m, weights, edge in ROW_CASES + QUANT_EDGES + TILE_EDGES:
+            x = row_buffer(torch, gen, rows, m, edge)
+            x *= 0.05
             u = torch.rand((rows, m), generator=gen, device="cuda")
             z = torch.randn((m,), generator=gen, device="cuda")
             w, k = case_weights(torch, gen, rows, weights)
@@ -296,6 +359,21 @@ def phase_quant(torch):
             q = sround(x, d, u)
             max_err = check_rows(torch, "quant_aircomp", name, (rows, m), sigma,
                                  got, plain, w, q, z, k, checks, bits=bits)
+
+            def launch(w_, s_, k_, d_=d):
+                return quant_aircomp_flat(x, w_, d_, u, z, noise_std=s_, k=k_)
+            one_hot = []
+            if sigma == 0.0:
+                i = one_hot_row(rows)
+                one_hot.append((i, q[i], None))
+            if sigma == 0.0 and edge == "d_zero":
+                # the zero row, and another row sent unrounded (its step set to 0)
+                d0 = d.clone()
+                d0[27] = 0.0
+                one_hot += [(rows // 2, q[rows // 2], None),
+                            (27, x[27], lambda w_, s_, k_: launch(w_, s_, k_, d0))]
+            exact_checks(torch, "quant_aircomp", name, launch, rows, sigma, one_hot,
+                         checks)
             if sigma == 1e-2 and name in ("main", "large"):
                 inv_k = 1.0 / k
                 nbytes = 2 * rows * m * 4 + 2 * m * 4 + 2 * rows * 4
@@ -311,8 +389,10 @@ def phase_quant(torch):
 
 def phase_sparse(torch):
     """sparse_aircomp against its plain version: the main shapes, tied
-    magnitudes, a zero row (thr = 0), k = 1 and k = P; and the card's
-    thresholds against the CPU's, bit for bit, at the main shape."""
+    magnitudes, a zero row (thr = 0), k = 1 and k = P, and the edges of the
+    tiling; with σ = 0, y from a one-hot w equal to that compressed row bit
+    for bit (the zero row among them); two launches bit-identical; and the
+    card's thresholds against the CPU's, bit for bit, at the main shape."""
     from repro_torch.core.transport import sparse_k_coords, sparse_thresholds
     from repro_torch.kernels.aircomp.kernel import sparse_aircomp_cuda
     from repro_torch.kernels.aircomp.ops import sparse_aircomp_flat
@@ -323,8 +403,8 @@ def phase_sparse(torch):
     ties = torch.tensor([0.5, -0.5, 1.0, -1.0, 2.0], device="cuda")
     checks, timings = [], []
     for sigma in (0.0, 1e-2):
-        for name, rows, m, weights, edge in ROW_CASES + SPARSE_EDGES:
-            x = torch.randn((rows, m), generator=gen, device="cuda")
+        for name, rows, m, weights, edge in ROW_CASES + SPARSE_EDGES + TILE_EDGES:
+            x = row_buffer(torch, gen, rows, m, edge)
             if edge == "ties":
                 x = ties[torch.randint(0, 5, (rows, m), generator=gen, device="cuda")]
             if edge == "thr_zero":
@@ -348,6 +428,16 @@ def phase_sparse(torch):
             c = torch.where(kept, x, 0.0)
             max_err = check_rows(torch, "sparse_aircomp", name, (rows, m), sigma,
                                  got, plain, w, c, z, k, checks, k_coords=k_coords)
+            one_hot = []
+            if sigma == 0.0:
+                i = one_hot_row(rows)
+                one_hot.append((i, c[i], None))
+            if sigma == 0.0 and edge == "thr_zero":
+                one_hot.append((rows // 2, c[rows // 2], None))
+            exact_checks(torch, "sparse_aircomp", name,
+                         lambda w_, s_, k_: sparse_aircomp_flat(x, w_, thr, z,
+                                                                noise_std=s_, k=k_),
+                         rows, sigma, one_hot, checks)
             if sigma == 1e-2 and name in ("main", "large"):
                 inv_k = 1.0 / k
                 nbytes = rows * m * 4 + 2 * m * 4 + 2 * rows * 4
@@ -1065,6 +1155,10 @@ def kernel_entry(name, source, replaces, launches, timing, device_us, **extra):
             "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
             "bound_by": timing.get("bound_by", "bytes"),
             "library_ms": timing["library_ms"], "shape": timing["shape"],
+            # device time a call with the card kept ahead of the host (device_ms),
+            # where the phase took it, and the library call's
+            "device_ms": timing.get("device_ms"),
+            "library_device_ms": timing.get("library_device_ms"),
             "device_us_per_launch": device_us, **extra}
 
 

@@ -13,10 +13,15 @@ Three kernels, one per source under ``csrc/``, each replacing a TPU kernel of
 Bound: memory. Each kernel reads its [K, M] input(s) once, writes [M] and
 uses no tensor core, so its least time on an H100 is the bytes over
 3.35 TB/s. What the designs do about it: every byte is read once, each warp
-reads whole 128-byte lines of a row (one thread per column), the per-row
-vectors sit in shared memory, and σ and 1/k are read from device pointers so
-a round needs no host sync and a new σ no rebuild (each ``csrc/*.cu`` has
-its details).
+reads whole 128-byte lines of a row, and σ and 1/k are read from device
+pointers so a round needs no host sync and a new σ no rebuild. ``aircomp``
+runs one thread a column and keeps the weights in shared memory; the
+quantized and sparse kernels fill the card at the main path's small M: a
+block is a tile of 32 columns (quant) or 64 (sparse) whose 8 warps sum 8
+slices of the rows, each thread's loads of a chunk of rows all in flight
+before any arithmetic, and one warp adds the slices' partial sums in a
+fixed order; above 33,792 columns each warp streams all the rows of 64
+columns instead (each ``csrc/*.cu`` has its details).
 
 Each source is built and loaded by ``repro_torch.kernels.build`` (one
 ``nvcc`` a source for every kernel of the port, at first use). Nothing is
@@ -31,7 +36,9 @@ import torch
 from repro_torch.kernels import build
 
 # aircomp keeps the K weights in the default 48 KB of shared memory; the
-# quantized and sparse kernels keep two per-row vectors there
+# quantized and sparse kernels read their two per-row vectors through the
+# read-only cache and need no such limit, but keep the domain they have
+# always had (a row is a client's update; the simulator's K is far below)
 MAX_ROWS = 48 * 1024 // 4
 MAX_ROWS_TWO_VECTORS = MAX_ROWS // 2
 F32 = (torch.float32,)

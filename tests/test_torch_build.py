@@ -1,5 +1,7 @@
-"""The kernel builder's macro variants and the sLSTM step-split builds, on
-the CPU (nothing is compiled: the tests check names and hashes only)."""
+"""The kernel builder's macro variants, the sLSTM step-split builds, the
+AirComp sources' interfaces and their comparison script, on the CPU
+(nothing is compiled: the tests check names, texts and hashes only)."""
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -71,3 +73,54 @@ def test_hmma_counts_reads_each_function_of_the_sass(monkeypatch):
     monkeypatch.setattr(build.subprocess, "run", run)
     assert build.hmma_counts(Path("lib.so")) == {"_Z5firstv": 2, "_Z6secondv": 0}
     assert calls == [["cuobjdump", "-sass", "lib.so"]]
+
+
+@pytest.mark.parametrize("name", ["aircomp", "quant_aircomp", "sparse_aircomp"])
+def test_aircomp_source_keeps_its_interface(name):
+    """Each AirComp source defines ``<name>_launch`` and ``<name>_error_string``
+    (what ``build.launch`` binds), a ``__global__ <name>_kernel`` in its
+    anonymous namespace (what a trace is searched for by ``::<name>_kernel``)
+    and includes no local header (a library is named by a hash of its
+    ``.cu`` alone, so a changed header would load a stale build)."""
+    text = build.SOURCES[name].read_text()
+    assert re.search(rf"^int {name}_launch\(", text, re.M)
+    assert re.search(rf"^const char\* {name}_error_string\(int code\)", text, re.M)
+    anon = text[text.index("namespace {"):text.index("}  // namespace")]
+    assert re.search(rf"__global__ void (__launch_bounds__\(\w+\)\s*)?{name}_kernel\(",
+                     anon)
+    assert not re.search(r'^#include\s+"', text, re.M)
+
+
+def test_aircomp_compare_pairs_each_source_with_its_kernel(tmp_path):
+    from repro_torch.kernels.aircomp import compare
+    (tmp_path / "a").mkdir()
+    (tmp_path / "b").mkdir()
+    q1, q2 = tmp_path / "a" / "quant_aircomp.cu", tmp_path / "b" / "quant_aircomp.cu"
+    sp = tmp_path / "a" / "sparse_aircomp.cu"
+    got = compare.builds([q1, sp, q2])
+    assert got == {"aircomp": [build.SOURCES["aircomp"]],
+                   "quant_aircomp": [build.SOURCES["quant_aircomp"], q1, q2],
+                   "sparse_aircomp": [build.SOURCES["sparse_aircomp"], sp]}
+    with pytest.raises(ValueError, match="not a source"):
+        compare.builds([tmp_path / "rmsnorm.cu"])
+
+
+@pytest.mark.parametrize("name,rows,m,want", [
+    ("quant_aircomp", 40, 7850, 2_575_120),
+    ("sparse_aircomp", 40, 7850, 1_319_120),
+    ("aircomp", 40, 7850, 1_318_960),
+    ("quant_aircomp", 40, 2 ** 24 + 3, 5_502_928_152),
+    ("sparse_aircomp", 40, 2 ** 24 + 3, 2_818_573_112),
+])
+def test_aircomp_compare_counts_the_bytes_of_the_bound(name, rows, m, want):
+    from repro_torch.kernels.aircomp import compare
+    assert compare.nbytes(name, rows, m) == want
+
+
+def test_aircomp_compare_refuses_without_a_card():
+    code = ("import torch; torch.cuda.is_available = lambda: False\n"
+            "import sys; sys.argv = ['compare']\n"
+            "from repro_torch.kernels.aircomp import compare; compare.main()")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=Path(build.__file__).resolve().parents[2], timeout=120)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr

@@ -7,7 +7,8 @@ file imports no JAX, so it runs on a machine that has only PyTorch
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerance of the AirComp kernels: the f32 summation-order bound |Δy| ≤ 2·K·ε₃₂·(Σᵢ|wᵢxᵢ| + |σz|)/k
-per element (the kernel sums rows in order and multiplies by 1/k; the
+per element (aircomp sums the rows in order, the quantized and sparse
+kernels in 8 slices added in a fixed order, and each multiplies by 1/k; the
 plain version divides by k), over the rounded rows |w·q| for the quantized
 kernel and the compressed rows |w·c| for the sparse one. One rounding step
 moved to the next grid point (d/k ≈ 8e-4 at the main shape) lies orders of
@@ -22,8 +23,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs.base import FLConfig  # noqa: E402
 from repro_torch.core.simulator import run_simulation  # noqa: E402
-from repro_torch.core.transport import (quant_step, sparse_thresholds,  # noqa: E402
-                                        sround)
+from repro_torch.core.transport import (quant_step, sparse_k_coords,  # noqa: E402
+                                        sparse_thresholds, sround)
 from repro_torch.kernels.aircomp.kernel import (aircomp_cuda,  # noqa: E402
                                                 quant_aircomp_cuda,
                                                 sparse_aircomp_cuda)
@@ -89,16 +90,49 @@ def test_selected_k_round_launches_aircomp_once(card):
     assert hist.num_scheduled.cpu().tolist() == [3.0] * fl.rounds
 
 
-def _rows(card, rows, m):
+# The quantized and sparse kernels' tiling: while M is small (up to 33,792
+# columns), blocks of 32 columns (quant, one a lane) or 64 (sparse, two a
+# lane) whose 8 warps split the rows into slices, the slices' partial sums
+# added by one warp in a fixed order; above, 512-column blocks whose warps
+# each sum whole rows of 64 columns. A lane's columns are 32 apart, so every
+# load is a 128-byte line whatever M's parity or x's alignment. At C = 40 a
+# slice is 5 rows; row 22 lies in the fifth, so a one-hot w there goes
+# through the cross-slice sum.
+
+ONE_HOT_ROW = 22
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+def _rows_at(card, rows, m, misaligned=False, seed=5):
+    """x [rows, m] (for ``misaligned`` a contiguous view one float into its
+    buffer, 4 bytes off an 8-byte boundary), a 0/1 mask w with w[0] = 1, u,
+    z and k = max(Σw, 1)."""
     gen = torch.Generator(device=card)
-    gen.manual_seed(1)
-    x = torch.randn((rows, m), generator=gen, device=card) * 0.05
-    x[rows // 2] = 0.0   # a zero row: step 0 / threshold 0
+    gen.manual_seed(seed)
+    off = int(misaligned)
+    x = torch.randn((rows * m + off,), generator=gen, device=card)[off:].view(rows, m)
+    assert (x.data_ptr() % 8 != 0) == misaligned
     w = (torch.rand((rows,), generator=gen, device=card) > 0.5).float()
     w[0] = 1.0
     u = torch.rand((rows, m), generator=gen, device=card)
     z = torch.randn((m,), generator=gen, device=card)
     return x, w, u, z, torch.clamp_min(w.sum(), 1.0)
+
+
+def _rows(card, rows, m):
+    x, w, u, z, k = _rows_at(card, rows, m, seed=1)
+    x *= 0.05
+    x[rows // 2] = 0.0   # a zero row: step 0 / threshold 0
+    return x, w, u, z, k
+
+
+def _one_hot(card, rows, i):
+    w = torch.zeros((rows,), device=card)
+    w[i] = 1.0
+    return w
 
 
 def _within_bound(got, plain, w, rows_used, z, sigma, k):
@@ -137,6 +171,105 @@ def test_sparse_aircomp_kernel_matches_plain(card):
     assert _within_bound(got, plain, w, kept, z, 1e-2, k)
     with pytest.raises(ValueError, match="dtype"):
         sparse_aircomp_flat(x.double(), w, thr, z.double(), noise_std=0.0, k=1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits,edge,i", [(8.0, None, ONE_HOT_ROW),
+                                         (1.0, None, ONE_HOT_ROW),
+                                         (32.0, None, ONE_HOT_ROW),
+                                         (8.0, "zero_row", 20),
+                                         (8.0, "step0_row", 27)])
+def test_quant_aircomp_one_hot_row_is_exact(card, bits, edge, i):
+    """w = e_i, σ = 0, k = 1: y is row i as the plain version rounds it,
+    bit for bit (the grid and the floor, apart from any summation order)."""
+    x, _, u, z, _ = _rows_at(card, 40, 7850)
+    x *= 0.05
+    if edge == "zero_row":
+        x[i] = 0.0
+    d = quant_step(x, torch.tensor(bits, device=card))
+    if edge == "step0_row":
+        d[i] = 0.0   # a non-zero row sent unrounded
+    want = sround(x, d, u)[i]
+    assert not torch.equal(want, torch.zeros_like(want)) or edge == "zero_row"
+    y = quant_aircomp_flat(x, _one_hot(card, 40, i), d, u, z, noise_std=0.0, k=1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(y), _bits(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge,i", [(None, ONE_HOT_ROW), ("ties", ONE_HOT_ROW),
+                                    ("thr_zero", 20), ("k1", ONE_HOT_ROW),
+                                    ("kP", ONE_HOT_ROW)])
+def test_sparse_aircomp_one_hot_row_is_exact(card, edge, i):
+    """w = e_i, σ = 0, k = 1: y is row i as compressed by the plain mask,
+    bit for bit (ties, a zero row with thr = 0, k = 1 and k = P)."""
+    x, _, _, z, _ = _rows_at(card, 40, 7850)
+    if edge == "ties":
+        gen = torch.Generator(device=card)
+        gen.manual_seed(6)
+        ties = torch.tensor([0.5, -0.5, 1.0, -1.0, 2.0], device=card)
+        x = ties[torch.randint(0, 5, (40, 7850), generator=gen, device=card)]
+    if edge == "thr_zero":
+        x[i] = 0.0
+    k_coords = {"k1": 1, "kP": 7850}.get(edge, sparse_k_coords(0.05, 7850))
+    thr = sparse_thresholds(x, k_coords)
+    if edge == "thr_zero":
+        assert float(thr[i]) == 0.0
+    want = torch.where(torch.abs(x[i]) >= thr[i], x[i], 0.0)
+    y = sparse_aircomp_flat(x, _one_hot(card, 40, i), thr, z, noise_std=0.0, k=1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(y), _bits(want))
+
+
+def _quant_or_sparse(card, kernel, x, w, u, z, k, sigma):
+    """(one launch of ``kernel`` through its dispatcher, its plain version's
+    output, the rows as summed) at the case's inputs."""
+    s = torch.full((), sigma, device=card)
+    if kernel == "quant":
+        d = quant_step(x, torch.tensor(8.0, device=card))
+        return (lambda: quant_aircomp_flat(x, w, d, u, z, noise_std=s, k=k),
+                quant_aircomp_ref(x, w, d, u, z, s, k), sround(x, d, u))
+    thr = sparse_thresholds(x, sparse_k_coords(0.05, x.shape[1]))
+    return (lambda: sparse_aircomp_flat(x, w, thr, z, noise_std=s, k=k),
+            sparse_aircomp_ref(x, w, thr, z, s, k),
+            torch.where(torch.abs(x) >= thr[:, None], x, 0.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["quant", "sparse"])
+@pytest.mark.parametrize("m", [7850, 7851])
+def test_quant_sparse_aircomp_are_deterministic(card, kernel, m):
+    """One launch, no atomics, a fixed order of the slices' sum: two
+    launches on the same inputs give the same bits."""
+    x, w, u, z, k = _rows_at(card, 40, m)
+    launch, _, _ = _quant_or_sparse(card, kernel, x * 0.05, w, u, z, k, 1e-2)
+    a, b = launch(), launch()
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["quant", "sparse"])
+@pytest.mark.parametrize("rows,m,misaligned", [
+    (40, 7851, False),     # odd M
+    (40, 63, False),       # below one sparse tile, a ragged second quant tile
+    (40, 31, False),       # below one tile of either
+    (40, 7850, True),      # x 4 bytes off an 8-byte boundary
+    (6144, 300, False),    # C at the wrapper's limit: 768 rows a slice
+    (40, 33792, False),    # the last M of the narrow layout
+    (100, 33793, False),   # the first of the wide layout: a 1-column last tile
+])
+def test_quant_sparse_aircomp_edges_of_the_tiling(card, kernel, rows, m, misaligned):
+    x, w, u, z, k = _rows_at(card, rows, m, misaligned)
+    if kernel == "quant":
+        x *= 0.05
+    counter = quant_aircomp_cuda if kernel == "quant" else sparse_aircomp_cuda
+    launch, plain, summed = _quant_or_sparse(card, kernel, x, w, u, z, k, 1e-2)
+    before = counter.launches
+    got = launch()
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert _within_bound(got, plain, w, summed, z, 1e-2, k)
 
 
 # ---------------------------------------------------------------------------
