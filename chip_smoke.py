@@ -14,12 +14,14 @@ these phases and fails (non-zero exit, no result line) if any of them fails:
      for the AirComp kernels the f32 summation-order bound
      |Δy| ≤ 2·K·ε₃₂·(Σᵢ|wᵢrᵢ| + |σz|)/k per element (r the row as summed:
      x for aircomp, the rounded q for quant_aircomp, the compressed c for
-     sparse_aircomp), and for quant_aircomp and sparse_aircomp also the
-     edges of their tiling (odd M, M = 31 and 63 against tiles of 32 and
-     64 columns, a misaligned x, C = 6144, the first M of the wide
-     layout), two launches bit-identical and, with σ = 0 and k = 1, a
-     one-hot w giving that row as summed bit for bit (each edge case's
-     rounding or mask); for rmsnorm, flash_attention and slstm the bounds
+     sparse_aircomp), and for all three also the edges of their tiling
+     (odd M, M = 31 and 63 against tiles of 32 and 64 columns, a misaligned
+     x, K at the wrapper's limit, the first M of the wide layout; for
+     aircomp also M = 65 and 129 and the first M of each of its later
+     layouts, each in f32 and bf16), two launches bit-identical and, with
+     σ = 0 and k = 1, a one-hot w giving that row as summed bit for bit
+     (each edge case's rounding or mask; aircomp's row as f32); for
+     rmsnorm, flash_attention and slstm the bounds
      stated at their phases; times of the kernel, the plain version and,
      where one PyTorch call computes the same function, that call, from CUDA
      events (warm-up first, median of 21 samples; 3 of the plain sLSTM scan
@@ -154,79 +156,6 @@ def phase_card(torch):
     return card
 
 
-def aircomp_case(torch, gen, rows, m, dtype, weights, sigma):
-    """Inputs of one aircomp check, made on the card from ``gen``."""
-    dev = "cuda"
-    x = torch.randn((rows, m), generator=gen, device=dev).to(dtype)
-    if weights == "mask":
-        w = (torch.rand((rows,), generator=gen, device=dev) > 0.5).float()
-        w[0] = 1.0
-    elif weights == "zeros":
-        w = torch.zeros((rows,), device=dev)
-    else:
-        w = torch.ones((rows,), device=dev)
-    z = torch.randn((m,), generator=gen, device=dev)
-    k = torch.clamp_min(w.sum(), 1.0)
-    return x, w, z, torch.full((), sigma, device=dev), k
-
-
-def phase_aircomp(torch):
-    from repro_torch.kernels.aircomp.kernel import aircomp_cuda
-    from repro_torch.kernels.aircomp.ops import aircomp_aggregate_flat
-    from repro_torch.kernels.aircomp.ref import aircomp_ref
-
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    f32, bf16 = torch.float32, torch.bfloat16
-    cases = []
-    for sigma in (0.0, 1e-2):
-        cases += [("main", 40, 7850, f32, "mask", sigma),
-                  ("N100", 100, 7850, f32, "mask", sigma),
-                  ("large", 40, 2 ** 24 + 3, f32, "mask", sigma),
-                  ("bf16", 40, 7850, bf16, "mask", sigma),
-                  ("w_zeros", 40, 7850, f32, "zeros", sigma),
-                  ("K1", 1, 7850, f32, "ones", sigma)]
-    checks, timings = [], []
-    for name, rows, m, dtype, weights, sigma in cases:
-        x, w, z, s, k = aircomp_case(torch, gen, rows, m, dtype, weights, sigma)
-        got = aircomp_aggregate_flat(x, w, z, noise_std=s, k=k)
-        plain = aircomp_ref(x, w, z, s, k)
-        torch.cuda.synchronize()
-        mag = torch.abs(w) @ torch.abs(x.float()) + abs(sigma) * torch.abs(z)
-        bound = 2 * rows * EPS32 * mag / k
-        err = torch.abs(got - plain)
-        worst = float(torch.max(err - bound))
-        max_err = float(err.max())
-        checks.append({"case": name, "shape": [rows, m], "dtype": str(dtype),
-                       "sigma": sigma, "max_abs_err": max_err,
-                       "within_bound": worst <= 0.0})
-        if not (worst <= 0.0 and math.isfinite(max_err)):
-            raise AssertionError(f"aircomp {name} sigma={sigma}: error exceeds "
-                                 f"the summation-order bound by {worst}")
-        if sigma != 1e-2 or name not in ("main", "large"):
-            continue
-        inv_k = 1.0 / k
-        reps = 200 if name == "main" else 5
-        xf = x.float()
-        nbytes = rows * m * x.element_size() + 2 * m * 4 + rows * 4
-        timings.append({
-            "case": name, "shape": [rows, m], "dtype": str(dtype),
-            "max_abs_err": max_err,
-            "ms": time_ms(torch, lambda: aircomp_cuda(x, w, z, s, inv_k), reps),
-            "device_ms": device_ms(torch, lambda: aircomp_cuda(x, w, z, s, inv_k),
-                                   launches=min(reps, 50)),
-            "plain_ms": time_ms(torch, lambda: aircomp_ref(x, w, z, s, k), reps),
-            "library_ms": time_ms(torch, lambda: (w @ xf + s * z) / k, reps),
-            # the library call's device time, taken the same way as the kernel's
-            "library_device_ms": device_ms(torch, lambda: (w @ xf + s * z) / k,
-                                           launches=min(reps, 50)),
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes})
-        del x, xf, w, z, got, plain, mag, bound, err
-    emit({"aircomp_checks": checks})
-    emit({"aircomp_timing": timings})
-    return timings
-
-
 def check_rows(torch, kernel, name, shape, sigma, got, plain, w, rows, z, k,
                checks, **extra):
     """Hold one kernel output against its plain version under the f32
@@ -278,13 +207,17 @@ TILE_EDGES = [("odd_M", 40, 7851, "mask", None), ("M_below_tile", 40, 31, "mask"
               ("C6144", 6144, 300, "mask", None), ("wide_ragged", 40, 33793, "mask", None)]
 
 
-def row_buffer(torch, gen, rows, m, edge):
-    """randn [rows, m] on the card; for the ``misaligned`` edge a contiguous
-    view one float into its buffer (4 bytes off an 8-byte boundary)."""
+def row_buffer(torch, gen, rows, m, edge, dtype=None):
+    """randn [rows, m] on the card, in ``dtype`` (default f32); for the
+    ``misaligned`` edge a contiguous view one element into its buffer (4
+    bytes off an 8-byte boundary for f32, 2 bytes off a 4-byte one for
+    bf16)."""
     off = int(edge == "misaligned")
     flat = torch.randn((rows * m + off,), generator=gen, device="cuda")
+    if dtype is not None:
+        flat = flat.to(dtype)
     x = flat[off:].view(rows, m)
-    if (x.data_ptr() % 8 != 0) != (off > 0):
+    if (x.data_ptr() % (2 * x.element_size()) != 0) != (off > 0):
         raise AssertionError("row_buffer: x's alignment is not the case's")
     return x
 
@@ -324,6 +257,88 @@ def time_kernel(torch, name, rows, m, max_err, kernel_fn, plain_fn, nbytes):
             "plain_ms": time_ms(torch, plain_fn, reps),
             "library_ms": None,   # no single PyTorch call computes it
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+
+
+# (name, rows, columns, x's dtype, weights) of the aircomp checks at the
+# main path's shapes; the edges of its tiling follow in phase_aircomp
+AIRCOMP_CASES = [("main", 40, 7850, "float32", "mask"),
+                 ("N100", 100, 7850, "float32", "mask"),
+                 ("large", 40, 2 ** 24 + 3, "float32", "mask"),
+                 ("bf16", 40, 7850, "bfloat16", "mask"),
+                 ("large_bf16", 40, 2 ** 24 + 3, "bfloat16", "mask"),
+                 ("w_zeros", 40, 7850, "float32", "zeros"),
+                 ("K1", 1, 7850, "float32", "ones")]
+AIRCOMP_TIMED = ("main", "large", "bf16", "large_bf16")
+
+
+def aircomp_edges(max_rows, layout_first_cols):
+    """The edges of aircomp's tiling (tiles of 64 columns in f32 and 128 in
+    bf16 whose 8 warps split the rows; above, one column a thread, then
+    warps that sum whole rows, from each of ``layout_first_cols[dtype]``),
+    each in f32 and bf16: odd M, M below one tile, M = 63, M = 65 and 129
+    (a 1-column second f32 and bf16 tile), x one element off its natural
+    boundary, K at the wrapper's limit (in the narrow layout and in the
+    column one, whose w fills 48 KB of shared memory), the first M of each
+    later layout (a 1-column last block)."""
+    edges = [("odd_M", 40, 7851, None), ("M_below_tile", 40, 31, None),
+             ("M63", 40, 63, None), ("M65", 40, 65, None), ("M129", 40, 129, None),
+             ("misaligned", 40, 7850, "misaligned"), ("K_max", max_rows, 300, None)]
+    return [(name, rows, m, dtype, "mask", edge) for dtype in ("float32", "bfloat16")
+            for name, rows, m, edge in [
+                *edges, ("K_max_column", max_rows, layout_first_cols[dtype][0], None),
+                *((f"first_M{m}", 40, m, None) for m in layout_first_cols[dtype])]]
+
+
+def phase_aircomp(torch):
+    """aircomp against its plain version in f32 and bf16: the main shapes,
+    w = 0, K = 1 and the edges of the tiling; with σ = 0, y from a one-hot
+    w equal to that row (as f32) bit for bit; two launches bit-identical;
+    timed at main and large in f32 and bf16, beside the library call."""
+    from repro_torch.kernels.aircomp.kernel import (AIRCOMP_LAYOUT_FIRST_COLS,
+                                                    MAX_ROWS, aircomp_cuda)
+    from repro_torch.kernels.aircomp.ops import aircomp_aggregate_flat
+    from repro_torch.kernels.aircomp.ref import aircomp_ref
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    cases = [(*case, None) for case in AIRCOMP_CASES]
+    cases += aircomp_edges(MAX_ROWS, AIRCOMP_LAYOUT_FIRST_COLS)
+    checks, timings = [], []
+    for sigma in (0.0, 1e-2):
+        for name, rows, m, dtype, weights, edge in cases:
+            x = row_buffer(torch, gen, rows, m, edge, getattr(torch, dtype))
+            xf = x.float()
+            z = torch.randn((m,), generator=gen, device="cuda")
+            w, k = case_weights(torch, gen, rows, weights)
+            s = torch.full((), sigma, device="cuda")
+            got = aircomp_aggregate_flat(x, w, z, noise_std=s, k=k)
+            plain = aircomp_ref(x, w, z, s, k)
+            max_err = check_rows(torch, "aircomp", name, (rows, m), sigma, got, plain,
+                                 w, xf, z, k, checks, dtype=dtype)
+            one_hot = [(i, xf[i], None) for i in (one_hot_row(rows),) if sigma == 0.0]
+            exact_checks(torch, "aircomp", f"{name} {dtype}",
+                         lambda w_, s_, k_: aircomp_aggregate_flat(x, w_, z,
+                                                                   noise_std=s_, k=k_),
+                         rows, sigma, one_hot, checks)
+            if sigma == 1e-2 and name in AIRCOMP_TIMED:
+                inv_k = 1.0 / k
+                nbytes = rows * m * x.element_size() + 2 * m * 4 + rows * 4
+                timing = time_kernel(torch, name, rows, m, max_err,
+                                     lambda: aircomp_cuda(x, w, z, s, inv_k),
+                                     lambda: aircomp_ref(x, w, z, s, k), nbytes)
+                reps = 200 if m < 10 ** 6 else 5
+
+                def library():
+                    return (w @ x.float() + s * z) / k
+                timing.update(
+                    dtype=dtype, library_ms=time_ms(torch, library, reps),
+                    # the library call's device time, taken as the kernel's
+                    library_device_ms=device_ms(torch, library, launches=min(reps, 50)))
+                timings.append(timing)
+            del x, xf, z, w, got, plain
+    emit({"aircomp_checks": checks})
+    emit({"aircomp_timing": timings})
+    return timings
 
 
 def phase_quant(torch):

@@ -17,7 +17,8 @@ summation-order bound. A device time is the median of 7 samples, each of
 them), taken in turns: first, second, ..., second, first, so that clock
 drift falls on each build. The cases are the main path's [40, 7850], N = 100
 clients' [100, 7850] and a large [40, 2^24 + 3], and [40, N] for each
-``--columns N``.
+``--columns N``, all with f32 rows; ``aircomp``, which also takes bf16 rows,
+runs each case again with bf16 x (its bytes counted at 2 an element).
 """
 from __future__ import annotations
 
@@ -48,18 +49,31 @@ def builds(sources) -> dict[str, list[Path]]:
     return out
 
 
-def nbytes(name: str, rows: int, m: int) -> int:
-    """Bytes the kernel must move: its [C, M] input(s) read once, z read and
-    y written, the per-row vector(s) read."""
-    return {"aircomp": rows * m * 4 + 2 * m * 4 + rows * 4,
+def cases(name: str, columns=()) -> list[tuple[str, int, int, str]]:
+    """(case, rows, columns, x's dtype) of each case of kernel ``name``: the
+    fixed cases and [40, N] for each of ``columns``, in f32, then for
+    aircomp, the one kernel that also takes bf16 rows, the same again in
+    bf16 (named ``<case>_bf16``)."""
+    f32 = [(case, rows, m, "float32")
+           for case, rows, m in (*CASES, *((f"M{n}", 40, n) for n in columns))]
+    if name != "aircomp":
+        return f32
+    return f32 + [(f"{case}_bf16", rows, m, "bfloat16") for case, rows, m, _ in f32]
+
+
+def nbytes(name: str, rows: int, m: int, x_bytes: int = 4) -> int:
+    """Bytes the kernel must move: its [C, M] input(s) read once (``x_bytes``
+    an element of aircomp's x), z read and y written, the per-row vector(s)
+    read."""
+    return {"aircomp": rows * m * x_bytes + 2 * m * 4 + rows * 4,
             "quant_aircomp": 2 * rows * m * 4 + 2 * m * 4 + 2 * rows * 4,
             "sparse_aircomp": rows * m * 4 + 2 * m * 4 + 2 * rows * 4}[name]
 
 
-def inputs(torch, gen, name, rows, m):
+def inputs(torch, gen, name, rows, m, dtype="float32"):
     """(launch arguments before y, the plain version's output, the rows as
     summed for the bound, w, z, k, the tensors the arguments point into) of
-    one case, made on the card."""
+    one case, made on the card; ``dtype`` is aircomp's x's."""
     from repro_torch.core.transport import (quant_step, sparse_k_coords,
                                             sparse_thresholds, sround)
     from repro_torch.kernels.aircomp.ref import (aircomp_ref, quant_aircomp_ref,
@@ -74,8 +88,9 @@ def inputs(torch, gen, name, rows, m):
     tail = (z.data_ptr(), s.data_ptr(), inv_k.data_ptr())
     keep = (x, w, z, s, inv_k)   # alive while the pointers are launched
     if name == "aircomp":
-        return ((x.data_ptr(), 0, w.data_ptr(), *tail), aircomp_ref(x, w, z, s, k),
-                x, w, z, k, keep)
+        x = x.to(getattr(torch, dtype))
+        return ((x.data_ptr(), int(dtype == "bfloat16"), w.data_ptr(), *tail),
+                aircomp_ref(x, w, z, s, k), x.float(), w, z, k, (*keep, x))
     if name == "quant_aircomp":
         x *= 0.05
         u = torch.rand((rows, m), generator=gen, device=dev)
@@ -89,17 +104,18 @@ def inputs(torch, gen, name, rows, m):
             torch.where(torch.abs(x) >= thr[:, None], x, 0.0), w, z, k, (*keep, thr))
 
 
-def compare(torch, by_kernel, cases=CASES):
-    """Yield each (kernel, case): every build's device ms a call, max |Δ|
-    against the plain version and whether it is within the bound, on the
-    current CUDA device."""
+def compare(torch, by_kernel, columns=()):
+    """Yield each (kernel, case) of ``cases(kernel, columns)``: every
+    build's device ms a call, max |Δ| against the plain version and whether
+    it is within the bound, on the current CUDA device."""
     build.build([(src, ()) for srcs in by_kernel.values() for src in srcs])
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     for name, srcs in by_kernel.items():
         libs = [build.variant_path(src) for src in srcs]
-        for case, rows, m in cases:
-            args, plain, summed, w, z, k, keep = inputs(torch, gen, name, rows, m)
+        for case, rows, m, dtype in cases(name, columns):
+            args, plain, summed, w, z, k, keep = inputs(torch, gen, name, rows, m,
+                                                        dtype)
             y = torch.empty((m,), dtype=torch.float32, device="cuda")
             launches = 50 if m < 10 ** 6 else 5
 
@@ -129,9 +145,10 @@ def compare(torch, by_kernel, cases=CASES):
                     end.record()
                     end.synchronize()
                     times[i].append(start.elapsed_time(end) / launches)
-            n = nbytes(name, rows, m)
+            n = nbytes(name, rows, m, 2 if dtype == "bfloat16" else 4)
             yield {
-                "kernel": name, "case": case, "shape": [rows, m], "bytes": n,
+                "kernel": name, "case": case, "shape": [rows, m], "dtype": dtype,
+                "bytes": n,
                 "bound_ms": n / HBM_BYTES_PER_S * 1e3,
                 "builds": [{"source": str(src), "device_ms": statistics.median(ts),
                             "device_ms_range": [min(ts), max(ts)],
@@ -155,8 +172,7 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0])
     held = True
-    cases = CASES + tuple((f"M{m}", 40, m) for m in args.columns)
-    for row in compare(torch, by_kernel, cases):
+    for row in compare(torch, by_kernel, args.columns):
         print(json.dumps({"aircomp_compare": row}), flush=True)
         held &= all(b["within_bound"] for b in row["builds"])
     if not held:

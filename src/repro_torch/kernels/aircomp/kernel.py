@@ -14,14 +14,16 @@ Bound: memory. Each kernel reads its [K, M] input(s) once, writes [M] and
 uses no tensor core, so its least time on an H100 is the bytes over
 3.35 TB/s. What the designs do about it: every byte is read once, each warp
 reads whole 128-byte lines of a row, and σ and 1/k are read from device
-pointers so a round needs no host sync and a new σ no rebuild. ``aircomp``
-runs one thread a column and keeps the weights in shared memory; the
-quantized and sparse kernels fill the card at the main path's small M: a
-block is a tile of 32 columns (quant) or 64 (sparse) whose 8 warps sum 8
-slices of the rows, each thread's loads of a chunk of rows all in flight
-before any arithmetic, and one warp adds the slices' partial sums in a
-fixed order; above 33,792 columns each warp streams all the rows of 64
-columns instead (each ``csrc/*.cu`` has its details).
+pointers so a round needs no host sync and a new σ no rebuild. All three
+fill the card at the main path's small M: a block is a tile of 32 columns
+(quant), 64 (sparse; aircomp's f32) or 128 (aircomp's bf16) whose 8 warps
+sum 8 slices of the rows, each thread's loads of a chunk of rows all in
+flight before any arithmetic, and one warp adds the slices' partial sums
+in a fixed order. Above ``NARROW_MAX_COLS`` columns each warp of quant and
+sparse streams all the rows of 64 columns; aircomp first runs one column a
+thread, as its previous design did, then, from the second of its
+``AIRCOMP_LAYOUT_FIRST_COLS``, does the same over 64 columns a warp in
+f32 and 128 in bf16 (each ``csrc/*.cu`` has its details).
 
 Each source is built and loaded by ``repro_torch.kernels.build`` (one
 ``nvcc`` a source for every kernel of the port, at first use). Nothing is
@@ -35,12 +37,19 @@ import torch
 
 from repro_torch.kernels import build
 
-# aircomp keeps the K weights in the default 48 KB of shared memory; the
-# quantized and sparse kernels read their two per-row vectors through the
-# read-only cache and need no such limit, but keep the domain they have
-# always had (a row is a client's update; the simulator's K is far below)
+# aircomp's column layout holds its weights in the default 48 KB of shared
+# memory; quant and sparse read their per-row vectors through the read-only
+# cache and need no limit on K, but keep the domain they have always had (a
+# row is a client's update, and the simulator's K is far below)
 MAX_ROWS = 48 * 1024 // 4
 MAX_ROWS_TWO_VECTORS = MAX_ROWS // 2
+# the last M of each kernel's narrow layout (``kNarrowMaxCols`` in
+# ``csrc/*.cu``); the first M of quant's and sparse's wide one is one more
+NARROW_MAX_COLS = 8 * 132 * 32
+# the first M of aircomp's column layout and of its wide one, by x's dtype
+# (``kColumnMaxCols`` in ``csrc/aircomp.cu``)
+AIRCOMP_LAYOUT_FIRST_COLS = {"float32": (NARROW_MAX_COLS + 1, 4 * NARROW_MAX_COLS + 1),
+                             "bfloat16": (NARROW_MAX_COLS + 1, 16 * NARROW_MAX_COLS + 1)}
 F32 = (torch.float32,)
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 # each kernel's C arguments before the stream

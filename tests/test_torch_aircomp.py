@@ -64,8 +64,14 @@ def order_bound(x, w, z, sigma, k):
     return 2 * x.shape[0] * EPS32 * mag / k + 1e-30
 
 
+# the last five are shapes at which the plain version (the CPU dispatch) is
+# held against JAX: one column, 63 and 65 columns, 129 columns, and K at the
+# wrapper's limit. The CUDA kernel's tiling edges are held against the plain
+# version on the card, in tests/test_torch_cuda.py.
 CASES = [((4, 128), "mask"), ((40, 7850), "mask"), ((7, 333), "mask"),
-         ((1, 333), "ones"), ((40, 7850), "zeros"), ((7, 333), "zeros")]
+         ((1, 333), "ones"), ((40, 7850), "zeros"), ((7, 333), "zeros"),
+         ((40, 1), "mask"), ((40, 63), "mask"), ((40, 65), "mask"),
+         ((40, 129), "mask"), ((12288, 8), "mask")]
 
 
 @pytest.mark.parametrize("shape,weights", CASES)

@@ -1,6 +1,7 @@
 """The kernel builder's macro variants, the sLSTM step-split builds, the
 AirComp sources' interfaces and their comparison script, on the CPU
 (nothing is compiled: the tests check names, texts and hashes only)."""
+import math
 import re
 import subprocess
 import sys
@@ -86,7 +87,7 @@ def test_aircomp_source_keeps_its_interface(name):
     assert re.search(rf"^int {name}_launch\(", text, re.M)
     assert re.search(rf"^const char\* {name}_error_string\(int code\)", text, re.M)
     anon = text[text.index("namespace {"):text.index("}  // namespace")]
-    assert re.search(rf"__global__ void (__launch_bounds__\(\w+\)\s*)?{name}_kernel\(",
+    assert re.search(rf"__global__ void (__launch_bounds__\([^)]*\)\s*)?{name}_kernel\(",
                      anon)
     assert not re.search(r'^#include\s+"', text, re.M)
 
@@ -115,6 +116,58 @@ def test_aircomp_compare_pairs_each_source_with_its_kernel(tmp_path):
 def test_aircomp_compare_counts_the_bytes_of_the_bound(name, rows, m, want):
     from repro_torch.kernels.aircomp import compare
     assert compare.nbytes(name, rows, m) == want
+
+
+@pytest.mark.parametrize("rows,m,want", [
+    (40, 7850, 690_960),               # 40·7850·2 + 2·7850·4 + 40·4
+    (40, 2 ** 24 + 3, 1_476_395_432),
+])
+def test_aircomp_compare_counts_bf16_rows_at_two_bytes(rows, m, want):
+    from repro_torch.kernels.aircomp import compare
+    assert compare.nbytes("aircomp", rows, m, x_bytes=2) == want
+    assert compare.nbytes("aircomp", rows, m) - want == rows * m * 2
+
+
+def test_aircomp_compare_cases_add_bf16_for_aircomp_only():
+    """Every kernel runs the fixed cases and one [40, N] a ``--columns N`` in
+    f32; aircomp runs each again with bf16 rows."""
+    from repro_torch.kernels.aircomp import compare
+    f32 = [("main", 40, 7850, "float32"), ("N100", 100, 7850, "float32"),
+           ("large", 40, 2 ** 24 + 3, "float32"), ("M4096", 40, 4096, "float32")]
+    for name in ("quant_aircomp", "sparse_aircomp"):
+        assert compare.cases(name, [4096]) == f32
+    assert compare.cases("aircomp", [4096]) == f32 + [
+        (f"{case}_bf16", rows, m, "bfloat16") for case, rows, m, _ in f32]
+    assert [c for c, *_ in compare.cases("aircomp")] == [
+        "main", "N100", "large", "main_bf16", "N100_bf16", "large_bf16"]
+
+
+@pytest.mark.parametrize("name", ["aircomp", "quant_aircomp", "sparse_aircomp"])
+def test_aircomp_sources_switch_layouts_where_the_wrapper_says(name):
+    """``kernel.NARROW_MAX_COLS``, which the card tests' edge cases use, is
+    each source's ``kNarrowMaxCols``."""
+    from repro_torch.kernels.aircomp.kernel import NARROW_MAX_COLS
+    expr = re.search(r"constexpr int64_t kNarrowMaxCols = ([\d *]+);",
+                     build.SOURCES[name].read_text()).group(1)
+    assert math.prod(int(f) for f in expr.split("*")) == NARROW_MAX_COLS
+
+
+def test_aircomp_source_switches_to_its_later_layouts_where_the_wrapper_says():
+    """``kernel.AIRCOMP_LAYOUT_FIRST_COLS``, which the card tests' and
+    chip_smoke's edge cases use, is one past ``kNarrowMaxCols`` and one past
+    ``kColumnMaxCols`` (f32's multiple, bf16's) in aircomp.cu, whose
+    ``run_layout`` switches at those two bounds."""
+    from repro_torch.kernels.aircomp.kernel import (AIRCOMP_LAYOUT_FIRST_COLS,
+                                                    NARROW_MAX_COLS)
+    text = build.SOURCES["aircomp"].read_text()
+    f32, bf16 = re.search(r"kColumnMaxCols = \(sizeof\(T\) == 4 \? (\d+) : (\d+)\) "
+                          r"\* kNarrowMaxCols;", text).groups()
+    assert AIRCOMP_LAYOUT_FIRST_COLS == {
+        "float32": (NARROW_MAX_COLS + 1, int(f32) * NARROW_MAX_COLS + 1),
+        "bfloat16": (NARROW_MAX_COLS + 1, int(bf16) * NARROW_MAX_COLS + 1)}
+    body = text[text.index("int run_layout("):]
+    assert re.findall(r"if \(m <= (\w+(?:<T>)?)\)", body) == [
+        "kNarrowMaxCols", "kColumnMaxCols<T>"]
 
 
 def test_aircomp_compare_refuses_without_a_card():

@@ -7,8 +7,8 @@ file imports no JAX, so it runs on a machine that has only PyTorch
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerance of the AirComp kernels: the f32 summation-order bound |Δy| ≤ 2·K·ε₃₂·(Σᵢ|wᵢxᵢ| + |σz|)/k
-per element (aircomp sums the rows in order, the quantized and sparse
-kernels in 8 slices added in a fixed order, and each multiplies by 1/k; the
+per element (each kernel sums the rows in order within up to 8 slices, the
+slices added in a fixed order, and multiplies by 1/k; the
 plain version divides by k), over the rounded rows |w·q| for the quantized
 kernel and the compressed rows |w·c| for the sparse one. One rounding step
 moved to the next grid point (d/k ≈ 8e-4 at the main shape) lies orders of
@@ -25,9 +25,9 @@ from repro_torch.configs.base import FLConfig  # noqa: E402
 from repro_torch.core.simulator import run_simulation  # noqa: E402
 from repro_torch.core.transport import (quant_step, sparse_k_coords,  # noqa: E402
                                         sparse_thresholds, sround)
-from repro_torch.kernels.aircomp.kernel import (aircomp_cuda,  # noqa: E402
-                                                quant_aircomp_cuda,
-                                                sparse_aircomp_cuda)
+from repro_torch.kernels.aircomp.kernel import (  # noqa: E402
+    AIRCOMP_LAYOUT_FIRST_COLS, MAX_ROWS, NARROW_MAX_COLS, aircomp_cuda,
+    quant_aircomp_cuda, sparse_aircomp_cuda)
 from repro_torch.kernels.aircomp.ops import (aircomp_aggregate_flat,  # noqa: E402
                                              quant_aircomp_flat,
                                              sparse_aircomp_flat)
@@ -77,6 +77,77 @@ def test_aircomp_kernel_refuses_float64(card):
 
 
 @pytest.mark.cuda
+def test_aircomp_kernel_refuses_more_rows_than_it_takes(card):
+    x = torch.zeros((MAX_ROWS + 1, 8), device=card)
+    with pytest.raises(ValueError, match="K <="):
+        aircomp_aggregate_flat(x, torch.ones(MAX_ROWS + 1, device=card),
+                               torch.zeros(8, device=card), noise_std=0.0, k=1.0)
+
+
+# aircomp's tiling: a lane sums 8 bytes of each row (two f32 columns or four
+# bf16, 32 apart), so a warp covers 64 columns in f32 and 128 in bf16. While
+# M is small (up to NARROW_MAX_COLS columns) the 8 warps of a block split the
+# rows into slices, the slices' partial sums added by one warp in a fixed
+# order; above, one column a thread with w in shared memory (the first of
+# AIRCOMP_LAYOUT_FIRST_COLS[dtype]); above the second, blocks of 4 warps that
+# each sum whole rows. bf16 is read one element a load, so any M and any
+# alignment of x is taken.
+
+AIRCOMP_EDGES = [
+    (40, 7851, False),                  # odd M
+    (40, 31, False),                    # below one tile
+    (40, 63, False),                    # one ragged tile
+    (40, 65, False),                    # a 1-column second f32 tile
+    (40, 129, False),                   # a 1-column second bf16 tile
+    (40, 7850, True),                   # x one element off its natural boundary
+    (MAX_ROWS, 300, False),             # K at the wrapper's limit: 1536 rows a slice
+    (40, NARROW_MAX_COLS, False),       # the last M of the narrow layout
+]
+
+
+def _aircomp_layout_edges(dtype):
+    """The first M of each later layout (a 1-column last block), and K at
+    the wrapper's limit in the column layout (w fills 48 KB of shared
+    memory)."""
+    first = AIRCOMP_LAYOUT_FIRST_COLS[dtype]
+    return [(MAX_ROWS, first[0], False), *((100, m, False) for m in first)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rows,m,misaligned", [
+    (dtype, *case) for dtype in ("float32", "bfloat16")
+    for case in AIRCOMP_EDGES + _aircomp_layout_edges(dtype)])
+def test_aircomp_kernel_edges_of_the_tiling(card, dtype, rows, m, misaligned):
+    x, w, _, z, k = _rows_at(card, rows, m, misaligned, dtype=dtype)
+    sigma = torch.full((), 1e-2, device=card)
+    before = aircomp_cuda.launches
+    got = aircomp_aggregate_flat(x, w, z, noise_std=sigma, k=k)
+    torch.cuda.synchronize()
+    assert aircomp_cuda.launches == before + 1
+    plain = aircomp_ref(x, w, z, sigma, k)
+    assert _within_bound(got, plain, w, x.float(), z, 1e-2, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rows,m", [
+    (dtype, rows, m) for dtype in ("float32", "bfloat16")
+    for rows, m in [(40, 7850), (40, 7851),
+                    *((100, m) for m in AIRCOMP_LAYOUT_FIRST_COLS[dtype])]])
+def test_aircomp_is_deterministic_and_one_hot_row_is_exact(card, dtype, rows, m):
+    """Two launches give the same bits (no atomics, a fixed order of the
+    slices' sum); w = e_i, σ = 0, k = 1 gives row i as f32 bit for bit, for
+    a row in the fifth slice (the cross-slice sum adds only zeros to it)."""
+    x, w, _, z, k = _rows_at(card, rows, m, dtype=dtype)
+    a = aircomp_aggregate_flat(x, w, z, noise_std=1e-2, k=k)
+    b = aircomp_aggregate_flat(x, w, z, noise_std=1e-2, k=k)
+    i = rows * 4 // 7
+    y = aircomp_aggregate_flat(x, _one_hot(card, rows, i), z, noise_std=0.0, k=1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(a), _bits(b))
+    assert torch.equal(_bits(y), _bits(x[i].float()))
+
+
+@pytest.mark.cuda
 def test_selected_k_round_launches_aircomp_once(card):
     rng = np.random.default_rng(0)
     x = rng.normal(size=(6, 10, 8)).astype(np.float32)
@@ -106,15 +177,17 @@ def _bits(t):
     return t.view(torch.int32)
 
 
-def _rows_at(card, rows, m, misaligned=False, seed=5):
-    """x [rows, m] (for ``misaligned`` a contiguous view one float into its
-    buffer, 4 bytes off an 8-byte boundary), a 0/1 mask w with w[0] = 1, u,
-    z and k = max(Σw, 1)."""
+def _rows_at(card, rows, m, misaligned=False, seed=5, dtype="float32"):
+    """x [rows, m] in ``dtype`` (for ``misaligned`` a contiguous view one
+    element into its buffer: 4 bytes off an 8-byte boundary in f32, 2 off a
+    4-byte one in bf16), a 0/1 mask w with w[0] = 1, u, z and
+    k = max(Σw, 1)."""
     gen = torch.Generator(device=card)
     gen.manual_seed(seed)
     off = int(misaligned)
-    x = torch.randn((rows * m + off,), generator=gen, device=card)[off:].view(rows, m)
-    assert (x.data_ptr() % 8 != 0) == misaligned
+    flat = torch.randn((rows * m + off,), generator=gen, device=card)
+    x = flat.to(getattr(torch, dtype))[off:].view(rows, m)
+    assert (x.data_ptr() % (2 * x.element_size()) != 0) == misaligned
     w = (torch.rand((rows,), generator=gen, device=card) > 0.5).float()
     w[0] = 1.0
     u = torch.rand((rows, m), generator=gen, device=card)
