@@ -40,7 +40,13 @@ these phases and fails (non-zero exit, no result line) if any of them fails:
      the 784→10 logistic regression, N = 100, K = 40, batch 50, 60k/10k
      samples, noisy uplink, T = 30 rounds, with every kernel's launch count
      set to 0 just before and read just after (the transport's kernel must
-     have launched once a round, the others never);
+     have launched once a round, the others never); then the sweep engine
+     at the same width: one ``run_sweep`` of 4 transports × C ∈ {0, 2, 8,
+     32} × 5 seeds, 30 rounds, i.e. 4 structural groups of G = 20 cells,
+     each group launching its transport's kernel exactly G × T = 600 times
+     and no other, every cell equal to the same cell run alone through
+     ``run_simulation`` (its selected set in every round exactly), and
+     cell-rounds/s of each group and of its cells one by one;
   4. the serve path at full width, f32 with TF32 off, through
      ``repro_torch.launch.serve``, random weights from a seed, run A (the
      launcher's defaults: batch 4, prompt 32, 32 tokens) and run B (a long
@@ -55,14 +61,16 @@ these phases and fails (non-zero exit, no result line) if any of them fails:
      times (one a super-block a forward), rmsnorm 97 × 32 = 3104 times, the
      others never;
   5. after all the timed runs of 3 and 4, a torch.profiler window over each
-     (device time, the device's busy share, device time by kernel);
+     (device time, the device's busy share, device time by kernel), and
+     over one sweep group per transport (G = 20, 10 rounds);
   6. the card against the CPU: the simulator on the same ``RoundDraws`` at
      quickstart scale for analog, quantized and sparse; each serve path on
      the same full-width weights (xlstm-1.3b cut to one super-block, 8
      layers; batch 2, prompt 64, 8 tokens, the card fed the CPU's tokens),
      max |Δlogit| at the prefill and each step within 1e-3, and the greedy
      tokens equal wherever the CPU's top-2 margin exceeds 100× that step's
-     Δ, at no fewer than half the positions.
+     Δ, at no fewer than half the positions; and a sweep group at full
+     width (analog, 2 values of C × 2 seeds, 10 rounds) on the same draws.
 
 It imports nothing of JAX and nothing of the JAX package. The last line of
 its output is ``{"ok": true, "device": {...}}``.
@@ -640,6 +648,220 @@ def phase_card_vs_cpu(torch, transport):
 
 
 # ---------------------------------------------------------------------------
+# The sweep engine: one batched run per structural group
+# ---------------------------------------------------------------------------
+
+SWEEP_C = (0.0, 2.0, 8.0, 32.0)   # the C grid of examples/sweep_pareto.py
+SWEEP_SEEDS = (0, 1, 2, 3, 4)
+
+
+def sweep_specs(fl):
+    from repro_torch.core import sweep
+    return sweep.expand_grid(fl, variants={
+        f"{tr}:ca_afl_C{c:g}": {"transport": tr, "energy_C": c}
+        for tr in TRANSPORT_KERNEL for c in SWEEP_C})
+
+
+def history_mismatch(got, want, s_test):
+    """The fields of two histories (numpy or tensors, [T, ...]) that differ
+    beyond the simulator's tolerances, each with its first round: the
+    scheduled count exact, energy rtol 1e-5, λ atol 1e-6, loss rtol 1e-4,
+    accuracies within one test sample."""
+    import numpy as np
+    tol = {"num_scheduled": (0, 0), "energy": (1e-5, 0), "dl_energy": (1e-5, 0),
+           "lam": (0, 1e-6), "lam_max": (0, 1e-6), "loss": (1e-4, 0)}
+    tol.update({f: (0, 1.0 / s_test + 1e-6) for f in ("avg_acc", "worst_acc", "std_acc")})
+    bad = {}
+    host = lambda v: np.asarray(v.cpu() if hasattr(v, "cpu") else v, np.float64)  # noqa: E731
+    for f, (rtol, atol) in tol.items():
+        a, b = host(getattr(got, f)), host(getattr(want, f))
+        off = ~np.isclose(a, b, rtol=rtol, atol=atol)
+        if a.shape != b.shape or off.any():
+            bad[f] = -1 if a.shape != b.shape else int(
+                np.argmax(off.reshape(off.shape[0], -1).any(axis=1)))
+    return bad
+
+
+class SelectionLog:
+    """Records every round's selection mask [G, N] on the card (no host
+    sync) by wrapping the simulator's ``select_clients_sparse``."""
+
+    def __init__(self):
+        from repro_torch.core import simulator
+        self.simulator, self.inner, self.masks = simulator, simulator.select_clients_sparse, []
+
+    def __enter__(self):
+        def record(*args, **kw):
+            mask, idx = self.inner(*args, **kw)
+            self.masks.append(mask.clone())
+            return mask, idx
+        self.simulator.select_clients_sparse = record
+        return self
+
+    def __exit__(self, *exc):
+        self.simulator.select_clients_sparse = self.inner
+
+
+def phase_sweep(torch, counters, data):
+    """One run_sweep at full width: 4 transports × 4 values of C × 5 seeds,
+    30 rounds, 4 structural groups of G = 20 cells. Each group must launch
+    its transport's kernel G × T times and no other; every cell must equal
+    the same cell run alone through run_simulation (the same draws), its
+    selected set in every round exactly. Cell-rounds/s of each group and of
+    its cells one by one."""
+    from repro_torch.core import sweep
+    from repro_torch.core.simulator import run_simulation
+
+    cfg, fl, model = main_path_config("analog")
+    specs = sweep_specs(fl)
+    sweep.run_sweep(model, data, sweep_specs(replace(fl, rounds=2)),
+                    seeds=SWEEP_SEEDS)   # warm-up at the groups' shapes
+    torch.cuda.synchronize()
+    groups, inner = [], sweep._run_group
+
+    def timed_group(*args, **kw):
+        torch.cuda.synchronize()
+        start = {name: c.launches for name, c in counters.items()}
+        t0 = time.perf_counter()
+        hist = inner(*args, **kw)    # ends in a copy to the host
+        wall = time.perf_counter() - t0
+        groups.append({"fls": args[2], "wall_s": wall,
+                       "launches": {n: c.launches - start[n]
+                                    for n, c in counters.items()}})
+        return hist
+
+    sweep._run_group = timed_group
+    try:
+        with SelectionLog() as sel:
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            result = sweep.run_sweep(model, data, specs, seeds=SWEEP_SEEDS)
+            sweep_wall = time.perf_counter() - t0
+            launches = {name: c.launches for name, c in counters.items()}
+    finally:
+        sweep._run_group = inner
+    group_masks = sel.masks
+    s_test = data[3].shape[1]
+    rows, out = 0, []
+    for g in groups:
+        transport = g["fls"][0].transport
+        kernel = TRANSPORT_KERNEL[transport]
+        cells = len(g["fls"]) * len(SWEEP_SEEDS)
+        t = g["fls"][0].rounds
+        masks = torch.stack(group_masks[rows:rows + t])   # [T, G, N]
+        rows += t
+        for name, n in g["launches"].items():
+            want = cells * t if name == kernel else 0
+            if n != want:
+                raise AssertionError(f"sweep {transport}: kernel {name} launched "
+                                     f"{n} times, expected {want}")
+        labels = [lbl for lbl, f in specs if f.transport == transport]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        singles = []
+        with SelectionLog() as one_sel:
+            for lbl in labels:
+                for s in SWEEP_SEEDS:
+                    singles.append((lbl, s, run_simulation(model, dict(specs)[lbl],
+                                                           data, seed=s)))
+        torch.cuda.synchronize()
+        one_wall = time.perf_counter() - t0
+        one_masks = torch.stack(one_sel.masks).reshape(len(singles), t, -1)
+        bad = {}
+        for c, (lbl, s, single) in enumerate(singles):
+            h = result.history(lbl)
+            i = SWEEP_SEEDS.index(s)
+            cell = type(h)(*(v if isinstance(v, tuple) else v[i] for v in h))
+            diff = history_mismatch(cell, single, s_test)
+            if not torch.equal(masks[:, c], one_masks[c]):
+                diff["selected_set"] = int((masks[:, c] != one_masks[c])
+                                           .any(dim=-1).nonzero()[0])
+            if diff:
+                bad[f"{lbl} seed {s}"] = diff
+        entry = {"transport": transport, "kernel": kernel, "G": cells, "T": t,
+                 "N": fl.num_clients, "K": fl.clients_per_round, "P": 7850,
+                 "wall_s": g["wall_s"], "cell_rounds_per_s": cells * t / g["wall_s"],
+                 "one_by_one_wall_s": one_wall,
+                 "one_by_one_cell_rounds_per_s": cells * t / one_wall,
+                 "launches": g["launches"][kernel],
+                 "cells_equal_their_runs": not bad}
+        emit({"sweep_group": entry})
+        if bad:
+            raise AssertionError(f"sweep {transport}: cells differ from their "
+                                 f"own runs (field: first round): {bad}")
+        out.append(entry)
+    emit({"sweep": {"model": cfg.name, "cells": len(specs) * len(SWEEP_SEEDS),
+                    "groups": len(groups), "wall_s": sweep_wall,
+                    "cell_rounds_per_s": len(specs) * len(SWEEP_SEEDS) * fl.rounds
+                    / sweep_wall, "launches": launches}})
+    return out
+
+
+def phase_sweep_trace(torch, data, transport):
+    """A torch.profiler window over one sweep group (G = 20 cells, 10
+    rounds): device time a round, the device's busy share, device launches
+    a round and the kernel's device µs a launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import sweep
+
+    _, fl, model = main_path_config(transport)
+    fl = replace(fl, rounds=10)
+    specs = [(lbl, f) for lbl, f in sweep_specs(fl) if f.transport == transport]
+    kernel = TRANSPORT_KERNEL[transport]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sweep.run_sweep(model, data, specs, seeds=SWEEP_SEEDS)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    s = trace_summary(prof, wall_us, (kernel,))
+    entry = {"transport": transport, "G": len(specs) * len(SWEEP_SEEDS),
+             "rounds": fl.rounds}
+    if s is not None:
+        entry.update({
+            "device_ms_per_round": s["device_ms"] / fl.rounds,
+            "wall_ms_per_round_profiled": s["wall_ms_profiled"] / fl.rounds,
+            "device_busy_share": s["device_busy_share"],
+            "device_launches_per_round": s["device_launches"] / fl.rounds,
+            "kernel": kernel,
+            "kernel_device_us_per_launch": s["kernel_device_us_per_launch"][kernel],
+            "top_device_time": s["top_device_time"]})
+    emit({"sweep_trace": entry})
+
+
+def phase_sweep_card_vs_cpu(torch, data):
+    """A small group at full width (analog, 2 points × 2 seeds, 10 rounds)
+    on the card against the CPU, on the same draws."""
+    from repro_torch.core import sweep
+    from repro_torch.core.draws import round_draws
+
+    _, fl, model = main_path_config("analog")
+    fl = replace(fl, rounds=10)
+    specs = [(f"C{c:g}", replace(fl, energy_C=c)) for c in (2.0, 8.0)]
+    cpu_data = tuple(a.cpu() for a in data)
+    draws = {(lbl, s): list(round_draws(s, f, 7850, data[1].shape[1], "cpu"))
+             for lbl, f in specs for s in (0, 1)}
+    pick = lambda lbl, f, s: draws[lbl, s]  # noqa: E731
+    cpu = sweep.run_sweep(model, cpu_data, specs, seeds=(0, 1), draws=pick,
+                          device="cpu")
+    gpu = sweep.run_sweep(model, data, specs, seeds=(0, 1), draws=pick)
+    bad = {}
+    for lbl, _ in specs:
+        for i in range(2):
+            one = lambda h: type(h)(*(v if isinstance(v, tuple) else v[i] for v in h))  # noqa: E731
+            diff = history_mismatch(one(gpu.history(lbl)), one(cpu.history(lbl)),
+                                    data[3].shape[1])
+            if diff:
+                bad[f"{lbl} seed {i}"] = diff
+    emit({"sweep_card_vs_cpu": {"cells": 4, "rounds": fl.rounds,
+                                "first_divergent_round": bad or None}})
+    if bad:
+        raise AssertionError(f"sweep: card and CPU diverge: {bad}")
+
+
+# ---------------------------------------------------------------------------
 # rmsnorm and flash attention: the serve path's kernels
 # ---------------------------------------------------------------------------
 
@@ -1213,6 +1435,7 @@ def main() -> int:
     for transport in TRANSPORT_KERNEL:
         launches.setdefault(TRANSPORT_KERNEL[transport],
                             phase_main_path(torch, counters, data, transport))
+    sweep_groups = phase_sweep(torch, counters, data)
     # one model on the card at a time, so each run's peak memory is its
     # own; a model is made again from its seed for its profiler windows
     serve_counts, serve_traces = {}, {}
@@ -1224,6 +1447,8 @@ def main() -> int:
     for transport in TRANSPORT_KERNEL:
         traces.setdefault(TRANSPORT_KERNEL[transport],
                           phase_main_path_trace(torch, data, transport))
+    for transport in TRANSPORT_KERNEL:
+        phase_sweep_trace(torch, data, transport)
     for arch in SERVE_ARCHS:
         served = serve_setup(torch, arch)
         for run in SERVE_RUNS:
@@ -1231,6 +1456,7 @@ def main() -> int:
         del served
     for transport in ("analog", "quantized", "sparse"):
         phase_card_vs_cpu(torch, transport)
+    phase_sweep_card_vs_cpu(torch, data)
     phase_serve_card_vs_cpu(torch, *serve_setup(torch, "qwen2-0.5b"))
     # xlstm-1.3b at full width, its depth cut to one super-block (8 layers)
     # so that the CPU's side stays short
@@ -1240,7 +1466,10 @@ def main() -> int:
     entries = [kernel_entry(name, f"src/repro_torch/kernels/aircomp/csrc/{name}.cu",
                             f"src/repro/kernels/aircomp/kernel.py:{line}",
                             launches[name], main_t[name],
-                            traces[name] and traces[name]["kernel_device_us_per_launch"])
+                            traces[name] and traces[name]["kernel_device_us_per_launch"],
+                            sweep_launches={g["transport"]: g["launches"]
+                                            for g in sweep_groups
+                                            if g["kernel"] == name})
                for name, line in (("aircomp", 175), ("quant_aircomp", 131),
                                   ("sparse_aircomp", 90))]
     for name, tpu, arch, timing in (

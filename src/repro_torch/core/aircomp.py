@@ -15,13 +15,36 @@ Port of ``repro.core.aircomp``:
 The AWGN z is an input, a [P] vector in sorted-leaf order (the round's
 ``RoundDraws.noise``), so both paths inject the same noise and differ only
 in summation order. A Python ``noise_std == 0`` is static: no noise is read.
+
+A batched round (``core/simulator.py``) gives every argument a leading cell
+axis [G]: the stack [G, K, ...], the weights [G, K], z [G, P], σ and k [G].
+:func:`fused_pass` then launches the kernel once per cell, so a round of G
+cells launches it G times, as G single runs would.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.aircomp.ops import aircomp_aggregate_flat
+from repro_torch.kernels.aircomp.kernel import (aircomp_cuda,
+                                                quant_aircomp_cuda,
+                                                sparse_aircomp_cuda)
+from repro_torch.kernels.aircomp.ops import (aircomp_aggregate_flat,
+                                             quant_aircomp_flat,
+                                             sparse_aircomp_flat)
+from repro_torch.kernels.aircomp.ref import (aircomp_ref, quant_aircomp_ref,
+                                             sparse_aircomp_ref)
+from repro_torch.utils.cells import cell_vector, per_cell
+from repro_torch.utils.device import on_cpu
 from repro_torch.utils.tree import leaf_names, ravel_stack, tree_leaves, unravel
+
+# each fused pass: (dispatching wrapper of one cell, CUDA wrapper, plain
+# version); the arguments between the rows and z differ by kernel
+_PASSES = {
+    "aircomp": (aircomp_aggregate_flat, aircomp_cuda, aircomp_ref),
+    "quant_aircomp": (quant_aircomp_flat, quant_aircomp_cuda, quant_aircomp_ref),
+    "sparse_aircomp": (sparse_aircomp_flat, sparse_aircomp_cuda,
+                       sparse_aircomp_ref),
+}
 
 
 def is_static_zero(noise_std) -> bool:
@@ -38,26 +61,66 @@ def stack_accum_dtype(trees: dict) -> torch.dtype:
     return acc_dtype
 
 
+def fused_pass(name: str, rows: torch.Tensor, w: torch.Tensor, *row_args,
+               z, noise_std, k) -> torch.Tensor:
+    """The fused eq. (10) pass ``name`` (``aircomp``, ``quant_aircomp`` or
+    ``sparse_aircomp``) over flat payload rows: (Σ_c w_c·T(x_c) + σz)/k.
+
+    ``rows`` [C, M] is one pass through the kernel's dispatching wrapper.
+    ``rows`` [G, C, M] is one pass per cell: ``w`` and each of ``row_args``
+    (the quantized steps and uniforms, the sparse thresholds) carry the cell
+    axis too, z is [G, M], and σ and k are [G] (or numbers). On the card
+    each cell launches the kernel once, σ and 1/k handed over as element g
+    of [G] device vectors (contiguous one-element views, no host copy); on
+    the CPU each cell runs the plain version. ``z=None`` is statically
+    noise-free.
+    """
+    one, cuda, plain = _PASSES[name]
+    if rows.dim() == 2:
+        if z is None:
+            z, noise_std = torch.zeros_like(rows[0], dtype=torch.float32), 0.0
+        return one(rows, w, *row_args, z, noise_std=noise_std, k=k)
+    cells, m = rows.shape[0], rows.shape[-1]
+    dev = rows.device
+    if z is None:
+        z, noise_std = torch.zeros((m,), dtype=torch.float32,
+                                   device=dev).expand(cells, m), 0.0
+    sigma = cell_vector(noise_std, cells, dev)
+    k = cell_vector(k, cells, dev)
+    if on_cpu(rows, name):
+        out = [plain(rows[g], w[g], *(a[g] for a in row_args), z[g], sigma[g],
+                     k[g]) for g in range(cells)]
+    else:
+        w, inv_k = w.to(torch.float32), 1.0 / k
+        out = [cuda(rows[g], w[g], *(a[g] for a in row_args), z[g], sigma[g],
+                    inv_k[g]) for g in range(cells)]
+    return out[0][None] if cells == 1 else torch.stack(out)
+
+
 def aircomp_aggregate(stacked: torch.Tensor, mask: torch.Tensor, z=None,
                       noise_std=0.0, k=None) -> torch.Tensor:
-    """(Σ_i mask_i·x_i + σ·z)/K over stacked [N, ...]; z is shaped like one
-    client's tensor. K defaults to Σ mask."""
+    """(Σ_i mask_i·x_i + σ·z)/K over stacked [..., N, ...]; ``mask`` [..., N]
+    names the leading axes (a cell axis [G] before the client axis), z is
+    shaped like one client's tensor, σ and K are per cell. K defaults to
+    Σ mask."""
     if k is None:
-        k = torch.sum(mask)
-    mshape = (-1,) + (1,) * (stacked.dim() - 1)
-    summed = torch.sum(stacked * mask.reshape(mshape), dim=0)
+        k = torch.sum(mask, dim=-1)
+    mshape = mask.shape + (1,) * (stacked.dim() - mask.dim())
+    summed = torch.sum(stacked * mask.reshape(mshape), dim=mask.dim() - 1)
     if not is_static_zero(noise_std):
-        summed = summed + noise_std * z
-    return summed / k
+        summed = summed + per_cell(noise_std, summed) * z
+    return summed / per_cell(k, summed)
 
 
 def aircomp_aggregate_tree(trees: dict, mask, z=None, noise_std=0.0, k=None):
     """Per-leaf reference: ``trees`` has the client axis N on every leaf and
     ``z`` is the flat [P] noise in sorted-leaf order (unused when
-    ``noise_std`` is a static 0)."""
+    ``noise_std`` is a static 0); with ``mask`` [G, N] every leaf, z and the
+    knobs lead with the cell axis."""
     if k is None:
-        k = torch.sum(mask)
-    noise = None if is_static_zero(noise_std) else unravel(trees, z)
+        k = torch.sum(mask, dim=-1)
+    noise = (None if is_static_zero(noise_std)
+             else unravel(trees, z, lead=mask.dim()))
     return {name: aircomp_aggregate(trees[name], mask,
                                     None if noise is None else noise[name],
                                     noise_std, k)
@@ -77,17 +140,21 @@ def aircomp_aggregate_stack_tree(trees: dict, weights, z=None, noise_std=0.0,
 
     ``weights`` [K] are the per-slot mask entries. Accumulation runs at the
     widest leaf dtype, never narrower than f32; the CUDA kernel takes f32
-    and bf16 buffers and raises on wider ones.
+    and bf16 buffers and raises on wider ones. With ``weights`` [G, K] the
+    leaves are [G, K, ...], z is [G, P], σ and k are [G], and the kernel
+    runs once per cell.
     """
     if k is None:
-        k = torch.sum(weights)
+        k = torch.sum(weights, dim=-1)
+    lead = weights.dim()
     acc_dtype = stack_accum_dtype(trees)
-    flat = ravel_stack(trees, acc_dtype)
+    flat = ravel_stack(trees, acc_dtype, lead=lead)
     if is_static_zero(noise_std):
-        z = torch.zeros((flat.shape[1],), dtype=acc_dtype, device=flat.device)
+        z = None
     elif z is None:
         raise ValueError("a noise vector z is needed when noise_std is not a "
                          "static 0")
-    agg = aircomp_aggregate_flat(flat, weights, z.to(acc_dtype),
-                                 noise_std=noise_std, k=k)
-    return unravel(trees, agg)
+    else:
+        z = z.to(acc_dtype)
+    agg = fused_pass("aircomp", flat, weights, z=z, noise_std=noise_std, k=k)
+    return unravel(trees, agg, lead=lead)

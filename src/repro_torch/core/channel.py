@@ -6,7 +6,9 @@ shadowing and per-client pathloss, and collapsed per client by the harmonic
 mean of eq. (6). The random normals come in from the round's
 ``RoundDraws`` (``repro_torch.core.draws``) instead of a PRNG key, with the
 reference's shapes, so a test can feed both packages the same numbers.
-The temporal processes (``repro.core.dynamics``) are not ported yet.
+A batched round gives every draw a leading cell axis [G] and every
+scenario knob the shape [G] (``pathloss`` [G, N]). The temporal processes
+(``repro.core.dynamics``) and their named scenarios are not ported yet.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.energy import TRUNCATION_FLOOR, clamp_floor
+from repro_torch.utils.cells import per_cell
 from repro_torch.utils.device import resolve_device
 
 
@@ -30,7 +33,8 @@ def effective_channel(h_mag: torch.Tensor) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class ChannelScenario:
-    """Physical-layer scenario: device-scalar knobs + the structural ``flat``
+    """Physical-layer scenario: device-scalar knobs (or [G] vectors, one
+    entry per cell; ``pathloss`` [N] or [G, N]) + the structural ``flat``
     flag (which changes the shape of the small-scale draw)."""
 
     floor: Any = TRUNCATION_FLOOR  # truncation |h| >= floor
@@ -68,13 +72,14 @@ def compose_channel(mag: torch.Tensor, shadow_normal: torch.Tensor,
                     scenario: ChannelScenario) -> torch.Tensor:
     """Large-scale composition: mag × shadow × pathloss, floor-clipped.
 
-    ``shadow_normal`` [N, 1] is the reference's ``normal(fold_in(k_chan, 1),
-    (N, 1))``; ``shadowing_std == 0`` multiplies by exactly 1.0.
+    ``shadow_normal`` [..., N, 1] is the reference's ``normal(fold_in(k_chan,
+    1), (N, 1))``; ``shadowing_std == 0`` multiplies by exactly 1.0.
     """
-    shadow = torch.exp(scenario.shadowing_std * shadow_normal)
+    shadow = torch.exp(per_cell(scenario.shadowing_std, shadow_normal)
+                       * shadow_normal)
     pathloss = torch.as_tensor(scenario.pathloss)
-    if pathloss.dim() == 1:
-        pathloss = pathloss[:, None]
+    if pathloss.dim() >= 1:
+        pathloss = pathloss[..., None]
     return clamp_floor(mag * shadow * pathloss, scenario.floor)
 
 
@@ -82,16 +87,18 @@ def draw_channels_scenario(chan_normal: torch.Tensor,
                            shadow_normal: torch.Tensor,
                            scenario: ChannelScenario,
                            num_subcarriers: int) -> torch.Tensor:
-    """Scenario channel magnitudes [N, num_subcarriers] from the round's
-    normals: ``chan_normal`` [2, N, draw_sc] (draw_sc = 1 when flat)."""
+    """Scenario channel magnitudes [..., N, num_subcarriers] from the round's
+    normals: ``chan_normal`` [..., 2, N, draw_sc] (draw_sc = 1 when flat)."""
     re_im = chan_normal / math.sqrt(2.0)
-    mag = torch.sqrt(re_im[0] ** 2 + re_im[1] ** 2)
+    mag = torch.sqrt(re_im[..., 0, :, :] ** 2 + re_im[..., 1, :, :] ** 2)
     if scenario.flat:
-        mag = mag.expand(mag.shape[0], num_subcarriers)
+        mag = mag.expand(*mag.shape[:-1], num_subcarriers)
     return compose_channel(mag, shadow_normal, scenario)
 
 
 # Named FLConfig overrides (the static subset of the reference registry).
+# The reference's temporal entries (``TEMPORAL_SCENARIOS``) need
+# ``core/dynamics.py``, which is not ported yet.
 SCENARIOS: dict[str, dict] = {
     "default": {},
     "freq_selective": {"flat_fading": False},
@@ -100,3 +107,6 @@ SCENARIOS: dict[str, dict] = {
     "heterogeneous_pathloss": {"pathloss_db_spread": 12.0},
     "high_floor": {"channel_floor": 0.2},
 }
+
+TEMPORAL_SCENARIOS = ("markov_fading", "commuter_mobility",
+                      "battery_constrained")

@@ -8,10 +8,18 @@ own key discipline, which makes the two packages take the same discrete
 decisions. Shapes and dtypes are the reference's; the quantized
 transport's rounding uniforms are one [N, P] draw, row i for client i, as
 the reference's per-client-id streams are.
+
+A batched round of G cells reads one :class:`RoundDraws` with a leading
+[G] on every field, stacked from each cell's own draws by
+:func:`stack_draws`. A cell's draws are those of its own single run:
+cells that share a seed and a :func:`draw_signature` may share one stream,
+and a noise-free cell of a noisy group keeps its own stream (it draws no
+AWGN, so its later draws differ from a noisy cell's) and reads a zero AWGN
+row.
 """
 from __future__ import annotations
 
-from typing import Iterator, NamedTuple, Optional
+from typing import Iterator, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -20,6 +28,7 @@ from repro_torch.core.aircomp import flat_awgn
 
 
 class RoundDraws(NamedTuple):
+    # the shapes of one run; a batched round's fields lead with [G]
     chan_normal: torch.Tensor             # [2, N, draw_sc] Rayleigh re/im normals
     shadow_normal: torch.Tensor           # [N, 1] shadowing normals
     sel_gumbel: Optional[torch.Tensor]    # [N] selection Gumbel (None: greedy)
@@ -88,3 +97,39 @@ def round_draws(seed: int, fl: FLConfig, model_size: int, shard_size: int,
     quant_gen.manual_seed(seed * 1_000_003 + 7)
     for _ in range(fl.rounds):
         yield draw_round(gen, quant_gen, fl, model_size, shard_size)
+
+
+def draw_signature(fl: FLConfig) -> tuple:
+    """What :func:`draw_round` reads of a config: two configs with the same
+    signature draw the same numbers from the same seed."""
+    return (fl.rounds, fl.num_clients, fl.batch_size, fl.flat_fading,
+            fl.num_subcarriers, fl.method == "greedy", fl.noise_std == 0,
+            fl.transport == "quantized")
+
+
+def stack_draws(cells: Sequence[RoundDraws], noise: bool,
+                model_size: int) -> RoundDraws:
+    """One round's draws of G cells as one ``RoundDraws`` with a leading [G]
+    on every field (views for G = 1). ``noise``: whether the round reads
+    AWGN (False: a statically noise-free group, and ``noise`` is None); a
+    cell that drew none (σ = 0) then reads a zero row."""
+    first = cells[0]
+    dev = first.chan_normal.device
+
+    def stack(vals):
+        return vals[0].unsqueeze(0) if len(vals) == 1 else torch.stack(vals)
+
+    def field(name):
+        vals = [getattr(d, name) for d in cells]
+        return None if vals[0] is None else stack(vals)
+
+    z = None
+    if noise:
+        zero = torch.zeros((model_size,), dtype=torch.float32, device=dev)
+        z = stack([zero if d.noise is None else d.noise for d in cells])
+    return RoundDraws(
+        chan_normal=field("chan_normal"), shadow_normal=field("shadow_normal"),
+        sel_gumbel=field("sel_gumbel"), batch_idx=field("batch_idx"),
+        noise=z, asc_gumbel=field("asc_gumbel"),
+        asc_batch_idx=field("asc_batch_idx"),
+        quant_uniform=field("quant_uniform"))

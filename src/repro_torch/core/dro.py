@@ -2,42 +2,47 @@
 
 Port of ``repro.core.dro``, replicated discipline: the ascent step adds
 γ·f_i to the K uniformly sampled entries and projects back onto the simplex
-with the sort-based projection.
+with the sort-based projection. Every function works row-wise on the last
+axis, so λ may carry a leading cell axis [G, N].
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.utils.cells import per_cell
+
 
 def project_simplex(v: torch.Tensor, acc_dtype=torch.float32) -> torch.Tensor:
-    """Euclidean projection of v onto the probability simplex (sort-based,
-    Held-Wolfe-Crowder / Duchi et al.; O(N log N)).
+    """Euclidean projection of each row of v [..., N] onto the probability
+    simplex (sort-based, Held-Wolfe-Crowder / Duchi et al.; O(N log N)).
 
     ``acc_dtype`` is the precision of the cumulative sum and the θ
     reduction. The reference runs with x64 off, where its f64 accumulation
     request canonicalizes to f32, so f32 is the parity mode; pass
     ``torch.float64`` for the accurate projection near ties.
     """
-    n = v.shape[0]
-    u = torch.sort(v, descending=True).values.to(acc_dtype)
-    css = torch.cumsum(u, dim=0)
+    n = v.shape[-1]
+    u = torch.sort(v, dim=-1, descending=True).values.to(acc_dtype)
+    css = torch.cumsum(u, dim=-1)
     k = torch.arange(1, n + 1, dtype=acc_dtype, device=v.device)
     cond = u + (1.0 - css) / k > 0
-    rho = torch.max(torch.where(cond, k, 0.0))
-    theta = (torch.sum(torch.where(cond, u, 0.0)) - 1.0) / rho
+    rho = torch.amax(torch.where(cond, k, 0.0), dim=-1, keepdim=True)
+    theta = (torch.sum(torch.where(cond, u, 0.0), dim=-1, keepdim=True)
+             - 1.0) / rho
     return torch.clamp_min(v.to(acc_dtype) - theta, 0.0).to(v.dtype)
 
 
 def lambda_ascent(lam, losses, ascent_mask, gamma) -> torch.Tensor:
-    """One ascent step of Alg. 1: update entries in U^(t), project."""
-    return project_simplex(lam + gamma * ascent_mask * losses)
+    """One ascent step of Alg. 1: update entries in U^(t), project. ``gamma``
+    may be a [G] vector against λ [G, N]."""
+    return project_simplex(lam + per_cell(gamma, lam) * ascent_mask * losses)
 
 
 def lambda_summary(lam: torch.Tensor):
-    """O(1) λ diagnostics ``(max, entropy, effective support size 1/Σλ²)``;
-    entropy uses 0·log 0 = 0."""
-    lmax = torch.max(lam)
+    """O(1) λ diagnostics ``(max, entropy, effective support size 1/Σλ²)``
+    of each row; entropy uses 0·log 0 = 0."""
+    lmax = torch.amax(lam, dim=-1)
     plogp = lam * torch.log(torch.where(lam > 0, lam, 1.0))
-    ent = -torch.sum(plogp)
-    sq = torch.sum(torch.square(lam))
+    ent = -torch.sum(plogp, dim=-1)
+    sq = torch.sum(torch.square(lam), dim=-1)
     return lmax, ent, 1.0 / torch.clamp_min(sq, torch.finfo(lam.dtype).tiny)

@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.utils.cells import per_cell
+
 # the smallest normal f32: XLA flushes subnormals to zero, so the
 # reference's ``log(clip(λ, 1e-38))`` is -inf for every λ below this (1e-38
 # itself is subnormal). The port reproduces that explicitly.
@@ -19,13 +21,14 @@ def safe_log(lam: torch.Tensor) -> torch.Tensor:
 
 
 def energy_expert_pmf(h_eff: torch.Tensor, C) -> torch.Tensor:
-    """y_i = |h_i|^C / Σ_j |h_j|^C, computed as softmax(C log|h|)."""
-    return torch.softmax(C * torch.log(h_eff), dim=-1)
+    """y_i = |h_i|^C / Σ_j |h_j|^C, computed as softmax(C log|h|); ``C`` may
+    be a [G] vector against h [G, N]."""
+    return torch.softmax(per_cell(C, h_eff) * torch.log(h_eff), dim=-1)
 
 
 def ca_afl_logits(lam: torch.Tensor, h_eff: torch.Tensor, C) -> torch.Tensor:
     """log(λ_i) + C·log|h_i| — unnormalized log of eq. (9)."""
-    return safe_log(lam) + C * torch.log(h_eff)
+    return safe_log(lam) + per_cell(C, h_eff) * torch.log(h_eff)
 
 
 def ca_afl_pmf(lam: torch.Tensor, h_eff: torch.Tensor, C) -> torch.Tensor:

@@ -4,7 +4,9 @@ Exact-K methods (FedAvg, AFL, CA-AFL, greedy) pick K clients without
 replacement by Gumbel-top-K. The Gumbel noise comes in as a tensor (the
 round's ``RoundDraws.sel_gumbel``) instead of a key. Ties break by the
 lowest index, as ``lax.top_k`` does: ``torch.topk`` promises no tie order,
-so the top K come from a stable descending sort. GCA's thresholded
+so the top K come from a stable descending sort. Every function works on
+the last axis, so a leading cell axis [G] (one row per sweep cell) rides
+along; ties go to the lowest index within each cell. GCA's thresholded
 selection is not ported yet.
 """
 from __future__ import annotations
@@ -19,11 +21,12 @@ EXACT_K_METHODS = ("fedavg", "afl", "ca_afl", "greedy")
 
 
 def _exact_k(scores: torch.Tensor, k: int):
-    """(mask, idx) of the top-k scores — exactly k ones, ties broken by the
-    lowest index; ``idx`` [k] is sorted by descending score."""
-    idx = torch.sort(scores, descending=True, stable=True).indices[:k]
+    """(mask, idx) of the top-k scores [..., N] along the last axis —
+    exactly k ones a row, ties broken by the lowest index; ``idx`` [..., k]
+    is sorted by descending score."""
+    idx = torch.sort(scores, dim=-1, descending=True, stable=True).indices[..., :k]
     mask = torch.zeros(scores.shape, dtype=torch.float32, device=scores.device)
-    return mask.index_fill_(0, idx, 1.0), idx
+    return mask.scatter_(-1, idx, 1.0), idx
 
 
 def availability_logits(avail: Optional[torch.Tensor]):
@@ -41,8 +44,9 @@ def gumbel_topk(gumbel: torch.Tensor, logits: torch.Tensor, k: int):
 def exact_k_scores(method: str, gumbel: Optional[torch.Tensor],
                    lam: torch.Tensor, h_eff: torch.Tensor, C=0.0,
                    avail: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The score vector [N] whose top-k IS the method's selection. Greedy
-    is deterministic and takes no Gumbel noise (``gumbel`` may be None)."""
+    """The score vector [..., N] whose top-k IS the method's selection.
+    Greedy is deterministic and takes no Gumbel noise (``gumbel`` may be
+    None). ``C`` is a number, a 0-d tensor or a [G] vector, one per cell."""
     a_logits = availability_logits(avail)
     if method == "greedy":
         return h_eff + a_logits
@@ -60,7 +64,7 @@ def exact_k_scores(method: str, gumbel: Optional[torch.Tensor],
 
 def select_clients_sparse(method: str, gumbel, lam, h_eff, k: int, C=0.0,
                           avail=None):
-    """Exact-K selection returning ``(mask [N], idx [K])``."""
+    """Exact-K selection returning ``(mask [..., N], idx [..., K])``."""
     mask, idx = _exact_k(exact_k_scores(method, gumbel, lam, h_eff, C, avail), k)
     if avail is not None:
         mask = mask * avail
@@ -69,7 +73,7 @@ def select_clients_sparse(method: str, gumbel, lam, h_eff, k: int, C=0.0,
 
 def select_clients(method: str, gumbel, lam, h_eff, k: int, C=0.0,
                    avail=None) -> torch.Tensor:
-    """Participation mask [N] for the descent step (exact-K methods)."""
+    """Participation mask [..., N] for the descent step (exact-K methods)."""
     if method in EXACT_K_METHODS:
         return select_clients_sparse(method, gumbel, lam, h_eff, k, C=C,
                                      avail=avail)[0]

@@ -22,6 +22,14 @@ replicated control plane:
      evaluated only at the ascent and descent slots;
   7. the test accuracy of every client on the ``eval_every`` cadence.
 
+The round runs G independent cells at once (the sweep engine's points ×
+seeds, ``core/sweep.py``): the reference vmaps its round over cells, the
+port writes the cell axis out. Every tensor of the state, the draws and the
+metrics leads with [G], every knob of the ``SweepPoint`` is a [G] vector,
+and the batches and residual rows are gathered per cell by ``sel_idx``
+[G, K]. The eq. (10) kernel still runs once per cell (G launches a round).
+``run_simulation`` is a group of one cell.
+
 ``dense=True`` runs the [N, model] reference path instead (every client
 descends and is masked; analog and digital aggregate per leaf and reach no
 kernel, quantized and sparse run their flat pass over all N rows).
@@ -35,7 +43,7 @@ GCA, the sharded control plane and meshes.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional
+from typing import Any, Iterable, NamedTuple, Optional
 
 import torch
 
@@ -43,29 +51,30 @@ from repro_torch.configs.base import FLConfig
 from repro_torch.core.aircomp import (aircomp_aggregate_stack_tree,
                                       aircomp_aggregate_tree)
 from repro_torch.core.channel import draw_channels_scenario, effective_channel
-from repro_torch.core.draws import round_draws
+from repro_torch.core.draws import RoundDraws, round_draws, stack_draws
 from repro_torch.core.dro import lambda_ascent, lambda_summary
 from repro_torch.core.selection import (EXACT_K_METHODS, gumbel_topk,
                                         select_clients, select_clients_sparse)
-from repro_torch.core.sweep import sweep_point_from_config
 from repro_torch.core.transport import (downlink_energy,
                                         quantized_aggregate_stack_tree,
                                         require_ported, round_energy,
                                         sparse_aggregate_stack_tree,
                                         sparse_k_coords)
 from repro_torch.models.logreg import SimModel
+from repro_torch.utils.cells import per_cell
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import leaf_names, tree_size
 
 
 class SimState(NamedTuple):
-    w: dict              # global model {name: tensor}
-    lam: torch.Tensor    # [N] simplex weights
-    energy: torch.Tensor  # cumulative Joules
-    eval_cache: Any = ()  # [3] last (avg, worst, std) accuracy when eval_every > 1
-    lam_snaps: Any = ()   # [ceil(T/E), N] λ snapshots when record_lambda_every = E > 1
-    dl_energy: Any = ()   # cumulative downlink Joules
-    ef_resid: Any = ()    # [N, P] error-feedback residuals (sparse only)
+    # every field leads with the cell axis [G]
+    w: dict              # global model {name: [G, ...]}
+    lam: torch.Tensor    # [G, N] simplex weights
+    energy: torch.Tensor  # [G] cumulative Joules
+    eval_cache: Any = ()  # [G, 3] last (avg, worst, std) accuracy when eval_every > 1
+    lam_snaps: Any = ()   # [G, ceil(T/E), N] λ snapshots when record_lambda_every = E > 1
+    dl_energy: Any = ()   # [G] cumulative downlink Joules
+    ef_resid: Any = ()    # [G, N, P] error-feedback residuals (sparse only)
 
 
 class SimHistory(NamedTuple):
@@ -106,19 +115,27 @@ def check_supported(fl: FLConfig, mesh=None) -> None:
 
 
 def _gather_batches(x, y, cidx, bidx):
-    """Batches of the selected clients only: [K, B, ...] from ``cidx`` [K]
-    and ``bidx`` [K, B], composed into one flat gather. Indices widen to
-    int64 here, so the composed index cannot wrap at any population size."""
+    """Batches of the selected clients only: [..., K, B, ...] from ``cidx``
+    [..., K] and ``bidx`` [..., K, B], composed into one flat gather. Indices
+    widen to int64 here, so the composed index cannot wrap at any population
+    size or cell count."""
     n, s = y.shape
-    flat = cidx.long()[:, None] * s + bidx.long()
+    flat = cidx.long()[..., None] * s + bidx.long()
     return x.reshape(n * s, *x.shape[2:])[flat], y.reshape(n * s)[flat]
 
 
 def _all_batches(x, y, bidx):
-    """One batch per client for all N clients: [N, B, ...]."""
+    """One batch per client for all N clients: [..., N, B, ...] from
+    ``bidx`` [..., N, B]."""
     rows = torch.arange(y.shape[0], device=y.device)[:, None]
     b = bidx.long()
     return x[rows, b], y[rows, b]
+
+
+def _shared(w: dict) -> dict:
+    """Each cell's model [G, ...] with a unit axis after the cell axis, so it
+    broadcasts over that cell's clients or test shards."""
+    return {name: w[name].unsqueeze(1) for name in leaf_names(w)}
 
 
 def _record_lambda(fl: FLConfig, state: SimState, lam_new, t: int):
@@ -128,72 +145,92 @@ def _record_lambda(fl: FLConfig, state: SimState, lam_new, t: int):
     if e == 1:
         return lam_new, state.lam_snaps
     if e > 1 and t % e == 0:
-        state.lam_snaps[t // e] = lam_new
+        state.lam_snaps[:, t // e] = lam_new
     return (), state.lam_snaps
 
 
 def make_param_round_fn(model: SimModel, fl: FLConfig, data, model_size: int,
-                        method: str, dense: bool = False):
-    """Build ``round_fn(point, state, t, draws) -> (state, metrics)``.
+                        method: str, dense: bool = False,
+                        noise_free: Optional[bool] = None, cells: int = 1):
+    """Build ``round_fn(point, state, t, draws) -> (state, metrics)`` for a
+    group of ``cells`` cells that share ``fl``'s structural fields
+    (``sweep.STATIC_FIELDS``): ``point`` holds [G] knobs, ``state`` and
+    ``draws`` lead with [G], and so does every field of the metrics.
 
     ``data`` = (x [N, S, ...], y [N, S], x_test [N, S_t, ...], y_test
-    [N, S_t]) tensors on the run's device. ``fl.noise_std == 0`` drops the
-    eq. (10) noise statically (``draw_round`` then draws no AWGN).
+    [N, S_t]) tensors on the run's device, shared by the cells.
+    ``noise_free`` (default ``fl.noise_std == 0``) drops the eq. (10) noise
+    statically; the sweep engine sets it only when every cell of the group
+    is noise-free, and otherwise a quiet cell reads a zero AWGN row.
     """
     check_supported(fl)
     x, y, x_test, y_test = data
     n, k_sched = fl.num_clients, fl.clients_per_round
-    noise_free = fl.noise_std == 0
+    if noise_free is None:
+        noise_free = fl.noise_std == 0
     scheme = fl.transport
     # the sparse transport's kept-coordinate count is static
     k_coords = (sparse_k_coords(fl.sparse_density, model_size)
                 if scheme == "sparse" else None)
     dev = y.device
-    zeros_n = torch.zeros((n,), dtype=torch.float32, device=dev)
-    n_f32 = torch.full((), float(n), dtype=torch.float32, device=dev)
-    inf_f32 = torch.full((), float("inf"), dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    cell_rows = torch.arange(cells, device=dev)[:, None]   # [G, 1]
+    zeros_gn = torch.zeros((cells, n), **f32)
+    n_g = torch.full((cells,), float(n), **f32)
+    inf_g = torch.full((cells,), float("inf"), **f32)
+
+    def rows(t, idx):
+        """Rows ``idx`` [G, K] of each cell's ``t`` [G, N, ...]."""
+        return t[cell_rows, idx]
 
     def local_update(w, eta, xb, yb):
-        """``local_steps`` SGD steps from the global model, for a stack of
-        clients: the first step broadcasts w to [C, ...]."""
-        wc = w
+        """``local_steps`` SGD steps from each cell's global model, for the
+        cell's stack of clients: the first step broadcasts w [G, ...] to
+        [G, C, ...]."""
+        wc = _shared(w)
         for _ in range(fl.local_steps):
             g = model.grad(wc, xb, yb)
-            wc = {name: wc[name] - eta * g[name] for name in leaf_names(g)}
+            wc = {name: wc[name] - per_cell(eta, g[name]) * g[name]
+                  for name in leaf_names(g)}
         return wc
 
     def aggregate(tp, state: SimState, w_stack, weights, d, noise_std,
                   k_denom, idx):
         """Eq. (10) under the round's transport over the stacked updates of
-        the clients ``idx`` (None: all N, the dense path); returns
+        the clients ``idx`` [G, K] (None: all N, the dense path); returns
         ``(w_new, ef_resid)``. The quantized rounding uniforms and the
         sparse residuals are addressed by client id, so both paths round
         and compress every row identically."""
+        z = None if noise_free else d.noise
         if scheme == "quantized":
             if d.quant_uniform is None:
                 raise ValueError("the quantized transport needs the round's "
                                  "RoundDraws.quant_uniform")
-            u = d.quant_uniform if idx is None else d.quant_uniform[idx]
+            u = d.quant_uniform if idx is None else rows(d.quant_uniform, idx)
             return quantized_aggregate_stack_tree(
-                state.w, w_stack, weights, u, d.noise, noise_std, tp.bits,
+                state.w, w_stack, weights, u, z, noise_std, tp.bits,
                 k_denom), state.ef_resid
         if scheme == "sparse":
-            resid = state.ef_resid if idx is None else state.ef_resid[idx]
+            resid = state.ef_resid if idx is None else rows(state.ef_resid, idx)
             w_new, resid = sparse_aggregate_stack_tree(
-                state.w, w_stack, weights, d.noise, noise_std, k_coords,
-                k_denom, resid)
-            # idx is a top-k output (unique), so the scatter-back is exact
-            return w_new, (resid if idx is None
-                           else state.ef_resid.index_copy(0, idx, resid))
+                state.w, w_stack, weights, z, noise_std, k_coords, k_denom,
+                resid)
+            if idx is None:
+                return w_new, resid
+            # idx rows are top-k outputs (unique within a cell), so the
+            # scatter-back is exact; the residual buffer is the run's own
+            # and is written in place
+            state.ef_resid.index_put_((cell_rows, idx), resid)
+            return w_new, state.ef_resid
         # digital decodes each upload exactly: statically no noise
         eff_noise = 0.0 if scheme == "digital" else noise_std
         if idx is None:
-            return aircomp_aggregate_tree(w_stack, weights, d.noise, eff_noise,
+            return aircomp_aggregate_tree(w_stack, weights, z, eff_noise,
                                           k_denom), state.ef_resid
-        return aircomp_aggregate_stack_tree(w_stack, weights, d.noise,
-                                            eff_noise, k_denom), state.ef_resid
+        return aircomp_aggregate_stack_tree(w_stack, weights, z, eff_noise,
+                                            k_denom), state.ef_resid
 
-    def round_fn(point, state: SimState, t: int, d):
+    def round_fn(point, state: SimState, t: int, d: RoundDraws):
         scen = point.scenario
         # ---- physical layer: i.i.d. block fading, eq. (6)
         h = effective_channel(draw_channels_scenario(
@@ -206,7 +243,8 @@ def make_param_round_fn(model: SimModel, fl: FLConfig, data, model_size: int,
         else:
             mask, sel_idx = select_clients_sparse(
                 method, d.sel_gumbel, state.lam, h, k_sched, C=point.energy_C)
-        k_denom = torch.clamp_min(torch.sum(mask), 1.0)
+        num_scheduled = torch.sum(mask, dim=-1)
+        k_denom = torch.clamp_min(num_scheduled, 1.0)
 
         # ---- local updates + AirComp aggregation (eq. 10)
         eta = point.lr0 * point.lr_decay ** t
@@ -217,10 +255,12 @@ def make_param_round_fn(model: SimModel, fl: FLConfig, data, model_size: int,
             w_new, ef_resid = aggregate(point.transport, state, w_stack, mask,
                                         d, noise_std, k_denom, None)
         else:
-            xb_s, yb_s = _gather_batches(x, y, sel_idx, d.batch_idx[sel_idx])
+            sel_mask = rows(mask, sel_idx)
+            xb_s, yb_s = _gather_batches(x, y, sel_idx,
+                                         rows(d.batch_idx, sel_idx))
             w_sel = local_update(state.w, eta, xb_s, yb_s)
             w_new, ef_resid = aggregate(point.transport, state, w_sel,
-                                        mask[sel_idx], d, noise_std, k_denom,
+                                        sel_mask, d, noise_std, k_denom,
                                         sel_idx)
 
         # ---- energy ledger: the selected set's uplink + every client's
@@ -228,41 +268,44 @@ def make_param_round_fn(model: SimModel, fl: FLConfig, data, model_size: int,
         # a sparse broadcast is priced as the union of the K payloads
         e_round = round_energy(scheme, point.transport, h, mask, model_size,
                                scen)
-        e_dl = n_f32 * downlink_energy(scheme, point.transport, model_size,
-                                       scen, num_tx=k_sched)
+        e_dl = n_g * downlink_energy(scheme, point.transport, model_size,
+                                     scen, num_tx=k_sched)
         dl_energy = state.dl_energy + e_dl
         energy = state.energy + e_round + e_dl
 
         # ---- ascent step on λ (uniform K, control channel)
-        amask, asc_idx = gumbel_topk(d.asc_gumbel, zeros_n, k_sched)
+        amask, asc_idx = gumbel_topk(d.asc_gumbel, zeros_gn, k_sched)
+        w_cells = _shared(w_new)
         if dense:
             xab, yab = _all_batches(x, y, d.asc_batch_idx)
-            losses = model.loss(w_new, xab, yab)
-            sel_loss = torch.sum(mask * losses) / k_denom
+            losses = model.loss(w_cells, xab, yab)
+            sel_loss = torch.sum(mask * losses, dim=-1) / k_denom
         else:
             # losses only at the ascent slots (λ update) and the descent
             # slots (selected-set loss metric), both on the ASCENT batches,
             # as the reference does
-            xa, ya = _gather_batches(x, y, asc_idx, d.asc_batch_idx[asc_idx])
-            losses = zeros_n.index_copy(0, asc_idx, model.loss(w_new, xa, ya))
-            xd, yd = _gather_batches(x, y, sel_idx, d.asc_batch_idx[sel_idx])
-            sel_loss = torch.sum(mask[sel_idx] * model.loss(w_new, xd, yd)) / k_denom
+            xa, ya = _gather_batches(x, y, asc_idx, rows(d.asc_batch_idx, asc_idx))
+            losses = zeros_gn.index_put((cell_rows, asc_idx),
+                                        model.loss(w_cells, xa, ya))
+            xd, yd = _gather_batches(x, y, sel_idx, rows(d.asc_batch_idx, sel_idx))
+            sel_loss = torch.sum(sel_mask * model.loss(w_cells, xd, yd),
+                                 dim=-1) / k_denom
         lam_new = lambda_ascent(state.lam, losses, amask, point.ascent_lr)
         lam_max, lam_entropy, lam_ess = lambda_summary(lam_new)
         lam_hist, lam_snaps = _record_lambda(fl, state, lam_new, t)
 
         # ---- metrics: the N-client test eval on the eval_every cadence
         if t % fl.eval_every == 0:
-            accs = model.accuracy(w_new, x_test, y_test)
-            stats = torch.stack([accs.mean(), accs.min(),
-                                 accs.std(correction=0)])
+            accs = model.accuracy(w_cells, x_test, y_test)   # [G, N]
+            stats = torch.stack([accs.mean(dim=-1), accs.amin(dim=-1),
+                                 accs.std(dim=-1, correction=0)], dim=-1)
         else:
             stats = state.eval_cache
         eval_cache = () if fl.eval_every == 1 else stats
         metrics = SimHistory(
-            avg_acc=stats[0], worst_acc=stats[1], std_acc=stats[2],
-            energy=energy, loss=sel_loss, num_scheduled=torch.sum(mask),
-            lam=lam_hist, avail_count=n_f32, min_battery=inf_f32,
+            avg_acc=stats[:, 0], worst_acc=stats[:, 1], std_acc=stats[:, 2],
+            energy=energy, loss=sel_loss, num_scheduled=num_scheduled,
+            lam=lam_hist, avail_count=n_g, min_battery=inf_g,
             lam_max=lam_max, lam_entropy=lam_entropy, lam_ess=lam_ess,
             dl_energy=dl_energy)
         return SimState(w_new, lam_new, energy, eval_cache, lam_snaps,
@@ -271,31 +314,57 @@ def make_param_round_fn(model: SimModel, fl: FLConfig, data, model_size: int,
     return round_fn
 
 
-def init_sim_state(model: SimModel, fl: FLConfig, device=None) -> SimState:
-    """Initial state: the model's init, uniform λ, zero energy (and zero
-    error-feedback residuals for the sparse transport), on ``device``
-    (``None``: the card)."""
+def init_sim_state(model: SimModel, fl: FLConfig, device=None,
+                   cells: int = 1) -> SimState:
+    """Initial state of ``cells`` cells: the model's init, uniform λ, zero
+    energy (and zero error-feedback residuals for the sparse transport), on
+    ``device`` (``None``: the card). Every field leads with [cells]."""
     device = resolve_device(device)
     e = fl.record_lambda_every
     n = fl.num_clients
     f32 = dict(dtype=torch.float32, device=device)
-    w = model.init(device)
+    w0 = model.init(device)
+    w = {name: leaf.expand(cells, *leaf.shape).clone()
+         for name, leaf in w0.items()}
     return SimState(
         w=w,
-        lam=torch.full((n,), 1.0 / n, **f32),
-        energy=torch.zeros((), **f32),
-        eval_cache=() if fl.eval_every == 1 else torch.zeros((3,), **f32),
-        lam_snaps=() if e in (0, 1) else torch.zeros(((fl.rounds + e - 1) // e, n), **f32),
-        dl_energy=torch.zeros((), **f32),
-        ef_resid=(torch.zeros((n, tree_size(w)), **f32)
+        lam=torch.full((cells, n), 1.0 / n, **f32),
+        energy=torch.zeros((cells,), **f32),
+        eval_cache=() if fl.eval_every == 1 else torch.zeros((cells, 3), **f32),
+        lam_snaps=(() if e in (0, 1)
+                   else torch.zeros((cells, (fl.rounds + e - 1) // e, n), **f32)),
+        dl_energy=torch.zeros((cells,), **f32),
+        ef_resid=(torch.zeros((cells, n, tree_size(w0)), **f32)
                   if fl.transport == "sparse" else ()),
     )
+
+
+def run_rounds(round_fn, point, state: SimState, fl: FLConfig,
+               draws: Iterable[RoundDraws]) -> SimHistory:
+    """Run ``fl.rounds`` rounds of ``round_fn`` from ``state`` on batched
+    ``draws`` (one ``RoundDraws`` a round, fields [G, ...]); the history's
+    fields are [G, T, ...] (λ [G, ceil(T/E), N] at E > 1, () at E = 0)."""
+    it = iter(draws)
+    rows = []
+    for t in range(fl.rounds):
+        d = next(it, None)
+        if d is None:
+            raise ValueError(f"draws ran out after {t} of {fl.rounds} rounds")
+        state, metrics = round_fn(point, state, t, d)
+        rows.append(metrics)
+    e = fl.record_lambda_every
+    cols = {f: torch.stack([getattr(r, f) for r in rows], dim=1)
+            for f in SimHistory._fields if f != "lam"}
+    lam = torch.stack([r.lam for r in rows], dim=1) if e == 1 else (
+        () if e == 0 else state.lam_snaps)
+    return SimHistory(lam=lam, **cols)
 
 
 def run_simulation(model: SimModel, fl: FLConfig, data,
                    seed: Optional[int] = None, dense: bool = False, mesh=None,
                    draws=None, device=None) -> SimHistory:
-    """Run T rounds of Algorithm 1 (or a baseline, per ``fl.method``).
+    """Run T rounds of Algorithm 1 (or a baseline, per ``fl.method``): the
+    batched round with one cell, its history squeezed to [T, ...].
 
     ``data`` = (x, y, x_test, y_test) stacked per client, numpy or tensors.
     ``draws``: an iterable of T ``RoundDraws`` (e.g. the reference's numbers
@@ -303,28 +372,21 @@ def run_simulation(model: SimModel, fl: FLConfig, data,
     device from ``seed`` (``fl.seed`` if None). ``device=None`` is
     the CUDA card, and raises when there is none.
     """
+    from repro_torch.core.sweep import stack_points, sweep_point_from_config
+
     dev = resolve_device(device)
     check_supported(fl, mesh)
     data = tuple(torch.as_tensor(a).to(dev) for a in data)
-    point = sweep_point_from_config(fl, dev)
+    point = stack_points([sweep_point_from_config(fl, dev)])
     state = init_sim_state(model, fl, dev)
-    model_size = tree_size(state.w)
+    model_size = tree_size(state.w)   # one cell
+    noise_free = fl.noise_std == 0
     round_fn = make_param_round_fn(model, fl, data, model_size, fl.method,
-                                   dense=dense)
+                                   dense=dense, noise_free=noise_free)
     if draws is None:
         draws = round_draws(fl.seed if seed is None else seed, fl,
                             model_size, data[1].shape[1], dev)
-    it = iter(draws)
-    rows = []
-    for t in range(fl.rounds):
-        d = next(it, None)
-        if d is None:
-            raise ValueError(f"draws ran out after {t} of {fl.rounds} rounds")
-        state, metrics = round_fn(point, state, t, d.to(dev))
-        rows.append(metrics)
-    e = fl.record_lambda_every
-    cols = {f: torch.stack([getattr(r, f) for r in rows])
-            for f in SimHistory._fields if f != "lam"}
-    lam = torch.stack([r.lam for r in rows]) if e == 1 else (
-        () if e == 0 else state.lam_snaps)
-    return SimHistory(lam=lam, **cols)
+    batched = (stack_draws([d.to(dev)], not noise_free, model_size)
+               for d in draws)
+    hist = run_rounds(round_fn, point, state, fl, batched)
+    return SimHistory(*(v if isinstance(v, tuple) else v[0] for v in hist))

@@ -25,8 +25,12 @@ quantized scheme's rounding uniforms u [C, P] come from the round's
 ``RoundDraws``. The reference draws u content-addressed by global client id
 (``fold_in(fold_in(k_noise, 7), id)``), so the selected-K path takes rows
 ``sel_idx`` of the [N, P] draw and the dense path all N, and both round with
-identical values. The population-sharded (psum) variants are not ported
-(ROADMAP Queue 1 item 9).
+identical values. A batched round gives every knob of ``TransportParams``
+the shape [G] and every tensor a leading cell axis: the energy functions
+broadcast the knobs over [G, N], and the aggregates take stacks [G, C, ...]
+and launch their kernel once per cell (``core/aircomp.py::fused_pass``).
+The population-sharded (psum) variants are not ported (ROADMAP Queue 1
+item 9).
 """
 from __future__ import annotations
 
@@ -37,13 +41,13 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import FLConfig
-from repro_torch.core.aircomp import is_static_zero, stack_accum_dtype
+from repro_torch.core.aircomp import (fused_pass, is_static_zero,
+                                      stack_accum_dtype)
 from repro_torch.core.energy import (TRUNCATION_FLOOR, clamp_floor,
                                      transmit_energy)
-from repro_torch.kernels.aircomp.ops import (quant_aircomp_flat,
-                                             sparse_aircomp_flat)
+from repro_torch.utils.cells import per_cell
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.tree import ravel, ravel_stack, unravel
+from repro_torch.utils.tree import ravel_stack, unravel
 
 TRANSPORTS = ("analog", "quantized", "digital", "sparse")
 
@@ -69,7 +73,8 @@ def require_ported(scheme: str) -> None:
 
 @dataclass(frozen=True)
 class TransportParams:
-    """Per-scheme knobs as device scalars + the structural ``scheme``."""
+    """Per-scheme knobs as device scalars (or [G] vectors, one entry per
+    cell) + the structural ``scheme``."""
 
     bits: Any = 8.0
     tx_power: Any = 0.1
@@ -107,8 +112,10 @@ def digital_rate(h_eff, tp: TransportParams, floor=TRUNCATION_FLOOR):
     h clamped at the truncation floor, N₀ at ``_MIN_NOISE`` and the rate at
     ``_MIN_RATE``."""
     h = clamp_floor(h_eff, floor)
-    snr = tp.tx_power * torch.square(h) / torch.clamp_min(tp.rx_noise, _MIN_NOISE)
-    return torch.clamp_min(tp.bandwidth * torch.log2(1.0 + snr), _MIN_RATE)
+    snr = (per_cell(tp.tx_power, h) * torch.square(h)
+           / torch.clamp_min(per_cell(tp.rx_noise, h), _MIN_NOISE))
+    return torch.clamp_min(per_cell(tp.bandwidth, h) * torch.log2(1.0 + snr),
+                           _MIN_RATE)
 
 
 def digital_latency(h_eff, model_size: int, tp: TransportParams,
@@ -122,7 +129,8 @@ def digital_latency(h_eff, model_size: int, tp: TransportParams,
 def digital_energy(h_eff, model_size: int, tp: TransportParams,
                    floor=TRUNCATION_FLOOR):
     """Per-client digital upload energy E_i = P·t_i."""
-    return tp.tx_power * digital_latency(h_eff, model_size, tp, floor)
+    return (per_cell(tp.tx_power, h_eff)
+            * digital_latency(h_eff, model_size, tp, floor))
 
 
 def sparse_payload_frac(density, model_size: int, num_tx: int = 1):
@@ -146,9 +154,11 @@ def uplink_energy(scheme: str, tp, h_eff, model_size: int, scenario):
     analog = transmit_energy(h_eff, model_size, scenario.psi, scenario.tau,
                              floor=scenario.floor)
     if scheme == "quantized":
-        return analog * (torch.clamp_min(tp.bits, 1.0) / ANALOG_BITS)
+        return analog * per_cell(torch.clamp_min(tp.bits, 1.0) / ANALOG_BITS,
+                                 analog)
     if scheme == "sparse":
-        return analog * sparse_payload_frac(tp.density, model_size)
+        return analog * per_cell(sparse_payload_frac(tp.density, model_size),
+                                 analog)
     return analog
 
 
@@ -169,9 +179,9 @@ def downlink_energy(scheme: str, tp, model_size: int, scenario,
 
 
 def round_energy(scheme: str, tp, h_eff, mask, model_size: int, scenario):
-    """Uplink energy of the selected set in one round (Joules)."""
+    """Uplink energy of the selected set in one round (Joules), per cell."""
     return torch.sum(mask * uplink_energy(scheme, tp, h_eff, model_size,
-                                          scenario))
+                                          scenario), dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -180,11 +190,13 @@ def round_energy(scheme: str, tp, h_eff, mask, model_size: int, scenario):
 
 
 def quant_step(flat_rows: torch.Tensor, bits) -> torch.Tensor:
-    """Per-row grid step Δ_c = 2·max|row_c| / max(2^bits − 1, 1), [C]; an
-    all-zero row gets Δ = 0 and passes through unrounded."""
+    """Per-row grid step Δ_c = 2·max|row_c| / max(2^bits − 1, 1), [..., C];
+    an all-zero row gets Δ = 0 and passes through unrounded. ``bits`` may be
+    a [G] vector against rows [G, C, P]."""
     b = torch.as_tensor(bits, dtype=flat_rows.dtype, device=flat_rows.device)
     levels = torch.clamp_min(torch.exp2(b) - 1.0, 1.0)
-    return 2.0 * torch.amax(torch.abs(flat_rows), dim=-1) / levels
+    amax = torch.amax(torch.abs(flat_rows), dim=-1)
+    return 2.0 * amax / per_cell(levels, amax)
 
 
 def sround(flat_rows: torch.Tensor, step: torch.Tensor,
@@ -202,11 +214,12 @@ def sround(flat_rows: torch.Tensor, step: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _flat_base_and_delta(w_base: dict, trees: dict):
-    """(w̄ [P], tree_c − w̄ [C, P]) at the stack's accumulation dtype."""
+def _flat_base_and_delta(w_base: dict, trees: dict, cells: int):
+    """(w̄ [..., P], tree_c − w̄ [..., C, P]) at the stack's accumulation
+    dtype; ``cells`` is the number of leading cell axes (0 or 1)."""
     acc = stack_accum_dtype(trees)
-    base = ravel(w_base, acc)
-    return base, ravel_stack(trees, acc) - base[None, :]
+    base = ravel_stack(w_base, acc, lead=cells)
+    return base, ravel_stack(trees, acc, lead=cells + 1) - base.unsqueeze(-2)
 
 
 def quantized_aggregate_flat_rows(base_flat, delta_rows, weights, u,
@@ -214,13 +227,11 @@ def quantized_aggregate_flat_rows(base_flat, delta_rows, weights, u,
     """``base + (Σ_c w_c·Q(Δ_c) + σz)/k`` over flat delta rows [C, P] with
     rounding uniforms ``u`` [C, P]; ``z`` [P] is the AWGN (None: statically
     noise-free). One fused pass: the ``quant_aircomp`` kernel on the card,
-    its plain version on the CPU."""
+    its plain version on the CPU. With a leading cell axis (rows [G, C, P],
+    ``base`` and ``z`` [G, P], the knobs [G]) the pass runs once per cell."""
     step = quant_step(delta_rows, bits)
-    if z is None:
-        z = torch.zeros_like(base_flat)
-        noise_std = 0.0
-    return base_flat + quant_aircomp_flat(delta_rows, weights, step, u, z,
-                                          noise_std=noise_std, k=k)
+    return base_flat + fused_pass("quant_aircomp", delta_rows, weights, step,
+                                  u, z=z, noise_std=noise_std, k=k)
 
 
 def quantized_aggregate_stack_tree(w_base: dict, trees: dict, weights, u, z,
@@ -228,12 +239,15 @@ def quantized_aggregate_stack_tree(w_base: dict, trees: dict, weights, u, z,
     """Quantized eq. (10) over a client-stacked tree: w̄ + (Σ_c w_c·
     Q(tree_c − w̄) + σz)/k. ``u`` [C, P]: the rows' rounding uniforms (the
     round's ``quant_uniform`` at those clients' ids); ``z`` [P]: the AWGN
-    in sorted-leaf order, unused when ``noise_std`` is a static 0."""
-    base, delta = _flat_base_and_delta(w_base, trees)
+    in sorted-leaf order, unused when ``noise_std`` is a static 0. With
+    ``weights`` [G, C] every argument carries the cell axis (``w_base``
+    leaves [G, ...], ``trees`` [G, C, ...], ``u`` [G, C, P], ``z`` [G, P])."""
+    cells = weights.dim() - 1
+    base, delta = _flat_base_and_delta(w_base, trees, cells)
     zz = None if is_static_zero(noise_std) else z.to(base.dtype)
     new = quantized_aggregate_flat_rows(base, delta, weights, u.to(base.dtype),
                                         noise_std, bits, k, z=zz)
-    return unravel(trees, new)
+    return unravel(trees, new, lead=cells + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -298,13 +312,13 @@ def sparse_aggregate_flat_rows(base_flat, delta_rows, resid_rows, weights,
     [C, P] with the carried residual rows r [C, P]. The aggregate is one
     fused pass (the ``sparse_aircomp`` kernel on the card, its plain
     version on the CPU); the residual r' = v − C(v) stays in PyTorch, and
-    rows with weight 0 keep their old residual (they sent nothing)."""
+    rows with weight 0 keep their old residual (they sent nothing). With a
+    leading cell axis the thresholds of all G·C rows are one radix select
+    and the fused pass runs once per cell."""
     v = delta_rows + resid_rows.to(delta_rows.dtype)
     thr = sparse_thresholds(v, k_coords)
-    if z is None:
-        z = torch.zeros_like(base_flat)
-        noise_std = 0.0
-    agg = sparse_aircomp_flat(v, weights, thr, z, noise_std=noise_std, k=k)
+    agg = fused_pass("sparse_aircomp", v, weights, thr, z=z,
+                     noise_std=noise_std, k=k)
     sent = (weights > 0)[..., None]
     new_resid = torch.where(sent, (v - _kept(v, thr)).to(resid_rows.dtype),
                             resid_rows)
@@ -316,9 +330,11 @@ def sparse_aggregate_stack_tree(w_base: dict, trees: dict, weights, z,
     """Sparse eq. (10) over a client-stacked tree; returns ``(new_tree,
     new_resid_rows)``. ``resid_rows`` [C, P]: those clients' residuals
     (the caller gathers and scatters them by client id); ``z`` [P]: the
-    AWGN, unused when ``noise_std`` is a static 0."""
-    base, delta = _flat_base_and_delta(w_base, trees)
+    AWGN, unused when ``noise_std`` is a static 0. With ``weights`` [G, C]
+    every argument carries the cell axis, as in the quantized version."""
+    cells = weights.dim() - 1
+    base, delta = _flat_base_and_delta(w_base, trees, cells)
     zz = None if is_static_zero(noise_std) else z.to(base.dtype)
     new, resid = sparse_aggregate_flat_rows(base, delta, resid_rows, weights,
                                             noise_std, k_coords, k, z=zz)
-    return unravel(trees, new), resid
+    return unravel(trees, new, lead=cells + 1), resid

@@ -1,11 +1,18 @@
 """The paper's model: multinomial logistic regression (M = 7850 for FMNIST).
 
-Port of ``repro.models.logreg.logistic_regression``. Every function takes a
-written-out client axis instead of ``vmap``: ``x`` may be [B, D] (one client)
-or [C, B, D] (C clients), and ``params`` may be shared (``w`` [D, L],
-``b`` [L]) or stacked per client (``w`` [C, D, L], ``b`` [C, L]). ``grad`` is
-the closed form of the mean cross-entropy's gradient, so local SGD on a
-[K, ...] stack is a few batched matrix products.
+Port of ``repro.models.logreg.logistic_regression``. Every function takes
+written-out leading axes instead of ``vmap``: ``x`` is [..., B, D] and
+``params`` ``w`` [..., D, L], ``b`` [..., L], and the leading axes of the two
+broadcast like NumPy's. So ``x`` may be [B, D] (one client) or [C, B, D]
+(C clients) against shared params (``w`` [D, L]) or params stacked per
+client (``w`` [C, D, L]); a batched round passes ``x`` [G, K, B, D] against
+``w`` [G, 1, D, L] (each cell's model, shared by its K clients) or
+[G, K, D, L], and evaluates ``w`` [G, 1, D, L] against the shared test set
+[N, S_t, D], giving [G, N]. The product is an ``einsum``, which runs a
+broadcast axis as a row or column block of one matrix product instead of
+copying the other operand along it. ``grad`` is the closed form of the mean
+cross-entropy's gradient, so local SGD on a [G, K, ...] stack is a few
+batched matrix products.
 """
 from __future__ import annotations
 
@@ -26,9 +33,7 @@ class SimModel(NamedTuple):
 
 def _logits(params, x):
     w, b = params["w"], params["b"]
-    if b.dim() == 2:  # stacked per-client bias [C, L]
-        b = b[:, None, :]
-    return torch.matmul(x, w) + b
+    return torch.einsum("...bd,...dl->...bl", x, w) + b.unsqueeze(-2)
 
 
 def _log_probs(params, x):

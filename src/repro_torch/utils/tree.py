@@ -32,24 +32,25 @@ def ravel(tree: dict, dtype=None) -> torch.Tensor:
                       for leaf in tree_leaves(tree)])
 
 
-def ravel_stack(trees: dict, dtype=None) -> torch.Tensor:
-    """A stacked tree (leading axis K on every leaf) as one contiguous
-    [K, P] buffer, leaves concatenated in sorted-key order."""
+def ravel_stack(trees: dict, dtype=None, lead: int = 1) -> torch.Tensor:
+    """A stacked tree (the same ``lead`` leading axes on every leaf: [K], or
+    [G, K] in a batched round) as one contiguous [..., P] buffer, leaves
+    concatenated in sorted-key order; ``lead=0`` is :func:`ravel`."""
     leaves = tree_leaves(trees)
-    kk = leaves[0].shape[0]
-    return torch.cat([leaf.reshape(kk, -1).to(dtype or leaf.dtype)
-                      for leaf in leaves], dim=1)
+    shape = tuple(leaves[0].shape[:lead])
+    return torch.cat([leaf.reshape(*shape, -1).to(dtype or leaf.dtype)
+                      for leaf in leaves], dim=-1)
 
 
 def unravel(template: dict, flat: torch.Tensor, lead: int = 1) -> dict:
-    """Split a [P] vector back into ``template``'s leaves (sorted-key order),
-    each shaped like the template leaf without its first ``lead`` axes and
-    cast to its dtype."""
+    """Split a [..., P] buffer back into ``template``'s leaves (sorted-key
+    order), each shaped like the template leaf without its first ``lead``
+    axes, behind ``flat``'s own leading axes, and cast to its dtype."""
     out, off = {}, 0
     for name in leaf_names(template):
         shape = template[name].shape[lead:]
         size = int(torch.Size(shape).numel())
-        out[name] = (flat[off:off + size].reshape(shape)
+        out[name] = (flat[..., off:off + size].reshape(*flat.shape[:-1], *shape)
                      .to(template[name].dtype))
         off += size
     return out

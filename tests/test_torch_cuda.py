@@ -161,6 +161,45 @@ def test_selected_k_round_launches_aircomp_once(card):
     assert hist.num_scheduled.cpu().tolist() == [3.0] * fl.rounds
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("transport", ["analog", "quantized", "sparse", "digital"])
+def test_sweep_group_equals_its_cells_on_the_card(card, transport):
+    """A group of 2 points × 2 seeds on the card launches its transport's
+    kernel once per cell and round (G × T times) and no other kernel, and
+    each cell equals the same cell run alone (the simulator's tolerances:
+    num_scheduled exact, energy rtol 1e-5, λ atol 1e-6, loss rtol 1e-4,
+    accuracies within one test sample)."""
+    from repro_torch.core import sweep
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(6, 10, 8)).astype(np.float32)
+    y = rng.integers(0, 10, size=(6, 10)).astype(np.int32)
+    data, model, seeds = (x, y, x, y), logistic_regression(8, 10), (0, 1)
+    specs = [(f"C{c:g}", FLConfig(num_clients=6, clients_per_round=3, rounds=4,
+                                  batch_size=5, noise_std=1e-2, energy_C=c,
+                                  transport=transport, sparse_density=0.2))
+             for c in (2.0, 8.0)]
+    kernels = {"aircomp": aircomp_cuda, "quant_aircomp": quant_aircomp_cuda,
+               "sparse_aircomp": sparse_aircomp_cuda}
+    own = {"analog": "aircomp", "digital": "aircomp", "quantized": "quant_aircomp",
+           "sparse": "sparse_aircomp"}[transport]
+    before = {name: k.launches for name, k in kernels.items()}
+    res = sweep.run_sweep(model, data, specs, seeds=seeds, device=card)
+    for name, k in kernels.items():
+        want = len(specs) * len(seeds) * 4 if name == own else 0
+        assert k.launches - before[name] == want, name
+    tol = {"num_scheduled": (0, 0), "energy": (1e-5, 0), "lam": (0, 1e-6),
+           "loss": (1e-4, 0), "avg_acc": (0, 0.1 + 1e-6),
+           "worst_acc": (0, 0.1 + 1e-6), "std_acc": (0, 0.1 + 1e-6)}
+    for label, fl in specs:
+        for i, s in enumerate(seeds):
+            one = run_simulation(model, fl, data, seed=s, device=card)
+            for f, (rtol, atol) in tol.items():
+                np.testing.assert_allclose(getattr(res.history(label), f)[i],
+                                           getattr(one, f).cpu().numpy(),
+                                           rtol=rtol, atol=atol,
+                                           err_msg=f"{label} seed {s} {f}")
+
+
 # The quantized and sparse kernels' tiling: while M is small (up to 33,792
 # columns), blocks of 32 columns (quant, one a lane) or 64 (sparse, two a
 # lane) whose 8 warps split the rows into slices, the slices' partial sums

@@ -39,10 +39,10 @@ from repro.core import transport as jtransport  # noqa: E402
 from repro.core.aircomp import flat_awgn as jax_flat_awgn  # noqa: E402
 from repro_torch.configs.base import FLConfig  # noqa: E402
 from repro_torch.core import channel, transport  # noqa: E402
-from repro_torch.core.draws import round_draws  # noqa: E402
+from repro_torch.core.draws import round_draws, stack_draws  # noqa: E402
 from repro_torch.core.simulator import (init_sim_state,  # noqa: E402
                                         make_param_round_fn, run_simulation)
-from repro_torch.core.sweep import sweep_point_from_config  # noqa: E402
+from repro_torch.core.sweep import stack_points, sweep_point_from_config  # noqa: E402
 from repro_torch.data.synthetic import make_fmnist_like  # noqa: E402
 from repro_torch.federated.partition import sorted_label_shards  # noqa: E402
 from repro_torch.kernels.aircomp.ops import aircomp_aggregate_flat  # noqa: E402
@@ -322,8 +322,9 @@ def test_dense_state_equals_selected_k(scheme, data):
     fl = FLConfig(**{**BASE, "transport": scheme, "sparse_density": 0.2})
     model = logistic_regression(DIM, 10)
     tdata = tuple(torch.as_tensor(a) for a in data)
-    point = sweep_point_from_config(fl, "cpu")
-    draws = list(round_draws(0, fl, P, tdata[1].shape[1], "cpu"))
+    point = stack_points([sweep_point_from_config(fl, "cpu")])   # one cell
+    draws = [stack_draws([d], fl.noise_std != 0, P)
+             for d in round_draws(0, fl, P, tdata[1].shape[1], "cpu")]
     states = []
     for dense in (False, True):
         state = init_sim_state(model, fl, "cpu")
@@ -340,7 +341,7 @@ def test_dense_state_equals_selected_k(scheme, data):
         np.testing.assert_allclose(sk.ef_resid.numpy(), dn.ef_resid.numpy(),
                                    rtol=1e-5, atol=1e-6)
         assert sk.ef_resid.abs().sum() > 0
-        idle = (sk.ef_resid == 0).all(dim=1)
+        idle = (sk.ef_resid == 0).all(dim=-1)
         assert bool((dn.ef_resid[idle] == 0).all())
     else:
         assert sk.ef_resid == () == dn.ef_resid
