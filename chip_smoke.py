@@ -46,7 +46,19 @@ these phases and fails (non-zero exit, no result line) if any of them fails:
      each group launching its transport's kernel exactly G × T = 600 times
      and no other, every cell equal to the same cell run alone through
      ``run_simulation`` (its selected set in every round exactly), and
-     cell-rounds/s of each group and of its cells one by one;
+     cell-rounds/s of each group and of its cells one by one; then the
+     temporal dynamics and GCA at the same width: CA-AFL (C = 8) under
+     commuter_mobility and battery_constrained once per transport (the
+     transport's kernel exactly 30 times and no other; no selected client
+     unavailable or unable to pay; the lowest battery never negative and
+     never rising; no more scheduled than schedulable; in a round that
+     schedules nobody the model and the energy ledger unchanged, and
+     battery_constrained reaching such a round), a temporal run with every
+     process knob at 0 equal to the static run bit for bit under each
+     transport, GCA once per transport (quant_aircomp / sparse_aircomp 30
+     times over all 100 rows, no kernel under analog and digital), and a
+     battery_constrained sweep group (C ∈ {0, 2, 8, 32} × 5 seeds, analog,
+     G = 20: aircomp exactly 600 times, every cell equal to its own run);
   4. the serve path at full width, f32 with TF32 off, through
      ``repro_torch.launch.serve``, random weights from a seed, run A (the
      launcher's defaults: batch 4, prompt 32, 32 tokens) and run B (a long
@@ -61,8 +73,9 @@ these phases and fails (non-zero exit, no result line) if any of them fails:
      times (one a super-block a forward), rmsnorm 97 × 32 = 3104 times, the
      others never;
   5. after all the timed runs of 3 and 4, a torch.profiler window over each
-     (device time, the device's busy share, device time by kernel), and
-     over one sweep group per transport (G = 20, 10 rounds);
+     (device time, the device's busy share, device time by kernel), over
+     one sweep group per transport (G = 20, 10 rounds), and over 10 rounds
+     of a temporal analog run and of a GCA quantized run;
   6. the card against the CPU: the simulator on the same ``RoundDraws`` at
      quickstart scale for analog, quantized and sparse; each serve path on
      the same full-width weights (xlstm-1.3b cut to one super-block, 8
@@ -487,15 +500,46 @@ def check_history(torch, hist, rounds, k):
     sched = hist.num_scheduled.cpu()
     if not bool((sched == k).all()):
         raise AssertionError(f"num_scheduled != {k}: {sched.tolist()}")
+    if hist.lam.shape[0] != rounds:
+        raise AssertionError(f"{hist.lam.shape[0]} λ rows for {rounds} rounds")
+    check_finite_history(torch, hist, "main path")
+
+
+def check_finite_history(torch, hist, what):
+    """Every field finite (the lowest battery may be inf: no battery set)
+    and every λ row summing to 1."""
     for name in hist._fields:
-        if name == "min_battery":   # inf by definition: static channels, no battery
-            continue
         v = getattr(hist, name)
-        if isinstance(v, torch.Tensor) and not bool(torch.isfinite(v).all()):
-            raise AssertionError(f"history field {name} is not finite")
-    lam_sums = hist.lam.double().sum(dim=1).cpu()
-    if hist.lam.shape[0] != rounds or float((lam_sums - 1).abs().max()) > 1e-4:
-        raise AssertionError(f"λ rows do not sum to 1: {lam_sums.tolist()}")
+        if not isinstance(v, torch.Tensor):
+            continue
+        bad = torch.isnan(v) if name == "min_battery" else ~torch.isfinite(v)
+        if bool(bad.any()):
+            raise AssertionError(f"{what}: history field {name} is not finite")
+    sums = hist.lam.double().sum(dim=1).cpu()
+    if float((sums - 1).abs().max()) > 1e-4:
+        raise AssertionError(f"{what}: λ rows do not sum to 1: {sums.tolist()}")
+
+
+def timed_run(torch, counters, model, fl, data, seed=0):
+    """One run with every launch count set to 0 just before and read just
+    after: (history, wall seconds, launches)."""
+    from repro_torch.core.simulator import run_simulation
+
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    hist = run_simulation(model, fl, data, seed=seed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return hist, wall, {name: c.launches for name, c in counters.items()}
+
+
+def check_launches(launches, want, what):
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{what}: kernel {name} launched {n} times, "
+                                 f"expected {want.get(name, 0)}")
 
 
 # each transport's path and the one kernel it must launch once a round
@@ -520,19 +564,8 @@ def phase_main_path(torch, counters, data, transport):
     cfg, fl, model = main_path_config(transport)
     kernel = TRANSPORT_KERNEL[transport]
     run_simulation(model, replace(fl, rounds=3), data, seed=1)  # warm-up
-    torch.cuda.synchronize()
-    for c in counters.values():
-        c.launches = 0
-    t0 = time.perf_counter()
-    hist = run_simulation(model, fl, data, seed=0)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {name: c.launches for name, c in counters.items()}
-    for name, n in launches.items():
-        want = fl.rounds if name == kernel else 0
-        if n != want:
-            raise AssertionError(f"{transport}: kernel {name} launched {n} "
-                                 f"times in {fl.rounds} rounds, expected {want}")
+    hist, wall, launches = timed_run(torch, counters, model, fl, data)
+    check_launches(launches, {kernel: fl.rounds}, f"main path {transport}")
     check_history(torch, hist, fl.rounds, fl.clients_per_round)
     emit({"main_path": {
         "model": cfg.name, "transport": transport,
@@ -612,39 +645,63 @@ def profile_rounds(torch, model, fl, data, kernel):
             "top_device_time": s["top_device_time"]}
 
 
-def phase_card_vs_cpu(torch, transport):
+def phase_card_vs_cpu(torch, transport, name="card_vs_cpu", **overrides):
+    """The simulator at quickstart scale (N = 20, K = 8, 64-dim inputs, 10
+    rounds; ``overrides`` on top) on the card and on the CPU on the same
+    draws. Discrete fields must agree; where a battery gate or GCA's
+    threshold lies within 4 ulps of a tie the two may decide it apart, and
+    then the round and the compare are printed and the rest is held to the
+    tolerances up to that round."""
     from repro_torch.configs.base import FLConfig
-    from repro_torch.core.draws import round_draws
+    from repro_torch.core.draws import init_draws, round_draws
     from repro_torch.core.simulator import run_simulation
     from repro_torch.models.logreg import logistic_regression
 
-    fl = FLConfig(num_clients=20, clients_per_round=8, rounds=10, batch_size=20,
-                  lr0=0.3, lr_decay=0.995, ascent_lr=2e-2, method="ca_afl",
-                  energy_C=8.0, noise_std=1e-2, transport=transport)
+    fl = FLConfig(**{**dict(num_clients=20, clients_per_round=8, rounds=10,
+                            batch_size=20, lr0=0.3, lr_decay=0.995,
+                            ascent_lr=2e-2, method="ca_afl", energy_C=8.0,
+                            noise_std=1e-2, transport=transport), **overrides})
     model = logistic_regression(64, 10)
     data = fmnist_data(torch, 64, 2000, 500, fl.num_clients, "cpu")
     draws = list(round_draws(0, fl, 650, data[1].shape[1], "cpu"))
-    cpu = run_simulation(model, fl, data, draws=draws, device="cpu")
+    init = init_draws(0, fl, "cpu")
+    with RoundLog() as log:
+        cpu = run_simulation(model, fl, data, draws=draws, init_draws=init,
+                             device="cpu")
     gpu = run_simulation(model, fl, tuple(a.cuda() for a in data),
-                         draws=[d.to("cuda") for d in draws])
+                         draws=[d.to("cuda") for d in draws],
+                         init_draws=init.to("cuda"))
     gpu = type(gpu)(*(v.cpu() if isinstance(v, torch.Tensor) else v for v in gpu))
+    r = first_discrete_divergence(gpu, cpu)
+    if r is not None:
+        accept_divergence(log, r, 0, f"{name} {transport}")
+        gpu, cpu = head(gpu, r), head(cpu, r)
     s_test = data[3].shape[1]
     e_cpu = torch.diff(cpu.energy, prepend=torch.zeros(1))
     e_gpu = torch.diff(gpu.energy, prepend=torch.zeros(1))
+    batt_atol = (4 * EPS32 * fl.battery_init if math.isfinite(fl.battery_init)
+                 else 0.0)
     rows = {
         "num_scheduled": gpu.num_scheduled != cpu.num_scheduled,
+        "avail_count": gpu.avail_count != cpu.avail_count,
         "energy_increment": ~torch.isclose(e_gpu, e_cpu, rtol=1e-5, atol=0),
+        "min_battery": ~torch.isclose(gpu.min_battery, cpu.min_battery, rtol=1e-5,
+                                      atol=batt_atol, equal_nan=False),
         "lam": ~torch.isclose(gpu.lam, cpu.lam, rtol=0, atol=1e-6).all(dim=1),
     }
     for f in ("avg_acc", "worst_acc", "std_acc"):
         rows[f] = (getattr(gpu, f) - getattr(cpu, f)).abs() > 1.0 / s_test + 1e-6
     first = {f: int(bad.nonzero()[0]) for f, bad in rows.items() if bool(bad.any())}
-    emit({"card_vs_cpu": {"transport": transport, "rounds": fl.rounds,
-                          "first_divergent_round": first or None,
-                          "max_lam_diff": float((gpu.lam - cpu.lam).abs().max())}})
+    emit({name: {"transport": transport, "method": fl.method,
+                 "temporal": fl.temporal, "rounds": fl.rounds,
+                 "discrete_divergence_round": r,
+                 "first_divergent_round": first or None,
+                 "num_scheduled": cpu.num_scheduled.tolist(),
+                 "max_lam_diff": float((gpu.lam - cpu.lam).abs().max())
+                 if r != 0 else None}})
     if first:
-        raise AssertionError(f"{transport}: card and CPU diverge (field: first "
-                             f"round): {first}")
+        raise AssertionError(f"{name} {transport}: card and CPU diverge (field: "
+                             f"first round): {first}")
 
 
 # ---------------------------------------------------------------------------
@@ -662,13 +719,18 @@ def sweep_specs(fl):
         for tr in TRANSPORT_KERNEL for c in SWEEP_C})
 
 
-def history_mismatch(got, want, s_test):
+def history_mismatch(got, want, s_test, budget=float("inf")):
     """The fields of two histories (numpy or tensors, [T, ...]) that differ
     beyond the simulator's tolerances, each with its first round: the
-    scheduled count exact, energy rtol 1e-5, λ atol 1e-6, loss rtol 1e-4,
-    accuracies within one test sample."""
+    scheduled and schedulable counts exact, energy rtol 1e-5, the lowest
+    battery rtol 1e-5 or 4 ulps of its ``budget`` (it is the budget less
+    the uploads paid, which cancels where a battery drains), λ atol 1e-6,
+    loss rtol 1e-4, accuracies within one test sample."""
     import numpy as np
-    tol = {"num_scheduled": (0, 0), "energy": (1e-5, 0), "dl_energy": (1e-5, 0),
+    batt_atol = 4 * float(np.spacing(np.float32(budget))) if math.isfinite(budget) else 0.0
+    tol = {"num_scheduled": (0, 0), "avail_count": (0, 0),
+           "min_battery": (1e-5, batt_atol),
+           "energy": (1e-5, 0), "dl_energy": (1e-5, 0),
            "lam": (0, 1e-6), "lam_max": (0, 1e-6), "loss": (1e-4, 0)}
     tol.update({f: (0, 1.0 / s_test + 1e-6) for f in ("avg_acc", "worst_acc", "std_acc")})
     bad = {}
@@ -682,24 +744,106 @@ def history_mismatch(got, want, s_test):
     return bad
 
 
-class SelectionLog:
-    """Records every round's selection mask [G, N] on the card (no host
-    sync) by wrapping the simulator's ``select_clients_sparse``."""
+class RoundLog:
+    """Records, round by round and on the card (no host sync), what the
+    simulator's rounds decide, by wrapping its functions: each exact-K
+    selection's mask [G, N] and the schedulable set it was given
+    (``select_clients_sparse``); each GCA mask with its indicator and
+    threshold (``select_clients``); and for a temporal run both sides of
+    the battery gate battery ≥ e_need + e_dl (``step_process``)."""
 
     def __init__(self):
         from repro_torch.core import simulator
-        self.simulator, self.inner, self.masks = simulator, simulator.select_clients_sparse, []
+        self.simulator = simulator
+        self.inner = (simulator.select_clients_sparse, simulator.select_clients,
+                      simulator.step_process)
+        self.masks, self.avails, self.gates, self.gca = [], [], [], []
 
     def __enter__(self):
-        def record(*args, **kw):
-            mask, idx = self.inner(*args, **kw)
+        from repro_torch.core.selection import gca_indicator_threshold
+        from repro_torch.utils.cells import per_cell
+        sparse, dense, step = self.inner
+
+        def record_sparse(*args, **kw):
+            mask, idx = sparse(*args, **kw)
             self.masks.append(mask.clone())
+            self.avails.append(None if kw.get("avail") is None else kw["avail"].clone())
             return mask, idx
-        self.simulator.select_clients_sparse = record
+
+        def record_dense(method, gumbel, lam, h, k, **kw):
+            mask = dense(method, gumbel, lam, h, k, **kw)
+            if method == "gca":
+                ind, thr = gca_indicator_threshold(kw["grad_norms"], h, kw["gca"])
+                self.masks.append(mask.clone())
+                self.gca.append((ind.clone(), thr[..., None].expand_as(ind).clone()))
+            return mask
+
+        def record_step(d, scen, process, state, *args, **kw):
+            out = step(d, scen, process, state, *args, **kw)
+            self.gates.append((state.battery.clone(),
+                               out.e_need + per_cell(out.e_dl, out.e_need)))
+            return out
+
+        sim = self.simulator
+        sim.select_clients_sparse, sim.select_clients, sim.step_process = (
+            record_sparse, record_dense, record_step)
         return self
 
     def __exit__(self, *exc):
-        self.simulator.select_clients_sparse = self.inner
+        sim = self.simulator
+        sim.select_clients_sparse, sim.select_clients, sim.step_process = self.inner
+
+    def near_tie(self, r, cell=0, ulps=4):
+        """The closest of round ``r``'s recorded compares (battery gates,
+        GCA's threshold) of ``cell``, as ``(margin in ulps of its larger
+        side, name, lhs, rhs, client)``; a discrete field may differ between
+        two runs from round r on only if the margin is within ``ulps``."""
+        import numpy as np
+        best = (math.inf, None, None, None, None)
+        pairs = []
+        if r < len(self.gates):
+            pairs.append(("battery >= e_need + e_dl", *self.gates[r]))
+        if r < len(self.gca):
+            pairs.append(("indicator > thr", *self.gca[r]))
+        for name, lhs, rhs in pairs:
+            a = lhs[cell].cpu().numpy().astype(np.float32)
+            b = rhs[cell].cpu().numpy().astype(np.float32)
+            larger = np.maximum(np.abs(a), np.abs(b))
+            with np.errstate(invalid="ignore"):
+                m = np.abs(a.astype(np.float64) - b) / np.spacing(larger)
+            m = np.where(np.isfinite(m), m, np.inf)
+            i = int(np.argmin(m))
+            if m[i] < best[0]:
+                best = (float(m[i]), name, float(a[i]), float(b[i]), i)
+        return best
+
+
+def accept_divergence(log, r, cell, what):
+    """A discrete field of ``what`` first differs at round ``r``: print the
+    round and the closest compare's two sides, and raise unless it lies
+    within 4 ulps of its larger side."""
+    margin, name, lhs, rhs, client = log.near_tie(r, cell)
+    emit({"discrete_divergence": {"what": what, "round": r, "compare": name,
+                                  "client": client, "lhs": lhs, "rhs": rhs,
+                                  "ulps": margin}})
+    if not margin <= 4:
+        raise AssertionError(f"{what}: discrete fields differ from round {r}, "
+                             f"not at a near-tie (closest compare {margin} ulps)")
+
+
+def first_discrete_divergence(got, want):
+    """The first round whose scheduled or schedulable count differs (None:
+    none does)."""
+    import numpy as np
+    host = lambda v: np.asarray(v.cpu() if hasattr(v, "cpu") else v, np.float64)  # noqa: E731
+    bad = [np.flatnonzero(host(getattr(got, f)) != host(getattr(want, f)))
+           for f in ("num_scheduled", "avail_count")]
+    bad = np.concatenate(bad)
+    return int(bad.min()) if bad.size else None
+
+
+def head(hist, r):
+    return type(hist)(*(v if isinstance(v, tuple) else v[:r] for v in hist))
 
 
 def phase_sweep(torch, counters, data):
@@ -732,7 +876,7 @@ def phase_sweep(torch, counters, data):
 
     sweep._run_group = timed_group
     try:
-        with SelectionLog() as sel:
+        with RoundLog() as sel:
             for c in counters.values():
                 c.launches = 0
             t0 = time.perf_counter()
@@ -760,7 +904,7 @@ def phase_sweep(torch, counters, data):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         singles = []
-        with SelectionLog() as one_sel:
+        with RoundLog() as one_sel:
             for lbl in labels:
                 for s in SWEEP_SEEDS:
                     singles.append((lbl, s, run_simulation(model, dict(specs)[lbl],
@@ -859,6 +1003,243 @@ def phase_sweep_card_vs_cpu(torch, data):
                                 "first_divergent_round": bad or None}})
     if bad:
         raise AssertionError(f"sweep: card and CPU diverge: {bad}")
+
+
+# ---------------------------------------------------------------------------
+# Temporal dynamics and GCA at full width
+# ---------------------------------------------------------------------------
+
+TEMPORAL_RUNS = ("commuter_mobility", "battery_constrained")
+
+
+def temporal_config(transport, scenario):
+    """The main path's configuration under a temporal scenario of the
+    registry (CA-AFL, C = 8)."""
+    from repro_torch.core.channel import SCENARIOS
+
+    cfg, fl, model = main_path_config(transport)
+    return cfg, replace(fl, **SCENARIOS[scenario]), model
+
+
+def watched(model, snaps):
+    """``model`` whose accuracy call (once a round, on the round's new
+    global model) keeps a copy of that model's flat parameters."""
+    from repro_torch.utils.tree import ravel
+
+    def accuracy(params, x, y):
+        snaps.append(ravel(params))
+        return model.accuracy(params, x, y)
+    return model._replace(accuracy=accuracy)
+
+
+def phase_temporal(torch, counters, data):
+    """CA-AFL (C = 8) at full width under commuter_mobility and
+    battery_constrained, once per transport: the transport's kernel exactly
+    once a round and no other (gated slots still ride the K-slot pass), no
+    selected client unavailable or unable to pay, the lowest battery never
+    negative and never rising, no more scheduled than schedulable; in a
+    round that schedules nobody the model and the energy ledger stay as
+    they were, and battery_constrained must reach such a round."""
+    from repro_torch.core.simulator import run_simulation
+    from repro_torch.utils.tree import ravel
+
+    out, empty_battery_rounds = [], 0
+    for scenario in TEMPORAL_RUNS:
+        for transport, kernel in TRANSPORT_KERNEL.items():
+            cfg, fl, model = temporal_config(transport, scenario)
+            what = f"temporal {scenario} {transport}"
+            run_simulation(model, replace(fl, rounds=3), data, seed=1)  # warm-up
+            hist, wall, launches = timed_run(torch, counters, model, fl, data)
+            check_launches(launches, {kernel: fl.rounds}, what)
+            # the same run again, watched: each round's selection, gate and
+            # model (it must repeat the timed run exactly)
+            snaps = []
+            with RoundLog() as log:
+                again = run_simulation(watched(model, snaps), fl, data, seed=0)
+            for f in hist._fields:
+                a, b = getattr(hist, f), getattr(again, f)
+                if isinstance(a, torch.Tensor) and not torch.equal(a, b):
+                    raise AssertionError(f"{what}: a second run differs in {f}")
+            check_finite_history(torch, hist, what)
+            for t, (mask, eligible) in enumerate(zip(log.masks, log.avails)):
+                battery, cost = log.gates[t]
+                paid = battery >= cost
+                if not bool((mask <= eligible).all()) or not bool(paid[mask > 0].all()):
+                    raise AssertionError(f"{what}: round {t} scheduled a client "
+                                         "unavailable or unable to pay")
+            sched, avail = hist.num_scheduled.cpu(), hist.avail_count.cpu()
+            mb, energy = hist.min_battery.cpu(), hist.energy.cpu()
+            if bool((sched > avail).any()):
+                raise AssertionError(f"{what}: more scheduled than schedulable")
+            if bool((mb < 0).any()) or bool((mb[1:] > mb[:-1]).any()):
+                raise AssertionError(f"{what}: min_battery negative or rising: "
+                                     f"{mb.tolist()}")
+            w0 = ravel(model.init("cuda"))
+            empty = [t for t in range(fl.rounds) if float(sched[t]) == 0]
+            for t in empty:
+                before_w = snaps[t - 1] if t else w0
+                before_e = float(energy[t - 1]) if t else 0.0
+                if not torch.equal(snaps[t], before_w) or float(energy[t]) != before_e:
+                    raise AssertionError(f"{what}: round {t} scheduled nobody but "
+                                         "the model or the energy ledger moved")
+            if scenario == "battery_constrained":
+                empty_battery_rounds += len(empty)
+            entry = {"scenario": scenario, "transport": transport,
+                     "kernel": kernel, "N": fl.num_clients, "K": fl.clients_per_round,
+                     "P": 7850, "rounds": fl.rounds, "wall_s": wall,
+                     "rounds_per_s": fl.rounds / wall, "launches": launches,
+                     "num_scheduled_min": float(sched.min()),
+                     "num_scheduled_max": float(sched.max()),
+                     "avail_count_min": float(avail.min()),
+                     "avail_count_last": float(avail[-1]),
+                     "min_battery_last": float(mb[-1]) if math.isfinite(mb[-1]) else None,
+                     "empty_rounds": len(empty),
+                     "energy_J": float(energy[-1]),
+                     "final_worst_acc": float(hist.worst_acc[-1])}
+            emit({"temporal": entry})
+            out.append(entry)
+    if empty_battery_rounds == 0:
+        raise AssertionError("battery_constrained: no round with an empty "
+                             "scheduled set in 30 rounds")
+    return out
+
+
+def phase_temporal_degenerate(torch, data):
+    """A temporal run with every process knob at 0 and an unlimited battery
+    equals the static run of the same seed bit for bit, on the card, under
+    each transport."""
+    from repro_torch.core.simulator import run_simulation
+
+    out = {}
+    for transport in TRANSPORT_KERNEL:
+        _, fl, model = main_path_config(transport)
+        static = run_simulation(model, fl, data, seed=0)
+        degen = run_simulation(model, replace(fl, temporal=True), data, seed=0)
+        differ = [f for f in static._fields
+                  if isinstance(getattr(static, f), torch.Tensor)
+                  and not torch.equal(getattr(static, f), getattr(degen, f))]
+        out[transport] = not differ
+        if differ:
+            raise AssertionError(f"temporal_degenerate {transport}: fields {differ} "
+                                 "differ from the static run")
+    emit({"temporal_degenerate": {"rounds": 30, "bit_equal": out}})
+    return out
+
+
+def phase_gca(torch, counters, data):
+    """GCA at full width once per transport: quantized and sparse launch
+    their kernel once a round over all N = 100 rows; analog and digital
+    aggregate per leaf and launch no kernel, as the reference does."""
+    from repro_torch.core.simulator import run_simulation
+
+    out = []
+    for transport, kernel in TRANSPORT_KERNEL.items():
+        cfg, fl, model = main_path_config(transport)
+        fl = replace(fl, method="gca")
+        what = f"gca {transport}"
+        run_simulation(model, replace(fl, rounds=3), data, seed=1)  # warm-up
+        hist, wall, launches = timed_run(torch, counters, model, fl, data)
+        dense_kernel = transport in ("quantized", "sparse")
+        check_launches(launches, {kernel: fl.rounds} if dense_kernel else {}, what)
+        check_finite_history(torch, hist, what)
+        sched = hist.num_scheduled.cpu()
+        entry = {"transport": transport, "kernel": kernel if dense_kernel else None,
+                 "rows": fl.num_clients, "P": 7850, "rounds": fl.rounds,
+                 "wall_s": wall, "rounds_per_s": fl.rounds / wall,
+                 "launches": launches, "num_scheduled_min": float(sched.min()),
+                 "num_scheduled_max": float(sched.max()),
+                 "num_scheduled_mean": float(sched.mean()),
+                 "energy_J": float(hist.energy[-1]),
+                 "final_worst_acc": float(hist.worst_acc[-1])}
+        emit({"gca": entry})
+        out.append(entry)
+    return out
+
+
+def phase_temporal_sweep(torch, counters, data):
+    """One run_sweep group of battery_constrained × C ∈ {0, 2, 8, 32} × 5
+    seeds under analog (G = 20, 30 rounds): exactly G × T = 600 aircomp
+    launches and no other kernel; every cell equal to its own
+    run_simulation, its selected set in every round exactly (a battery
+    gate decided apart at a near-tie excepted, as in the card-vs-CPU
+    phases); cell-rounds/s of the group and of its cells one by one."""
+    from repro_torch.core import sweep
+    from repro_torch.core.simulator import run_simulation
+
+    cfg, fl, model = temporal_config("analog", "battery_constrained")
+    specs = [(f"battery:ca_afl_C{c:g}", replace(fl, energy_C=c)) for c in SWEEP_C]
+    sweep.run_sweep(model, data, [(lbl, replace(f, rounds=2)) for lbl, f in specs],
+                    seeds=SWEEP_SEEDS)   # warm-up at the group's shapes
+    torch.cuda.synchronize()
+    with RoundLog() as group_log:
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        result = sweep.run_sweep(model, data, specs, seeds=SWEEP_SEEDS)
+        wall = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counters.items()}
+    cells = len(specs) * len(SWEEP_SEEDS)
+    check_launches(launches, {"aircomp": cells * fl.rounds}, "temporal_sweep")
+    group_masks = torch.stack(group_log.masks)            # [T, G, N]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    singles, logs = [], []
+    for lbl, f in specs:
+        for s in SWEEP_SEEDS:
+            with RoundLog() as one_log:
+                singles.append((lbl, f, s, run_simulation(model, f, data, seed=s)))
+            logs.append(one_log)
+    torch.cuda.synchronize()
+    one_wall = time.perf_counter() - t0
+    bad, near_ties = {}, []
+    for c, ((lbl, f, s, single), one_log) in enumerate(zip(singles, logs)):
+        h = result.history(lbl)
+        i = SWEEP_SEEDS.index(s)
+        cell = type(h)(*(v if isinstance(v, tuple) else v[i] for v in h))
+        one_masks = torch.stack(one_log.masks)[:, 0]       # [T, N]
+        differs = (group_masks[:, c] != one_masks).any(dim=-1)
+        r = first_discrete_divergence(cell, single)
+        if bool(differs.any()):
+            m = int(differs.nonzero()[0])
+            r = m if r is None else min(r, m)
+        if r is not None:
+            accept_divergence(one_log, r, 0, f"temporal_sweep {lbl} seed {s}")
+            near_ties.append({"cell": f"{lbl} seed {s}", "round": r})
+            cell, single = head(cell, r), head(single, r)
+        diff = history_mismatch(cell, single, data[3].shape[1], fl.battery_init)
+        if diff:
+            bad[f"{lbl} seed {s}"] = diff
+    entry = {"scenario": "battery_constrained", "transport": "analog", "G": cells,
+             "T": fl.rounds, "N": fl.num_clients, "K": fl.clients_per_round, "P": 7850,
+             "wall_s": wall, "cell_rounds_per_s": cells * fl.rounds / wall,
+             "one_by_one_wall_s": one_wall,
+             "one_by_one_cell_rounds_per_s": cells * fl.rounds / one_wall,
+             "launches": launches["aircomp"], "near_ties": near_ties,
+             "cells_equal_their_runs": not bad,
+             "avail_count_last_mean": float(sum(
+                 result.history(lbl).avail_count[:, -1].mean() for lbl, _ in specs)
+                 / len(specs))}
+    emit({"temporal_sweep": entry})
+    if bad:
+        raise AssertionError(f"temporal_sweep: cells differ from their own runs "
+                             f"(field: first round): {bad}")
+    return entry
+
+
+def phase_temporal_gca_trace(torch, data):
+    """A torch.profiler window over 10 rounds of a temporal analog run
+    (commuter_mobility) and of a GCA quantized run."""
+    out = {}
+    _, fl, model = temporal_config("analog", "commuter_mobility")
+    out["temporal_analog"] = profile_rounds(torch, model, replace(fl, rounds=10),
+                                            data, "aircomp")
+    _, fl, model = main_path_config("quantized")
+    out["gca_quantized"] = profile_rounds(torch, model,
+                                          replace(fl, method="gca", rounds=10),
+                                          data, "quant_aircomp")
+    for name, trace in out.items():
+        emit({"temporal_gca_trace": {"run": name, **(trace or {})}})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1436,6 +1817,10 @@ def main() -> int:
         launches.setdefault(TRANSPORT_KERNEL[transport],
                             phase_main_path(torch, counters, data, transport))
     sweep_groups = phase_sweep(torch, counters, data)
+    temporal_runs = phase_temporal(torch, counters, data)
+    phase_temporal_degenerate(torch, data)
+    gca_runs = phase_gca(torch, counters, data)
+    temporal_group = phase_temporal_sweep(torch, counters, data)
     # one model on the card at a time, so each run's peak memory is its
     # own; a model is made again from its seed for its profiler windows
     serve_counts, serve_traces = {}, {}
@@ -1449,6 +1834,7 @@ def main() -> int:
                           phase_main_path_trace(torch, data, transport))
     for transport in TRANSPORT_KERNEL:
         phase_sweep_trace(torch, data, transport)
+    phase_temporal_gca_trace(torch, data)
     for arch in SERVE_ARCHS:
         served = serve_setup(torch, arch)
         for run in SERVE_RUNS:
@@ -1457,6 +1843,10 @@ def main() -> int:
     for transport in ("analog", "quantized", "sparse"):
         phase_card_vs_cpu(torch, transport)
     phase_sweep_card_vs_cpu(torch, data)
+    from repro_torch.core.channel import SCENARIOS
+    phase_card_vs_cpu(torch, "analog", "temporal_card_vs_cpu", rounds=20,
+                      **SCENARIOS["commuter_mobility"])
+    phase_card_vs_cpu(torch, "quantized", "gca_card_vs_cpu", rounds=20, method="gca")
     phase_serve_card_vs_cpu(torch, *serve_setup(torch, "qwen2-0.5b"))
     # xlstm-1.3b at full width, its depth cut to one super-block (8 layers)
     # so that the CPU's side stays short
@@ -1469,7 +1859,14 @@ def main() -> int:
                             traces[name] and traces[name]["kernel_device_us_per_launch"],
                             sweep_launches={g["transport"]: g["launches"]
                                             for g in sweep_groups
-                                            if g["kernel"] == name})
+                                            if g["kernel"] == name},
+                            temporal_launches={f"{r['scenario']} {r['transport']}":
+                                               r["launches"][name] for r in temporal_runs
+                                               if r["kernel"] == name},
+                            gca_launches={r["transport"]: r["launches"][name]
+                                          for r in gca_runs if r["kernel"] == name},
+                            temporal_sweep_launches=(temporal_group["launches"]
+                                                     if name == "aircomp" else 0))
                for name, line in (("aircomp", 175), ("quant_aircomp", 131),
                                   ("sparse_aircomp", 90))]
     for name, tpu, arch, timing in (

@@ -102,7 +102,9 @@ INPUT_SHAPES = {
 
 
 class GCAParams(NamedTuple):
-    """GCA [10] selection knobs (the GCA selection branch is not ported yet)."""
+    """GCA [10] selection knobs (``core/selection.py``): plain floats in a
+    config, f32 device scalars in a ``SweepPoint`` ([G] vectors in a
+    group)."""
 
     lambda_E: float = 0.5
     lambda_V: float = 0.5

@@ -1,4 +1,4 @@
-"""Wireless channel model (paper §II and §IV-A), static i.i.d. subset.
+"""Wireless channel model (paper §II and §IV-A).
 
 Port of ``repro.core.channel``: i.i.d. block Rayleigh fading h ~ CN(0, 1),
 truncated at |h| >= floor, redrawn every round, composed with log-normal
@@ -8,7 +8,11 @@ mean of eq. (6). The random normals come in from the round's
 reference's shapes, so a test can feed both packages the same numbers.
 A batched round gives every draw a leading cell axis [G] and every
 scenario knob the shape [G] (``pathloss`` [G, N]). The temporal processes
-(``repro.core.dynamics``) and their named scenarios are not ported yet.
+(``core/dynamics.py``) evolve the small-scale state themselves and share
+:func:`compose_channel`, with their shadow walk as ``walk_gain``; their
+named scenarios are in :data:`SCENARIOS` beside the static ones. The
+content-addressed per-client draws of the sharded control plane are not
+ported (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -69,14 +73,19 @@ def scenario_from_config(fl: FLConfig, device=None) -> ChannelScenario:
 
 
 def compose_channel(mag: torch.Tensor, shadow_normal: torch.Tensor,
-                    scenario: ChannelScenario) -> torch.Tensor:
+                    scenario: ChannelScenario, walk_gain=None) -> torch.Tensor:
     """Large-scale composition: mag × shadow × pathloss, floor-clipped.
 
     ``shadow_normal`` [..., N, 1] is the reference's ``normal(fold_in(k_chan,
     1), (N, 1))``; ``shadowing_std == 0`` multiplies by exactly 1.0.
+    ``walk_gain`` [..., N, 1] (the temporal shadow walk, ``exp`` of its log
+    state) multiplies the shadow first, in the reference's order, so a walk
+    at 0 leaves every bit of the static channel as it is.
     """
     shadow = torch.exp(per_cell(scenario.shadowing_std, shadow_normal)
                        * shadow_normal)
+    if walk_gain is not None:
+        shadow = shadow * walk_gain
     pathloss = torch.as_tensor(scenario.pathloss)
     if pathloss.dim() >= 1:
         pathloss = pathloss[..., None]
@@ -96,9 +105,7 @@ def draw_channels_scenario(chan_normal: torch.Tensor,
     return compose_channel(mag, shadow_normal, scenario)
 
 
-# Named FLConfig overrides (the static subset of the reference registry).
-# The reference's temporal entries (``TEMPORAL_SCENARIOS``) need
-# ``core/dynamics.py``, which is not ported yet.
+# Named FLConfig overrides, the reference's registry entry for entry.
 SCENARIOS: dict[str, dict] = {
     "default": {},
     "freq_selective": {"flat_fading": False},
@@ -106,7 +113,16 @@ SCENARIOS: dict[str, dict] = {
     "deep_shadowing": {"shadowing_std": 0.5},
     "heterogeneous_pathloss": {"pathloss_db_spread": 12.0},
     "high_floor": {"channel_floor": 0.2},
+    # ---- temporal scenarios (core/dynamics.py ChannelProcess) -------------
+    # Gauss-Markov correlated block fading: a client's channel (hence its
+    # upload energy) persists across rounds
+    "markov_fading": {"temporal": True, "rho_fading": 0.9},
+    # commuters: correlated fading + a slow shadowing walk + clients
+    # leaving and rejoining coverage
+    "commuter_mobility": {"temporal": True, "rho_fading": 0.85,
+                          "rho_shadow": 0.98, "shadow_walk_std": 0.08,
+                          "p_dropout": 0.08, "p_return": 0.3},
+    # finite per-client battery budgets: uploads deplete eqs. (3-6) energy
+    # and exhausted clients drop out of the schedulable pool
+    "battery_constrained": {"temporal": True, "battery_init": 0.01},
 }
-
-TEMPORAL_SCENARIOS = ("markov_fading", "commuter_mobility",
-                      "battery_constrained")

@@ -2,12 +2,21 @@
 
 The reference derives its randomness from JAX PRNG keys (a 7-way split per
 round, ``repro/core/simulator.py``). The port takes the numbers instead:
-:func:`draw_round` fills a :class:`RoundDraws` from two ``torch.Generator``
+:func:`draw_round` fills a :class:`RoundDraws` from three ``torch.Generator``
 streams, and a test can fill one from ``jax.random`` with the reference's
 own key discipline, which makes the two packages take the same discrete
 decisions. Shapes and dtypes are the reference's; the quantized
 transport's rounding uniforms are one [N, P] draw, row i for client i, as
 the reference's per-client-id streams are.
+
+The streams: the first gives everything a static run draws; the second
+the quantized transport's rounding uniforms; the third a temporal run's
+process draws (``core/dynamics.py``): the initial fading state
+(:class:`InitDraws`, drawn first) and each round's shadow-walk normals and
+availability uniforms. As the reference's ``fold_in`` streams of its
+channel key, the second and third leave the first as it is, so one seed
+gives the same channels, Gumbel noise and batches under every transport,
+and a temporal run with every process knob at zero sees the static run's.
 
 A batched round of G cells reads one :class:`RoundDraws` with a leading
 [G] on every field, stacked from each cell's own draws by
@@ -39,9 +48,28 @@ class RoundDraws(NamedTuple):
     # [N, P] f32 U[0, 1) stochastic-rounding uniforms, row i for client i
     # (transport="quantized" only; None otherwise)
     quant_uniform: Optional[torch.Tensor] = None
+    # temporal runs only (None otherwise): the shadow walk's innovation
+    # normals, the reference's normal(fold_in(k_chan, 2), (N,)), and the
+    # availability chain's uniforms, uniform(fold_in(k_chan, 3), (N,)); the
+    # fading innovation reuses chan_normal and the i.i.d. shadow
+    # shadow_normal, as the reference reuses k_chan and its stream 1
+    walk_normal: Optional[torch.Tensor] = None      # [N]
+    avail_uniform: Optional[torch.Tensor] = None    # [N] U[0, 1)
 
     def to(self, device) -> "RoundDraws":
         return RoundDraws(*(None if v is None else v.to(device) for v in self))
+
+
+class InitDraws(NamedTuple):
+    """The random inputs of a run's initial state: for a temporal run the
+    fading state's normals [2, N, draw_sc], the reference's
+    ``normal(fold_in(k_init, 1), (2, N, draw_sc))`` (None for a static
+    run). A batched run's lead with [G] (:func:`stack_init_draws`)."""
+
+    fast_normal: Optional[torch.Tensor] = None
+
+    def to(self, device) -> "InitDraws":
+        return InitDraws(*(None if v is None else v.to(device) for v in self))
 
 
 def gumbel(gen: torch.Generator, n: int) -> torch.Tensor:
@@ -59,16 +87,21 @@ def batch_indices(gen: torch.Generator, n: int, shard_size: int,
 
 
 def draw_round(gen: torch.Generator, quant_gen: torch.Generator, fl: FLConfig,
-               model_size: int, shard_size: int, device=None) -> RoundDraws:
+               model_size: int, shard_size: int, device=None,
+               temporal_gen: Optional[torch.Generator] = None) -> RoundDraws:
     """One round's draws, moved to ``device``. ``shard_size`` is the number
     of training samples per client. The quantized transport's rounding
-    uniforms come from ``quant_gen`` and everything else from ``gen`` (both
-    on one device): as the reference's fold_in stream 7 of the noise key,
-    the uniforms leave every other draw as it is, so analog and quantized
-    runs of one seed see the same channels, selections, batches and noise."""
+    uniforms come from ``quant_gen``, a temporal run's walk normals and
+    availability uniforms from ``temporal_gen``, and everything else from
+    ``gen`` (all on one device): as the reference's fold_in streams, the
+    other two leave ``gen``'s draws as they are, so analog and quantized,
+    static and temporal runs of one seed see the same channels, selections,
+    batches and noise."""
     n, b = fl.num_clients, fl.batch_size
     draw_sc = 1 if fl.flat_fading else fl.num_subcarriers
     gd = gen.device
+    if fl.temporal and temporal_gen is None:
+        raise ValueError("a temporal run's draws need the temporal stream")
 
     def randint():
         return batch_indices(gen, n, shard_size, b)
@@ -83,28 +116,63 @@ def draw_round(gen: torch.Generator, quant_gen: torch.Generator, fl: FLConfig,
         asc_batch_idx=randint(),
         quant_uniform=(torch.rand((n, model_size), generator=quant_gen, device=gd)
                        if fl.transport == "quantized" else None),
+        walk_normal=(torch.randn((n,), generator=temporal_gen, device=gd)
+                     if fl.temporal else None),
+        avail_uniform=(torch.rand((n,), generator=temporal_gen, device=gd)
+                       if fl.temporal else None),
     )
     return draws if device is None else draws.to(device)
+
+
+def _generator(seed: int, device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
+def _temporal_generator(seed: int, device) -> torch.Generator:
+    """The third stream of a run seeded with ``seed``."""
+    return _generator(seed * 1_000_003 + 11, device)
+
+
+def draw_init(temporal_gen: torch.Generator, fl: FLConfig) -> InitDraws:
+    """A run's initial draws from its temporal stream (none for a static
+    run, which draws nothing from it)."""
+    if not fl.temporal:
+        return InitDraws()
+    draw_sc = 1 if fl.flat_fading else fl.num_subcarriers
+    return InitDraws(torch.randn((2, fl.num_clients, draw_sc),
+                                 generator=temporal_gen,
+                                 device=temporal_gen.device))
+
+
+def init_draws(seed: int, fl: FLConfig, device) -> InitDraws:
+    """The initial draws of a run seeded with ``seed``, made on ``device``:
+    the first numbers of its temporal stream, which :func:`round_draws`
+    skips."""
+    return draw_init(_temporal_generator(seed, device), fl)
 
 
 def round_draws(seed: int, fl: FLConfig, model_size: int, shard_size: int,
                 device) -> Iterator[RoundDraws]:
     """The ``fl.rounds`` rounds' draws of a run seeded with ``seed``, made on
     ``device``."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    quant_gen = torch.Generator(device=device)
-    quant_gen.manual_seed(seed * 1_000_003 + 7)
+    gen = _generator(seed, device)
+    quant_gen = _generator(seed * 1_000_003 + 7, device)
+    temporal_gen = _temporal_generator(seed, device)
+    draw_init(temporal_gen, fl)   # the initial state's; see init_draws
     for _ in range(fl.rounds):
-        yield draw_round(gen, quant_gen, fl, model_size, shard_size)
+        yield draw_round(gen, quant_gen, fl, model_size, shard_size,
+                         temporal_gen=temporal_gen)
 
 
 def draw_signature(fl: FLConfig) -> tuple:
-    """What :func:`draw_round` reads of a config: two configs with the same
-    signature draw the same numbers from the same seed."""
+    """What :func:`draw_round` and :func:`draw_init` read of a config: two
+    configs with the same signature draw the same numbers from the same
+    seed."""
     return (fl.rounds, fl.num_clients, fl.batch_size, fl.flat_fading,
             fl.num_subcarriers, fl.method == "greedy", fl.noise_std == 0,
-            fl.transport == "quantized")
+            fl.transport == "quantized", fl.temporal)
 
 
 def stack_draws(cells: Sequence[RoundDraws], noise: bool,
@@ -132,4 +200,11 @@ def stack_draws(cells: Sequence[RoundDraws], noise: bool,
         sel_gumbel=field("sel_gumbel"), batch_idx=field("batch_idx"),
         noise=z, asc_gumbel=field("asc_gumbel"),
         asc_batch_idx=field("asc_batch_idx"),
-        quant_uniform=field("quant_uniform"))
+        quant_uniform=field("quant_uniform"),
+        walk_normal=field("walk_normal"), avail_uniform=field("avail_uniform"))
+
+
+def stack_init_draws(cells: Sequence[InitDraws]) -> InitDraws:
+    """G cells' initial draws as one ``InitDraws`` with a leading [G]."""
+    vals = [d.fast_normal for d in cells]
+    return InitDraws(None if vals[0] is None else torch.stack(vals))

@@ -1,4 +1,4 @@
-"""Client selection, exact-K subset; port of ``repro.core.selection``.
+"""Client selection; port of ``repro.core.selection``.
 
 Exact-K methods (FedAvg, AFL, CA-AFL, greedy) pick K clients without
 replacement by Gumbel-top-K. The Gumbel noise comes in as a tensor (the
@@ -6,8 +6,17 @@ round's ``RoundDraws.sel_gumbel``) instead of a key. Ties break by the
 lowest index, as ``lax.top_k`` does: ``torch.topk`` promises no tie order,
 so the top K come from a stable descending sort. Every function works on
 the last axis, so a leading cell axis [G] (one row per sweep cell) rides
-along; ties go to the lowest index within each cell. GCA's thresholded
-selection is not ported yet.
+along; ties go to the lowest index within each cell.
+
+GCA [10] thresholds a per-client indicator instead (the reference's
+in-spirit reconstruction, ``repro/core/selection.py``), so its scheduled
+count varies from round to round and is not bounded by K. Its knobs
+(``GCAParams``) are numbers or [G] vectors.
+
+``avail`` (temporal runs, ``core/dynamics.py``): an unavailable client
+gets a -inf logit (or is dropped from GCA's mask) and the returned mask is
+multiplied by ``avail``, so no method schedules it, even when fewer than K
+clients remain.
 """
 from __future__ import annotations
 
@@ -15,7 +24,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.configs.base import GCAParams
 from repro_torch.core.poe import ca_afl_logits, safe_log
+from repro_torch.utils.cells import per_cell
 
 EXACT_K_METHODS = ("fedavg", "afl", "ca_afl", "greedy")
 
@@ -71,13 +82,56 @@ def select_clients_sparse(method: str, gumbel, lam, h_eff, k: int, C=0.0,
     return mask, idx
 
 
+def median_midpoint(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.median`` along the last axis: (lo + hi)·0.5 of the two middle
+    sorted values (the same value twice for odd N), NaN if the row holds
+    one. Neither ``torch.median`` (the lower value for even N) nor
+    ``torch.quantile`` (lo + (hi − lo)·0.5, rounded differently) is it."""
+    n = x.shape[-1]
+    s = torch.sort(x, dim=-1).values
+    mid = (s[..., (n - 1) // 2] + s[..., n // 2]) * 0.5
+    return torch.where(torch.isnan(x).any(dim=-1),
+                       torch.full_like(mid, float("nan")), mid)
+
+
+def gca_indicator_threshold(grad_norms: torch.Tensor, h_eff: torch.Tensor,
+                            gca: GCAParams):
+    """GCA's ``(indicator [..., N], threshold [...])``: a client is
+    scheduled iff its indicator exceeds the threshold. The gradient norms
+    enter as one population-wide scheduling-intensity signal (log-compressed
+    against σ_t, α-scaled), the channel benefit h / max h tells clients
+    apart, and the threshold blends the indicator's mean and median plus
+    σ_t/α, as the reference computes them."""
+    kn = lambda v: per_cell(v, h_eff)  # noqa: E731
+    g_sq = torch.square(grad_norms)
+    g_max = torch.clamp_min(torch.amax(g_sq, dim=-1, keepdim=True), 1e-12)
+    alpha, sigma = kn(gca.alpha), kn(gca.sigma_t)
+    g_signal = torch.mean(torch.log1p(alpha * g_sq / sigma)
+                          / torch.log1p(alpha * g_max / sigma),
+                          dim=-1, keepdim=True)
+    h_ben = h_eff / torch.clamp_min(torch.amax(h_eff, dim=-1, keepdim=True),
+                                    1e-12)
+    indicator = kn(gca.lambda_V) * g_signal + kn(gca.lambda_E) * h_ben
+    thr = (per_cell(gca.rho1, g_signal[..., 0])
+           * torch.mean(indicator, dim=-1)
+           + per_cell(gca.rho2, g_signal[..., 0]) * median_midpoint(indicator)
+           + gca.sigma_t / gca.alpha)
+    return indicator, thr
+
+
 def select_clients(method: str, gumbel, lam, h_eff, k: int, C=0.0,
-                   avail=None) -> torch.Tensor:
-    """Participation mask [..., N] for the descent step (exact-K methods)."""
+                   avail=None, grad_norms=None,
+                   gca: Optional[GCAParams] = None) -> torch.Tensor:
+    """Participation mask [..., N] for the descent step. GCA reads the
+    clients' gradient norms ``grad_norms`` [..., N] and no Gumbel noise."""
     if method in EXACT_K_METHODS:
         return select_clients_sparse(method, gumbel, lam, h_eff, k, C=C,
                                      avail=avail)[0]
     if method == "gca":
-        raise NotImplementedError(
-            "GCA selection is not ported yet (ROADMAP Queue 1 item 7)")
+        if grad_norms is None:
+            raise ValueError("GCA requires per-client gradient norms")
+        indicator, thr = gca_indicator_threshold(
+            grad_norms, h_eff, GCAParams() if gca is None else gca)
+        mask = (indicator > thr[..., None]).to(torch.float32)
+        return mask if avail is None else mask * avail
     raise ValueError(f"unknown selection method {method!r}")

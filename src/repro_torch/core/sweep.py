@@ -20,10 +20,13 @@ Usage::
     result.pareto_front()     # energy-vs-robustness Pareto extraction
 
 Cell (point p, seed s) draws what ``run_simulation(fl_p, seed=s)`` draws
-(``draws.round_draws``), so a group equals its cells run one by one. Every
-knob of a point is an f32 device tensor, so the round never copies a knob
-from the host. Not ported yet: meshes (``devices``, ``client_devices``;
-ROADMAP Queue 1 item 9), temporal scenarios and GCA (item 7).
+(``draws.round_draws`` and ``draws.init_draws``), so a group equals its
+cells run one by one. Every knob of a point is an f32 device tensor, so the
+round never copies a knob from the host. A group of temporal cells carries
+each cell's process state on the cell axis, and a GCA group runs the
+[N, model] round; both are one batched run like any other group. Not
+ported yet: meshes (``devices``, ``client_devices``; ROADMAP Queue 1
+item 9).
 """
 from __future__ import annotations
 
@@ -35,10 +38,12 @@ from typing import Any, Callable, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import FLConfig
-from repro_torch.core.channel import (SCENARIOS, TEMPORAL_SCENARIOS,
-                                      ChannelScenario, scenario_from_config)
-from repro_torch.core.draws import draw_signature, round_draws, stack_draws
+from repro_torch.configs.base import FLConfig, GCAParams
+from repro_torch.core.channel import (SCENARIOS, ChannelScenario,
+                                      scenario_from_config)
+from repro_torch.core.draws import (draw_signature, init_draws, round_draws,
+                                    stack_draws, stack_init_draws)
+from repro_torch.core.dynamics import ChannelProcess, process_from_config
 from repro_torch.core.simulator import (SimHistory, check_supported,
                                         init_sim_state, make_param_round_fn,
                                         run_rounds)
@@ -55,15 +60,15 @@ __all__ = [
 @dataclass(frozen=True)
 class SweepPoint:
     """The round's device knobs: f32 scalars for one configuration, [G]
-    vectors (``stack_points``) for a group of cells. The reference also
-    carries the temporal process and the GCA knobs; those paths are not
-    ported yet."""
+    vectors (``stack_points``) for a group of cells."""
 
     scenario: ChannelScenario
     lr0: Any = 0.1
     lr_decay: Any = 0.998
     ascent_lr: Any = 8e-3
     energy_C: Any = 8.0
+    gca: Any = GCAParams()             # GCA's knobs (structural: nothing)
+    process: Any = ChannelProcess()    # temporal process (structural: temporal)
     transport: Any = TransportParams()
     method: str = "ca_afl"
 
@@ -79,19 +84,24 @@ def sweep_point_from_config(fl: FLConfig, device=None) -> SweepPoint:
         lr_decay=f32(fl.lr_decay),
         ascent_lr=f32(fl.ascent_lr),
         energy_C=f32(fl.energy_C),
+        gca=GCAParams(*(f32(v) for v in fl.gca)),
+        process=process_from_config(fl, device),
         transport=transport_from_config(fl, device),
         method=fl.method,
     )
 
 
 def _stack_fields(objs: Sequence[Any]):
-    """Stack the tensor fields of equal dataclasses (recursively); a field
-    that is not a tensor (``flat``, ``scheme``, ``method``) must agree."""
+    """Stack the tensor fields of equal dataclasses and NamedTuples
+    (recursively); a field that is not a tensor (``flat``, ``temporal``,
+    ``scheme``, ``method``) must agree."""
     first = objs[0]
+    if isinstance(first, tuple):   # a NamedTuple of tensors (GCAParams)
+        return type(first)(*(torch.stack(vals) for vals in zip(*objs)))
     out = {}
     for f in dataclasses.fields(first):
         vals = [getattr(o, f.name) for o in objs]
-        if dataclasses.is_dataclass(vals[0]):
+        if dataclasses.is_dataclass(vals[0]) or isinstance(vals[0], tuple):
             out[f.name] = _stack_fields(vals)
         elif isinstance(vals[0], torch.Tensor):
             out[f.name] = torch.stack(vals)
@@ -136,18 +146,13 @@ def expand_grid(
     ``variants`` maps label -> FLConfig field overrides; ``scenarios`` entries
     are names from :data:`repro_torch.core.channel.SCENARIOS`, raw override
     dicts (labelled by their contents, e.g. ``noise_std=0.01``), or explicit
-    ``(name, overrides)`` pairs. The reference's temporal scenario names
-    raise ``NotImplementedError``. Returns ``[(label, config), ...]`` ready
+    ``(name, overrides)`` pairs. Returns ``[(label, config), ...]`` ready
     for :func:`run_sweep`.
     """
     variants = dict(variants or {"base": {}})
     specs = []
     for sc in scenarios:
         if isinstance(sc, str):
-            if sc in TEMPORAL_SCENARIOS:
-                raise NotImplementedError(
-                    f"scenario {sc!r} is temporal; temporal scenarios are not "
-                    "ported yet (ROADMAP Queue 1 item 7)")
             sc_name, sc_kw = sc, SCENARIOS[sc]
         elif isinstance(sc, tuple):
             sc_name, sc_kw = sc[0], dict(sc[1])
@@ -208,9 +213,12 @@ def _group_draws(fls, seeds, labels, draws, noise: bool, model_size: int,
         yield stack_draws([now[k] for k in keys], noise, model_size)
 
 
-def _run_group(model, data, fls, labels, seeds, draws, device, model_size):
+def _run_group(model, data, fls, labels, seeds, draws, device, model_size,
+               init=None):
     """One structural group's batched run: histories of its G = points ×
-    seeds cells, point-major, as numpy [G, T, ...] fields."""
+    seeds cells, point-major, as numpy [G, T, ...] fields. Each cell's
+    initial state comes from its point's process and its own
+    ``init(label, fl, seed)`` (default ``draws.init_draws(seed, fl)``)."""
     fl0 = fls[0]
     cells = len(fls) * len(seeds)
     points = [sweep_point_from_config(fl, device) for fl in fls]
@@ -218,7 +226,11 @@ def _run_group(model, data, fls, labels, seeds, draws, device, model_size):
     # elide the eq.-(10) noise only if the whole group is noise-free; a
     # quiet cell of a noisy group reads a zero AWGN row from its own stream
     noise_free = all(fl.noise_std == 0 for fl in fls)
-    state = init_sim_state(model, fl0, device, cells=cells)
+    inits = stack_init_draws([
+        (init(lbl, fl, s) if init is not None else init_draws(s, fl, device))
+        .to(device) for lbl, fl in zip(labels, fls) for s in seeds])
+    state = init_sim_state(model, fl0, device, cells=cells,
+                           process=point.process, init=inits)
     round_fn = make_param_round_fn(model, fl0, data, model_size, fl0.method,
                                    noise_free=noise_free, cells=cells)
     _TRACE_LOG.append(fl0.method)
@@ -267,6 +279,7 @@ def run_sweep(
     checkpoint_dir: Optional[str] = None,
     draws: Optional[Callable] = None,
     device=None,
+    init_draws: Optional[Callable] = None,
 ) -> "SweepResult":
     """Run every (spec × seed) cell, one batched run per structural group.
 
@@ -279,7 +292,9 @@ def run_sweep(
     ported yet. ``draws``, if given, is ``(label, fl, seed) -> T
     RoundDraws``, a cell's own draws (e.g. the reference's numbers in a
     test); by default cell (p, s) draws what ``run_simulation(fl_p,
-    seed=s)`` does.
+    seed=s)`` does. ``init_draws``, likewise, is ``(label, fl, seed) ->
+    InitDraws``, a cell's initial draws (a temporal cell's initial fading
+    normals).
 
     ``checkpoint_dir`` (opt-in resume): after each group completes, the
     per-label histories land in a ``repro_torch.checkpoint`` msgpack
@@ -340,7 +355,7 @@ def run_sweep(
             continue  # restored from the checkpoint
         hist = _run_group(model, data, [specs[i][1] for i in idxs],
                           [labels[i] for i in idxs], seeds, draws, dev,
-                          model_size)
+                          model_size, init=init_draws)
         for p, i in enumerate(idxs):
             sl = slice(p * num_seeds, (p + 1) * num_seeds)
             histories[i] = SimHistory(*(v if isinstance(v, tuple) else v[sl]

@@ -7,15 +7,24 @@ simulator's tolerances.
 from ``split(PRNGKey(seed))[1]`` as ``init_sim_state`` takes it), so both
 packages see the same channels, Gumbel noise, batches, AWGN and
 quantization uniforms (the reference's own ``_client_uniforms`` of the
-round's noise key, for all N clients). The reference's sweep seeds cell
-(p, s) with ``PRNGKey(s)`` as ``run_simulation(seed=s)`` does, so
-``reference_draws(fl_p, s, ...)`` is that cell's stream too.
+round's noise key, for all N clients), and for a temporal run the shadow
+walk's normals and the availability uniforms (``fold_in(k_chan, 2)`` and
+``fold_in(k_chan, 3)``); ``reference_init_draws`` gives the initial fading
+normals, ``normal(fold_in(k_init, 1), (2, N, draw_sc))``. The reference's
+sweep seeds cell (p, s) with ``PRNGKey(s)`` as ``run_simulation(seed=s)``
+does, so ``reference_draws(fl_p, s, ...)`` is that cell's stream too.
 
-Tolerances of ``assert_history_close``: ``num_scheduled`` exact; energy
-rtol 1e-5 (a different selected set would move it by a whole client's
-upload, far more); λ atol 1e-6 and loss rtol 1e-4 (f32 summation order
-differs between XLA and torch); accuracies within one test sample of one
-client (1 / S_test), since a logit near a tie may flip one prediction.
+Tolerances of ``assert_history_close``: ``num_scheduled`` and
+``avail_count`` exact; energy rtol 1e-5 (a different selected set would
+move it by a whole client's upload, far more); ``min_battery`` rtol 1e-5
+or 4 ulps of the budget it was taken from, whichever is larger (budget
+minus the uploads paid: where a battery nearly drains the difference
+cancels, and its error stays that of the budget's subtractions); λ atol
+1e-6 and loss rtol 1e-4 (f32 summation order differs between XLA and
+torch); accuracies within one test sample of one client (1 / S_test),
+since a logit near a tie may flip one prediction. ``assert_run_close``
+adds the rule for a battery gate or GCA threshold decided differently at
+a near-tie (``_torch_compare``).
 """
 import functools
 
@@ -24,20 +33,27 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from _torch_compare import first_discrete_divergence, head, near_tie
 from repro.core.transport import _client_uniforms
-from repro_torch.core.draws import RoundDraws
+from repro_torch.core.draws import InitDraws, RoundDraws
 
 
-@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5, 6))
-def _reference_round(key, n, b, draw_sc, shard, leaf_shapes, quantized):
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5, 6, 7))
+def _reference_round(key, n, b, draw_sc, shard, leaf_shapes, quantized,
+                     temporal):
     """One round of the reference's key discipline (``simulator.py``
-    round_fn): the 7-way split and every draw made from it."""
+    round_fn and ``dynamics.step_process``): the 7-way split and every
+    draw made from it."""
     key, k_chan, k_sel, k_batch, k_noise, k_asel, k_abatch = jax.random.split(key, 7)
     keys = jax.random.split(k_noise, len(leaf_shapes))
     noise = jnp.concatenate([jax.random.normal(kk, s).reshape(-1)
                              for kk, s in zip(keys, leaf_shapes)])
     quant_uniform = (_client_uniforms(k_noise, jnp.arange(n), noise.shape[0])
                      if quantized else None)
+    walk = (jax.random.normal(jax.random.fold_in(k_chan, 2), (n,))
+            if temporal else None)
+    avail = (jax.random.uniform(jax.random.fold_in(k_chan, 3), (n,))
+             if temporal else None)
     return key, (jax.random.normal(k_chan, (2, n, draw_sc)),
                  jax.random.normal(jax.random.fold_in(k_chan, 1), (n, 1)),
                  jax.random.gumbel(k_sel, (n,)),
@@ -45,7 +61,7 @@ def _reference_round(key, n, b, draw_sc, shard, leaf_shapes, quantized):
                  noise,
                  jax.random.gumbel(k_asel, (n,)),
                  jax.random.randint(k_abatch, (n, b), 0, shard),
-                 quant_uniform)
+                 quant_uniform, walk, avail)
 
 
 def reference_draws(fl, seed, shard, leaf_shapes):
@@ -53,15 +69,16 @@ def reference_draws(fl, seed, shard, leaf_shapes):
 
     ``leaf_shapes``: the model's parameter shapes in JAX's sorted-key order
     (the per-leaf AWGN keys follow it). Greedy draws no selection Gumbel, a
-    noise-free config no AWGN and a transport other than quantized no
-    rounding uniforms, so those slots are None."""
+    noise-free config no AWGN, a transport other than quantized no
+    rounding uniforms and a static run no process draws, so those slots are
+    None."""
     draw_sc = 1 if fl.flat_fading else fl.num_subcarriers
     _, key = jax.random.split(jax.random.PRNGKey(seed))
     out = []
     for _ in range(fl.rounds):
         key, vals = _reference_round(key, fl.num_clients, fl.batch_size,
                                      draw_sc, shard, tuple(leaf_shapes),
-                                     fl.transport == "quantized")
+                                     fl.transport == "quantized", fl.temporal)
         d = RoundDraws(*(None if v is None else torch.from_numpy(np.array(v))
                          for v in vals))
         out.append(d._replace(
@@ -70,9 +87,30 @@ def reference_draws(fl, seed, shard, leaf_shapes):
     return out
 
 
-def assert_history_close(port, ref, s_test):
-    """Port vs reference histories; names the first round that diverges."""
+def reference_init_draws(fl, seed):
+    """The reference's initial draws of a run seeded with ``seed``
+    (``simulator.init_sim_state``), as ``InitDraws``."""
+    if not fl.temporal:
+        return InitDraws()
+    draw_sc = 1 if fl.flat_fading else fl.num_subcarriers
+    k_init, _ = jax.random.split(jax.random.PRNGKey(seed))
+    fast = jax.random.normal(jax.random.fold_in(k_init, 1),
+                             (2, fl.num_clients, draw_sc))
+    return InitDraws(torch.from_numpy(np.array(fast)))
+
+
+def battery_atol(budget) -> float:
+    """4 ulps of a finite f32 battery budget (0 for an unlimited one)."""
+    b = np.float32(budget)
+    return float(4 * np.spacing(b)) if np.isfinite(b) else 0.0
+
+
+def assert_history_close(port, ref, s_test, budget=float("inf")):
+    """Port vs reference histories; names the first round that diverges.
+    ``budget``: the runs' ``battery_init``."""
     checks = [("num_scheduled", dict(rtol=0, atol=0)),
+              ("avail_count", dict(rtol=0, atol=0)),
+              ("min_battery", dict(rtol=1e-5, atol=battery_atol(budget))),
               ("energy", dict(rtol=1e-5, atol=0)),
               ("dl_energy", dict(rtol=1e-5, atol=0)),
               ("lam", dict(rtol=0, atol=1e-6)),
@@ -92,3 +130,20 @@ def assert_history_close(port, ref, s_test):
             r = int(np.argmax(bad.reshape(bad.shape[0], -1).any(axis=1)))
             raise AssertionError(
                 f"{field} diverges first at row {r}: port {a[r]} vs ref {b[r]}")
+
+
+def assert_run_close(port, ref, s_test, log=None, cell=None,
+                     budget=float("inf")):
+    """``assert_history_close``, except where a discrete field diverges at
+    a compare within 4 ulps of a tie in the port's run (``log``, a
+    ``_torch_compare.CompareLog``; ``cell``: this run's row in it): then
+    the round and the compare's sides are printed and the histories are
+    held to their tolerances up to that round. Returns that round (None:
+    none)."""
+    r = first_discrete_divergence(port, ref)
+    if r is None:
+        assert_history_close(port, ref, s_test, budget)
+        return None
+    assert near_tie(log, r, cell), f"discrete fields diverge at round {r}"
+    assert_history_close(head(port, r), head(ref, r), s_test, budget)
+    return r

@@ -385,6 +385,110 @@ def test_quant_sparse_aircomp_edges_of_the_tiling(card, kernel, rows, m, misalig
 
 
 # ---------------------------------------------------------------------------
+# Temporal and GCA rounds: gated (zero-weight) slots, empty scheduled sets,
+# GCA's N rows, and whole rounds against the CPU on the same draws
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["aircomp", "quant", "sparse"])
+@pytest.mark.parametrize("weights", ["gated", "all_zero"])
+@pytest.mark.parametrize("rows", [40, 100])
+def test_aircomp_kernels_with_gated_and_all_zero_weights(card, kernel, weights,
+                                                         rows):
+    """The weights a temporal round hands the kernels: K slots of which the
+    availability or battery gate zeroed some (here three in four), or all
+    (an empty scheduled set, k = 1); 100 rows as GCA's [N, P] pass. Each
+    launch against its plain version, within the summation-order bound."""
+    x, _, u, z, _ = _rows_at(card, rows, 7850, seed=7)
+    gen = torch.Generator(device=card)
+    gen.manual_seed(3)
+    w = (torch.rand((rows,), generator=gen, device=card) > 0.75).float()
+    if weights == "all_zero":
+        w.zero_()
+    k = torch.clamp_min(w.sum(), 1.0)
+    counters = {"aircomp": aircomp_cuda, "quant": quant_aircomp_cuda,
+                "sparse": sparse_aircomp_cuda}
+    before = counters[kernel].launches
+    if kernel == "aircomp":
+        s = torch.full((), 1e-2, device=card)
+        got = aircomp_aggregate_flat(x, w, z, noise_std=s, k=k)
+        plain, summed = aircomp_ref(x, w, z, s, k), x
+    else:
+        x *= 0.05
+        launch, plain, summed = _quant_or_sparse(card, kernel, x, w, u, z, k, 1e-2)
+        got = launch()
+    torch.cuda.synchronize()
+    assert counters[kernel].launches == before + 1
+    assert _within_bound(got, plain, w, summed, z, 1e-2, k)
+
+
+def _card_vs_cpu(card, fl, s_test=10):
+    """The same run on the CPU and on the card, on the CPU's draws; the
+    card's history held to the CPU's (``_torch_compare``: a discrete field
+    may diverge only at a compare within 4 ulps of a tie, and the histories
+    are then held up to that round)."""
+    from _torch_compare import CompareLog, first_discrete_divergence, head, near_tie
+
+    from repro_torch.core.draws import init_draws, round_draws
+    rng = np.random.default_rng(0)
+    n = fl.num_clients
+    x = rng.normal(size=(n, 30, 8)).astype(np.float32)
+    y = rng.integers(0, 10, size=(n, 30)).astype(np.int32)
+    xt = rng.normal(size=(n, s_test, 8)).astype(np.float32)
+    yt = rng.integers(0, 10, size=(n, s_test)).astype(np.int32)
+    model, p = logistic_regression(8, 10), 90
+    draws = list(round_draws(0, fl, p, 30, "cpu"))
+    init = init_draws(0, fl, "cpu")
+    with CompareLog(fl.temporal) as log:
+        cpu = run_simulation(model, fl, (x, y, xt, yt), draws=draws,
+                             init_draws=init, device="cpu")
+    gpu = run_simulation(model, fl, (x, y, xt, yt), draws=[d.to(card) for d in draws],
+                         init_draws=init.to(card), device=card)
+    gpu = type(gpu)(*(v.cpu() if isinstance(v, torch.Tensor) else v for v in gpu))
+    r = first_discrete_divergence(gpu, cpu)
+    if r is not None:
+        assert near_tie(log, r), f"card and CPU diverge at round {r}"
+        gpu, cpu = head(gpu, r), head(cpu, r)
+    tol = {"num_scheduled": (0, 0), "avail_count": (0, 0),
+           "energy": (1e-5, 0), "min_battery": (1e-5, 4 * EPS32 * fl.battery_init
+                                                if np.isfinite(fl.battery_init) else 0),
+           "lam": (0, 1e-6), "loss": (1e-4, 0),
+           "avg_acc": (0, 1 / s_test + 1e-6), "worst_acc": (0, 1 / s_test + 1e-6)}
+    for f, (rtol, atol) in tol.items():
+        np.testing.assert_allclose(getattr(gpu, f).numpy(), getattr(cpu, f).numpy(),
+                                   rtol=rtol, atol=atol, err_msg=f)
+    return cpu
+
+
+@pytest.mark.cuda
+def test_temporal_round_on_the_card_equals_the_cpu(card):
+    """commuter_mobility (fading, walk, churn) with a battery that binds,
+    under the sparse transport: gated slots keep their residual rows."""
+    fl = FLConfig(num_clients=12, clients_per_round=5, rounds=12, batch_size=6,
+                  noise_std=1e-2, transport="sparse", sparse_density=0.2,
+                  temporal=True, rho_fading=0.85, rho_shadow=0.98,
+                  shadow_walk_std=0.08, p_dropout=0.08, p_return=0.3,
+                  battery_init=3e-5)
+    before = sparse_aircomp_cuda.launches
+    cpu = _card_vs_cpu(card, fl)
+    assert sparse_aircomp_cuda.launches - before == fl.rounds
+    assert (cpu.avail_count < fl.clients_per_round).any()
+
+
+@pytest.mark.cuda
+def test_gca_round_on_the_card_equals_the_cpu(card):
+    """GCA under the quantized transport: one quant_aircomp launch a round
+    over all N rows, the scheduled count varying."""
+    fl = FLConfig(num_clients=12, clients_per_round=5, rounds=12, batch_size=6,
+                  noise_std=1e-2, transport="quantized", method="gca")
+    before = quant_aircomp_cuda.launches
+    cpu = _card_vs_cpu(card, fl)
+    assert quant_aircomp_cuda.launches - before == fl.rounds
+    assert len(set(cpu.num_scheduled.tolist())) > 1
+
+
+# ---------------------------------------------------------------------------
 # rmsnorm and flash attention (the dense decoder's serve path)
 # ---------------------------------------------------------------------------
 #

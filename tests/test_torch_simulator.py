@@ -153,7 +153,29 @@ def test_default_draws_run_is_seeded(data):
 
 def test_unported_paths_raise(data):
     model = logistic_regression(DIM, 10)
-    for kw in (dict(temporal=True), dict(method="gca"),
-               dict(control_plane="sharded")):
-        with pytest.raises(NotImplementedError):
-            run_simulation(model, FLConfig(**{**BASE, **kw}), data, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        run_simulation(model, FLConfig(**{**BASE, "control_plane": "sharded"}),
+                       data, device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(temporal=True), dict(method="gca")],
+                         ids=["temporal", "gca"])
+def test_temporal_and_gca_groups_match_reference_sweep(data, kw):
+    """The two settings once refused run: a group of one point × 2 seeds
+    (G = 2) equals the reference's sweep on its draws."""
+    from repro.core import sweep as jsweep
+    from repro_torch.core import sweep
+    from _torch_reference import reference_init_draws
+    cfg = {**BASE, **CASES["ca_afl_C8"], **kw}
+    ref = jsweep.run_sweep(jax_logreg(DIM, 10), data, [("a", JFLConfig(**cfg))],
+                           seeds=(0, 1))
+    port = sweep.run_sweep(
+        logistic_regression(DIM, 10), data, [("a", FLConfig(**cfg))],
+        seeds=(0, 1), device="cpu",
+        draws=lambda lbl, c, s: logreg_draws(c, data, s),
+        init_draws=lambda lbl, c, s: reference_init_draws(c, s))
+    for i in range(2):
+        one = lambda h: type(h)(*(v if isinstance(v, tuple) else v[i]  # noqa: E731
+                                  for v in h))
+        assert_history_close(one(port.history("a")), one(ref.history("a")),
+                             data[3].shape[1])

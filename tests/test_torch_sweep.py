@@ -22,7 +22,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from _torch_reference import assert_history_close, reference_draws  # noqa: E402
+from _torch_compare import CompareLog  # noqa: E402
+from _torch_reference import (assert_history_close,  # noqa: E402
+                              assert_run_close, reference_draws,
+                              reference_init_draws)
 from repro.checkpoint import ckpt as jckpt  # noqa: E402
 from repro.configs.base import FLConfig as JFLConfig  # noqa: E402
 from repro.core import sweep as jsweep  # noqa: E402
@@ -47,6 +50,7 @@ GRID = {"fedavg": dict(method="fedavg"),
         "ca_afl_C2": dict(method="ca_afl", energy_C=2.0),
         "ca_afl_C8": dict(method="ca_afl", energy_C=8.0)}
 SCENARIOS = ("default", "noisy_uplink")
+SCENARIOS_T = jsweep.SCENARIOS   # the reference's registry, temporal entries too
 MODEL = logistic_regression(DIM, 10)
 
 
@@ -121,9 +125,19 @@ def test_expand_grid_matches_reference(scenarios):
 @pytest.mark.parametrize("name", ["markov_fading", "commuter_mobility",
                                   "battery_constrained"])
 def test_expand_grid_temporal_scenario_raises(name):
-    assert name in jsweep.SCENARIOS   # the reference's registry has it
-    with pytest.raises(NotImplementedError, match="item 7"):
-        sweep.expand_grid(fl(), scenarios=("default", name))
+    """Once refused, a temporal scenario now expands as the reference's
+    does: the same labels and configs, the registry entry verbatim."""
+    from repro.core.channel import SCENARIOS as JSCENARIOS
+    from repro_torch.core.channel import SCENARIOS as PSCENARIOS
+    assert PSCENARIOS[name] == JSCENARIOS[name]
+    variants = {"afl": {"method": "afl"}, "gca": {"method": "gca"}}
+    ours = sweep.expand_grid(fl(), variants=variants, scenarios=("default", name))
+    ref = jsweep.expand_grid(JFLConfig(**BASE), variants=variants,
+                             scenarios=("default", name))
+    assert [lbl for lbl, _ in ours] == [lbl for lbl, _ in ref]
+    for (_, a), (_, b) in zip(ours, ref):
+        assert dataclasses.asdict(a) == dataclasses.asdict(b)
+    assert all(c.temporal for lbl, c in ours if lbl.endswith(f"@{name}"))
 
 
 # ---------------------------------------------------------------------------
@@ -376,13 +390,47 @@ def test_duplicate_labels_raise(data):
 @pytest.mark.parametrize("kw,item", [
     (dict(devices=2), "item 9"), (dict(devices="auto"), "item 9"),
     (dict(client_devices=2), "item 9"),
-    (dict(specs=[("t", dict(temporal=True))]), "item 7"),
-    (dict(specs=[("g", dict(method="gca"))]), "item 7"),
 ])
 def test_unported_paths_raise(data, kw, item):
-    specs = [(lbl, fl(**o)) for lbl, o in kw.pop("specs", [("a", {})])]
     with pytest.raises(NotImplementedError, match=item):
-        sweep.run_sweep(MODEL, data, specs, device="cpu", **kw)
+        sweep.run_sweep(MODEL, data, [("a", fl())], device="cpu", **kw)
+
+
+# the temporal and GCA groups, once refused: two points of one structural
+# group (G = 2), each with its own knobs
+TEMPORAL_GCA_GROUPS = {
+    "temporal": [("markov", dict(SCENARIOS_T["markov_fading"])),
+                 ("commuter", dict(SCENARIOS_T["commuter_mobility"],
+                                   battery_init=1e-3, energy_C=2.0))],
+    "gca": [("gca", dict(method="gca", noise_std=1e-2)),
+            ("gca_mobile", dict(method="gca", noise_std=1e-2,
+                                **SCENARIOS_T["commuter_mobility"]))],
+}
+
+
+@pytest.mark.parametrize("group", sorted(TEMPORAL_GCA_GROUPS))
+def test_temporal_and_gca_groups_match_reference(data, group):
+    """A temporal group and a GCA group run as one batched round each (the
+    GCA pair splits into a static and a temporal group, as in the
+    reference) and equal the reference's sweep on its draws, cell for
+    cell."""
+    pairs = TEMPORAL_GCA_GROUPS[group]
+    specs = [(lbl, fl(**o)) for lbl, o in pairs]
+    jspecs = [(lbl, JFLConfig(**{**BASE, **o})) for lbl, o in pairs]
+    jsweep.reset_trace_log()
+    ref = jsweep.run_sweep(jax_logreg(DIM, 10), data, jspecs, seeds=(0,))
+    sweep.reset_trace_log()
+    with CompareLog(group == "temporal") as log:
+        port = sweep.run_sweep(MODEL, data, specs, seeds=(0,),
+                               draws=ref_draws(data), device="cpu",
+                               init_draws=lambda lbl, c, s: reference_init_draws(c, s))
+    assert sweep.trace_count() == jsweep.trace_count() == len(
+        {sweep._static_signature(c) for _, c in specs})
+    for g, (lbl, c) in enumerate(specs):
+        assert_run_close(per_seed(port.history(lbl), 0),
+                         per_seed(ref.history(lbl), 0), data[3].shape[1],
+                         log if group == "temporal" else None, cell=g,
+                         budget=c.battery_init)
 
 
 # ---------------------------------------------------------------------------
