@@ -59,6 +59,15 @@ these phases and fails (non-zero exit, no result line) if any of them fails:
      times over all 100 rows, no kernel under analog and digital), and a
      battery_constrained sweep group (C ∈ {0, 2, 8, 32} × 5 seeds, analog,
      G = 20: aircomp exactly 600 times, every cell equal to its own run);
+     then the production tier at the same width: ``ParameterServer`` (SGD
+     at lr0, σ = 1e-2) on batches of 50 examples a client ([5000, 784],
+     ``data/pipeline.ClientDataset`` over the sorted-label shards,
+     client-contiguous), 30 timed steps of ca_afl under analog, quantized,
+     sparse and digital and of GCA under analog and quantized, steps/s of
+     each: no kernel under ca_afl analog and digital, quant_aircomp /
+     sparse_aircomp exactly 30 times over all 100 rows under quantized /
+     sparse, aircomp 30 times under GCA analog (its probe-reuse apply),
+     quant_aircomp 30 times under GCA quantized, no other kernel;
   4. the serve path at full width, f32 with TF32 off, through
      ``repro_torch.launch.serve``, random weights from a seed, run A (the
      launcher's defaults: batch 4, prompt 32, 32 tokens) and run B (a long
@@ -74,16 +83,25 @@ these phases and fails (non-zero exit, no result line) if any of them fails:
      others never;
   5. after all the timed runs of 3 and 4, a torch.profiler window over each
      (device time, the device's busy share, device time by kernel), over
-     one sweep group per transport (G = 20, 10 rounds), and over 10 rounds
-     of a temporal analog run and of a GCA quantized run;
+     one sweep group per transport (G = 20, 10 rounds), over 10 rounds
+     of a temporal analog run and of a GCA quantized run, and over 10
+     server steps of ca_afl quantized and of GCA analog (launches a step,
+     device ms, busy share, the kernel's µs a launch at [100, 7850]);
   6. the card against the CPU: the simulator on the same ``RoundDraws`` at
      quickstart scale for analog, quantized and sparse; each serve path on
      the same full-width weights (xlstm-1.3b cut to one super-block, 8
      layers; batch 2, prompt 64, 8 tokens, the card fed the CPU's tokens),
      max |Δlogit| at the prefill and each step within 1e-3, and the greedy
      tokens equal wherever the CPU's top-2 margin exceeds 100× that step's
-     Δ, at no fewer than half the positions; and a sweep group at full
-     width (analog, 2 values of C × 2 seeds, 10 rounds) on the same draws.
+     Δ, at no fewer than half the positions; a sweep group at full
+     width (analog, 2 values of C × 2 seeds, 10 rounds) on the same draws;
+     and the full-width server, 5 steps of ca_afl per transport and of GCA
+     analog on the same ``RoundDraws`` and batches, each step run on both
+     from the CPU's state: num_scheduled exactly, energy rtol 1e-5, λ atol
+     1e-6, loss rtol 1e-4, params and residuals rtol 1e-5 / atol 1e-6
+     beside any stochastic-rounding or top-k decision that the two sides'
+     gradients (a few ulps apart) decide apart within 2⁻¹² of a grid point
+     / 1e-5 of the threshold, each such decision allowed what it moves.
 
 It imports nothing of JAX and nothing of the JAX package. The last line of
 its output is ``{"ok": true, "device": {...}}``.
@@ -1243,6 +1261,295 @@ def phase_temporal_gca_trace(torch, data):
 
 
 # ---------------------------------------------------------------------------
+# The production tier: the parameter server at full width
+# ---------------------------------------------------------------------------
+
+SERVER_PER_CLIENT = 50    # examples a client a step: the batch is [5000, 784]
+SERVER_STEPS = 30
+# (method, transport) -> the one kernel the server must launch once a step
+# (None: the exact-K analog and digital rounds aggregate by the gradient of
+# a weighted loss and reach no kernel)
+SERVER_RUNS = {("ca_afl", "analog"): None, ("ca_afl", "quantized"): "quant_aircomp",
+               ("ca_afl", "sparse"): "sparse_aircomp", ("ca_afl", "digital"): None,
+               ("gca", "analog"): "aircomp", ("gca", "quantized"): "quant_aircomp"}
+
+
+def server_setup(method, transport, device=None, seed=0):
+    """The paper's §IV-A run on the production tier: the 784→10 logistic
+    regression, N = 100, K = 40, σ = 1e-2, SGD at lr0, 50 examples a
+    client a step."""
+    import warnings
+
+    from repro_torch.configs import fmnist_logreg
+    from repro_torch.federated.server import ParameterServer
+    from repro_torch.models.logreg import logistic_regression_prod
+    from repro_torch.optim import sgd
+
+    cfg = fmnist_logreg.CONFIG
+    fl = replace(fmnist_logreg.FL, rounds=SERVER_STEPS, method=method,
+                 transport=transport, batch_size=SERVER_PER_CLIENT)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # quantized/sparse bypass the optimizer
+        ps = ParameterServer(logistic_regression_prod(cfg.dim, cfg.num_classes),
+                             sgd(fl.lr0), fl, seed=seed, device=device)
+    return fl, ps
+
+
+def server_batches(torch, data, steps, device, seed=0):
+    """``steps`` batches [N·50, 784] from the data pipeline: one
+    ``ClientDataset`` a sorted-label shard, drawn with its own
+    ``client_batch_iterator``, client-contiguous; made before any timing
+    and moved to ``device``."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import ClientDataset, client_batch_iterator
+
+    xs, ys = data[0].cpu().numpy(), data[1].cpu().numpy()
+    n = xs.shape[0]
+    iters = [client_batch_iterator(ClientDataset(xs[i], ys[i]), SERVER_PER_CLIENT,
+                                   seed=seed * 1000 + i) for i in range(n)]
+    cids = np.repeat(np.arange(n), SERVER_PER_CLIENT).astype(np.int32)
+    out = []
+    for _ in range(steps):
+        parts = [next(it) for it in iters]
+        out.append({"x": torch.as_tensor(np.concatenate([p[0] for p in parts])).to(device),
+                    "labels": torch.as_tensor(np.concatenate([p[1] for p in parts])).to(device),
+                    "client_ids": torch.as_tensor(cids).to(device)})
+    return out
+
+
+def check_server_history(torch, fl, state, what):
+    hist = state.history
+    if len(hist) != fl.rounds or state.round != fl.rounds:
+        raise AssertionError(f"{what}: {len(hist)} history rows for {fl.rounds} steps")
+    for h in hist:
+        bad = [k for k, v in h.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{what}: round {h['round']} has non-finite {bad}")
+        if fl.method != "gca" and h["num_scheduled"] != fl.clients_per_round:
+            raise AssertionError(f"{what}: round {h['round']} scheduled "
+                                 f"{h['num_scheduled']}, not {fl.clients_per_round}")
+        if not 0 <= h["num_scheduled"] <= fl.num_clients:
+            raise AssertionError(f"{what}: round {h['round']} scheduled {h['num_scheduled']}")
+    if abs(float(state.lam.double().sum()) - 1) > 1e-4:
+        raise AssertionError(f"{what}: λ does not sum to 1")
+    for name, p in state.params.items():
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"{what}: params {name} not finite")
+
+
+def phase_server(torch, counters, data):
+    """30 timed steps of the parameter server at full width per run of
+    SERVER_RUNS, with every launch count set to 0 just before and read just
+    after: its kernel exactly once a step over all N = 100 rows, no other."""
+    batches = server_batches(torch, data, SERVER_STEPS, "cuda")
+    out = []
+    for (method, transport), kernel in SERVER_RUNS.items():
+        what = f"server {method} {transport}"
+        fl, warm = server_setup(method, transport, seed=1)
+        st = warm.init_state()
+        for b in batches[:3]:
+            st = warm.step(st, b)
+        fl, ps = server_setup(method, transport)
+        state = ps.init_state()
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        for b in batches:
+            state = ps.step(state, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counters.items()}
+        check_launches(launches, {kernel: fl.rounds} if kernel else {}, what)
+        check_server_history(torch, fl, state, what)
+        sched = [h["num_scheduled"] for h in state.history]
+        entry = {"method": method, "transport": transport, "kernel": kernel,
+                 "rows": fl.num_clients, "P": 7850,
+                 "batch": fl.num_clients * SERVER_PER_CLIENT, "steps": fl.rounds,
+                 "noise_std": fl.noise_std, "wall_s": wall,
+                 "steps_per_s": fl.rounds / wall, "launches": launches,
+                 "num_scheduled_min": min(sched), "num_scheduled_max": max(sched),
+                 "first_loss": state.history[0]["loss"],
+                 "last_loss": state.history[-1]["loss"],
+                 "worst_client_loss": state.history[-1]["worst_client_loss"],
+                 "energy_J": state.energy_joules}
+        emit({"server": entry})
+        out.append(entry)
+    return out
+
+
+def phase_server_trace(torch, data):
+    """A torch.profiler window over 10 steps of the server's ca_afl
+    quantized and GCA analog runs: launches a step, device ms a step, the
+    device's busy share, and the kernel's device µs a launch at [100, 7850]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = server_batches(torch, data, 10, "cuda", seed=2)
+    out = {}
+    for method, transport in (("ca_afl", "quantized"), ("gca", "analog")):
+        kernel = SERVER_RUNS[method, transport]
+        _, ps = server_setup(method, transport, seed=2)
+        state = ps.init_state()
+        state = ps.step(state, batches[0])   # warm-up outside the window
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for b in batches:
+                state = ps.step(state, b)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        s = trace_summary(prof, wall_us, (kernel,))
+        steps = len(batches)
+        entry = {"method": method, "transport": transport, "steps": steps}
+        if s is not None:
+            entry.update({
+                "device_ms_per_step": s["device_ms"] / steps,
+                "wall_ms_per_step_profiled": s["wall_ms_profiled"] / steps,
+                "device_busy_share": s["device_busy_share"],
+                "device_launches_per_step": s["device_launches"] / steps,
+                "kernel": kernel, "shape": [100, 7850],
+                "kernel_device_us_per_launch": s["kernel_device_us_per_launch"][kernel],
+                "top_device_time": s["top_device_time"]})
+        emit({"server_trace": entry})
+        out[method, transport] = entry
+    return out
+
+
+def server_state_to(torch, state, device):
+    """A copy of a ``ServerState`` on ``device``, with an empty history."""
+    from repro_torch.federated.server import ServerState
+
+    def move(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(device)
+        if isinstance(v, dict):
+            return {k: move(x) for k, x in v.items()}
+        if isinstance(v, tuple):
+            moved = [move(x) for x in v]
+            return type(v)(*moved) if hasattr(v, "_fields") else tuple(moved)
+        return v
+
+    return ServerState(params=move(state.params), opt_state=move(state.opt_state),
+                       lam=move(state.lam), round=state.round,
+                       energy_joules=state.energy_joules, history=[],
+                       chan_state=move(state.chan_state), ef_resid=move(state.ef_resid),
+                       dl_energy_joules=state.dl_energy_joules)
+
+
+QUANT_TIE = 2.0 ** -12    # a rounding decision this close to a grid point is a tie
+SPARSE_TIE = 1e-5         # a magnitude this close (relatively) to the threshold
+
+
+def payload_ties(torch, fl, ps_c, ps_g, state, batch_c, batch_g, d, k):
+    """Where the card's and the CPU's payload decisions differ in a step
+    from the same state: the quantized rows' floor(x/d + u) or the sparse
+    rows' kept sets, each computed from that side's own per-client
+    gradients (f32 sums in another order, a few ulps apart). Returns (per
+    coordinate the most such decisions can move the aggregate — Σ over
+    the rows that differ of the step or value moved, over k —, the same
+    per row [N, P] for the residuals, the decisions that differ, the
+    farthest of them from a tie); every one must lie within QUANT_TIE of a
+    grid point / SPARSE_TIE of the threshold."""
+    from repro_torch.core.transport import (quant_step, sparse_k_coords,
+                                            sparse_thresholds)
+
+    eta = torch.tensor(fl.lr0 * fl.lr_decay ** state.round, dtype=torch.float32)
+    state_g = server_state_to(torch, state, "cuda")
+    x_c = (-eta) * ps_c._delta_probe(state.params, batch_c)[2]
+    x_g = ((-eta.cuda()) * ps_g._delta_probe(state_g.params, batch_g)[2]).cpu()
+    if fl.transport == "quantized":
+        step_c, step_g = quant_step(x_c, fl.quant_bits), quant_step(x_g, fl.quant_bits)
+        v_c = x_c / step_c[:, None] + d.quant_uniform
+        n_c, n_g = torch.floor(v_c), torch.floor(x_g / step_g[:, None] + d.quant_uniform)
+        differ = n_c != n_g
+        moved = (n_c - n_g).abs() * step_c[:, None]
+        dist = (v_c - torch.round(v_c)).abs()
+        tie = QUANT_TIE
+    else:
+        r = state.ef_resid
+        v_c, v_g = x_c + r, x_g + r
+        kc = sparse_k_coords(fl.sparse_density, v_c.shape[1])
+        thr_c, thr_g = sparse_thresholds(v_c, kc), sparse_thresholds(v_g, kc)
+        differ = (v_c.abs() >= thr_c[:, None]) != (v_g.abs() >= thr_g[:, None])
+        moved = torch.maximum(v_c.abs(), v_g.abs()) * differ
+        dist = torch.minimum((v_c.abs() - thr_c[:, None]).abs() / thr_c[:, None],
+                             (v_g.abs() - thr_g[:, None]).abs() / thr_g[:, None])
+        tie = SPARSE_TIE
+    far = float(dist[differ].max()) if bool(differ.any()) else 0.0
+    if far > tie:
+        raise AssertionError(f"server card vs CPU {fl.transport}: a payload decision "
+                             f"differs {far} from a tie (limit {tie})")
+    moved = moved * differ
+    return moved.sum(dim=0) / k, moved, int(differ.sum()), far
+
+
+def phase_server_card_vs_cpu(torch, data, steps=5):
+    """The full-width server on the card and on the CPU, on the same
+    ``RoundDraws`` and batches, ``steps`` steps per transport (ca_afl) and
+    GCA analog; each step runs on both from the CPU's state: num_scheduled
+    exactly, the step's energy rtol 1e-5, λ atol 1e-6, the loss rtol 1e-4,
+    params and residuals rtol 1e-5 / atol 1e-6 beside any payload decision
+    decided apart at a tie (``payload_ties``)."""
+    from repro_torch.core.draws import draw_round, seed_generators
+
+    batches_c = server_batches(torch, data, steps, "cpu", seed=3)
+    out = []
+    runs = [("ca_afl", t) for t in TRANSPORT_KERNEL] + [("gca", "analog")]
+    for method, transport in runs:
+        what = f"server_card_vs_cpu {method} {transport}"
+        fl, ps_c = server_setup(method, transport, device="cpu")
+        _, ps_g = server_setup(method, transport)
+        gen, quant_gen, temporal_gen = seed_generators(0, "cpu")
+        state = ps_c.init_state()
+        worst = {"params": 0.0, "lam": 0.0, "energy": 0.0, "loss": 0.0}
+        ties = 0
+        for t, b_c in enumerate(batches_c):
+            d = draw_round(gen, quant_gen, fl, 7850, 1, temporal_gen=temporal_gen)
+            b_g = {k: v.cuda() for k, v in b_c.items()}
+            new_g = ps_g.step(server_state_to(torch, state, "cuda"), b_g, d.to("cuda"))
+            new_c = ps_c.step(state, b_c, d)
+            row_c, row_g = new_c.history[-1], new_g.history[-1]
+            if row_g["num_scheduled"] != row_c["num_scheduled"]:
+                raise AssertionError(f"{what}: step {t} scheduled "
+                                     f"{row_g['num_scheduled']} on the card, "
+                                     f"{row_c['num_scheduled']} on the CPU")
+            allow = allow_rows = 0.0
+            if transport in ("quantized", "sparse"):
+                allow, allow_rows, n_ties, _ = payload_ties(
+                    torch, fl, ps_c, ps_g, state, b_c, b_g, d,
+                    max(row_c["num_scheduled"], 1))
+                ties += n_ties
+            checks = {
+                "energy": abs(row_g["energy_j"] - row_c["energy_j"])
+                / max(abs(row_c["energy_j"]), 1e-30) / 1e-5,
+                "loss": abs(row_g["loss"] - row_c["loss"])
+                / max(abs(row_c["loss"]), 1e-30) / 1e-4,
+                "lam": float((new_g.lam.cpu() - new_c.lam).abs().max()) / 1e-6}
+            pairs = [(new_g.params[n].cpu().reshape(-1), new_c.params[n].reshape(-1))
+                     for n in sorted(new_c.params)]
+            got, want = torch.cat([p[0] for p in pairs]), torch.cat([p[1] for p in pairs])
+            limit = 1e-6 + 1e-5 * want.abs() + allow
+            checks["params"] = float(((got - want).abs() / limit).max())
+            if transport == "sparse":
+                rg, rc = new_g.ef_resid.cpu(), new_c.ef_resid
+                checks["params"] = max(checks["params"], float(
+                    ((rg - rc).abs() / (1e-6 + 1e-5 * rc.abs() + allow_rows)).max()))
+            for f, v in checks.items():
+                worst[f] = max(worst[f], v)
+            if max(checks.values()) > 1:
+                raise AssertionError(f"{what}: step {t} differs beyond its tolerance "
+                                     f"(value / limit): {checks}")
+            state = new_c
+        entry = {"method": method, "transport": transport, "steps": steps,
+                 "num_scheduled": [h["num_scheduled"] for h in state.history],
+                 "worst_over_limit": worst, "payload_decisions_at_ties": ties}
+        emit({"server_card_vs_cpu": entry})
+        out.append(entry)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # rmsnorm and flash attention: the serve path's kernels
 # ---------------------------------------------------------------------------
 
@@ -1821,6 +2128,7 @@ def main() -> int:
     phase_temporal_degenerate(torch, data)
     gca_runs = phase_gca(torch, counters, data)
     temporal_group = phase_temporal_sweep(torch, counters, data)
+    server_runs = phase_server(torch, counters, data)
     # one model on the card at a time, so each run's peak memory is its
     # own; a model is made again from its seed for its profiler windows
     serve_counts, serve_traces = {}, {}
@@ -1835,6 +2143,7 @@ def main() -> int:
     for transport in TRANSPORT_KERNEL:
         phase_sweep_trace(torch, data, transport)
     phase_temporal_gca_trace(torch, data)
+    phase_server_trace(torch, data)
     for arch in SERVE_ARCHS:
         served = serve_setup(torch, arch)
         for run in SERVE_RUNS:
@@ -1847,6 +2156,7 @@ def main() -> int:
     phase_card_vs_cpu(torch, "analog", "temporal_card_vs_cpu", rounds=20,
                       **SCENARIOS["commuter_mobility"])
     phase_card_vs_cpu(torch, "quantized", "gca_card_vs_cpu", rounds=20, method="gca")
+    phase_server_card_vs_cpu(torch, data)
     phase_serve_card_vs_cpu(torch, *serve_setup(torch, "qwen2-0.5b"))
     # xlstm-1.3b at full width, its depth cut to one super-block (8 layers)
     # so that the CPU's side stays short
@@ -1866,7 +2176,10 @@ def main() -> int:
                             gca_launches={r["transport"]: r["launches"][name]
                                           for r in gca_runs if r["kernel"] == name},
                             temporal_sweep_launches=(temporal_group["launches"]
-                                                     if name == "aircomp" else 0))
+                                                     if name == "aircomp" else 0),
+                            server_launches={f"{r['method']} {r['transport']}":
+                                             r["launches"][name] for r in server_runs
+                                             if r["kernel"] == name})
                for name, line in (("aircomp", 175), ("quant_aircomp", 131),
                                   ("sparse_aircomp", 90))]
     for name, tpu, arch, timing in (

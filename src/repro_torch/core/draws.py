@@ -153,13 +153,18 @@ def init_draws(seed: int, fl: FLConfig, device) -> InitDraws:
     return draw_init(_temporal_generator(seed, device), fl)
 
 
+def seed_generators(seed: int, device):
+    """The three streams of a run seeded with ``seed``, on ``device``:
+    ``(gen, quant_gen, temporal_gen)``, as :func:`draw_round` takes them."""
+    return (_generator(seed, device), _generator(seed * 1_000_003 + 7, device),
+            _temporal_generator(seed, device))
+
+
 def round_draws(seed: int, fl: FLConfig, model_size: int, shard_size: int,
                 device) -> Iterator[RoundDraws]:
     """The ``fl.rounds`` rounds' draws of a run seeded with ``seed``, made on
     ``device``."""
-    gen = _generator(seed, device)
-    quant_gen = _generator(seed * 1_000_003 + 7, device)
-    temporal_gen = _temporal_generator(seed, device)
+    gen, quant_gen, temporal_gen = seed_generators(seed, device)
     draw_init(temporal_gen, fl)   # the initial state's; see init_draws
     for _ in range(fl.rounds):
         yield draw_round(gen, quant_gen, fl, model_size, shard_size,

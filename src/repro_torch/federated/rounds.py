@@ -1,0 +1,297 @@
+"""The production FL round: CA-AFL at model scale; port of
+``repro.federated.rounds``.
+
+One round:
+
+  1. every client computes its local gradient on its block of the batch;
+  2. per-example weights (selection mask × N/K) scale each client's
+     contribution, so the gradient of the weighted mean loss IS the
+     over-the-air superposition of eq. (10); the receiver noise σz/K is
+     added to the aggregated gradient;
+  3. the server optimizer applies it (plain SGD is the paper's
+     model-averaging for one local step; AdamW is the beyond-paper
+     option);
+  4. per-client mean losses come back for the λ-ascent (the paper's
+     control-channel scalars).
+
+Gradients come from ``torch.func`` on the model's ``loss_fn``, so the tier
+is generic over models with a ``per_example_nll``; the model zoo's
+families need backward passes through the port's models and raise
+(ROADMAP Queue 1 item 10(c)(ii)). The reference jits each round and scans
+over microbatches and over the probe's clients; here a round is eager
+PyTorch, microbatches are a Python loop and the probe is one
+``torch.func.vmap`` over the N client blocks.
+
+Randomness is an input, as everywhere in the port: a round takes the
+receiver noise z as a flat [P] vector in sorted-leaf order (the round's
+``RoundDraws.noise``) instead of a key. The reference draws it per leaf,
+and a leaf with ``ndim >= 2`` and more than 4 rows one row at a time
+(``add_awgn``); a test fills z from that discipline to match it.
+
+Selection, λ bookkeeping, channels and the energy ledger are host-side in
+``server.py`` (O(N) scalars: the paper's control channel).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch.func import grad_and_value, vmap
+
+from repro_torch.federated.client import client_weights
+from repro_torch.optim import apply_updates
+from repro_torch.utils.tree import leaf_names, ravel_stack, tree_l2_norm, unravel
+
+
+class FLRoundMetrics(NamedTuple):
+    loss: torch.Tensor           # weighted global loss (selected set)
+    client_losses: torch.Tensor  # [N] per-client mean loss (control channel)
+    grad_norm: torch.Tensor
+
+
+def make_fl_round(model, optimizer, num_clients: int, clients_per_round: int,
+                  noise_std: float = 0.0, ctx=None, microbatches: int = 1,
+                  fused_probe: bool = False, gather_k: bool = False):
+    """Returns round_fn(params, opt_state, batch, mask, z=None) -> (params,
+    opt_state, FLRoundMetrics).
+
+    batch must carry "client_ids" [B] mapping each example to its client;
+    ``z`` [P] is the receiver noise, read only when ``noise_std`` is not 0.
+    ``microbatches`` > 1 accumulates gradients over B/microbatches slices in
+    the params' dtype, each term divided by ``microbatches`` first (each
+    client's rows must be contiguous so every slice covers all clients).
+
+    ``gather_k=True`` builds the selected-K gather round instead:
+    ``round_fn(params, opt_state, batch, mask, idx, z=None)`` takes the
+    top-K index vector [K] of ``selection.select_clients_sparse`` and runs
+    the descent forward and backward on only the K selected clients'
+    example blocks, with the full batch's ``/B`` normalizer, so the update
+    equals the dense round's to summation order. It needs the canonical
+    batch layout (block j = client j's B/N contiguous examples; the server
+    checks it on the host and falls back to the dense round otherwise) and
+    is exclusive with ``microbatches``/``fused_probe``. Gated slots ride
+    along with weight 0.
+
+    ``fused_probe`` (beyond the paper): the per-client losses of the
+    λ-ascent come from the descent forward at w^t instead of a second
+    forward at w^{t+1}, one round stale.
+    """
+    if not 1 <= clients_per_round <= num_clients:
+        raise ValueError(
+            f"clients_per_round={clients_per_round} must be in "
+            f"[1, num_clients={num_clients}]")
+    if gather_k:
+        if microbatches != 1 or fused_probe:
+            raise ValueError(
+                "gather_k is exclusive with microbatches/fused_probe: the "
+                "gathered sub-batch covers only the selected clients")
+        return _make_gather_round(model, optimizer, num_clients, noise_std,
+                                  ctx)
+
+    def weighted_loss_and_perex(p, b, mask):
+        # K is the actual scheduled count: the static clients_per_round for
+        # exact-K selection, and the eq. (10) normalizer when gating (or
+        # GCA) schedules a varying number of clients
+        k_sched = torch.clamp_min(torch.sum(mask), 1.0)
+        w = client_weights(mask, b["client_ids"], k_sched)
+        if fused_probe:
+            per_ex = _per_example_nll(model, p, b, ctx)
+            return torch.mean(per_ex * w), per_ex
+        b = dict(b)
+        b["weights"] = w
+        return model.loss_fn(p, b, ctx), torch.zeros_like(w)
+
+    def loss_and_grads(params, b, mask):
+        """(grads, loss, per-example NLL) of one (micro)batch."""
+        grads, (loss, per_ex) = grad_and_value(
+            lambda p: weighted_loss_and_perex(p, b, mask), has_aux=True)(params)
+        return grads, loss, per_ex
+
+    def round_fn(params, opt_state, batch, mask, z=None):
+        cids = batch["client_ids"]
+        if microbatches == 1:
+            grads, loss, per_ex = loss_and_grads(params, batch, mask)
+        else:
+            bsz = cids.shape[0]
+            if bsz % microbatches:
+                raise ValueError(f"batch of {bsz} does not split into "
+                                 f"{microbatches} microbatches")
+            mb = {k: v.reshape((microbatches, bsz // microbatches) + v.shape[1:])
+                  for k, v in batch.items()}
+            # accumulate in the params' dtype (an f32 accumulator would cost
+            # 2x the params' bytes at scale); each term pre-divided
+            loss = torch.zeros((), dtype=torch.float32, device=cids.device)
+            grads = {name: torch.zeros_like(params[name])
+                     for name in leaf_names(params)}
+            per_mb = []
+            for i in range(microbatches):
+                g, l, pe = loss_and_grads(params, {k: v[i] for k, v in mb.items()},
+                                          mask)
+                loss = loss + l / microbatches
+                grads = {name: grads[name] + g[name] / microbatches
+                         for name in leaf_names(grads)}
+                per_mb.append(pe)
+            per_ex = torch.cat(per_mb)
+
+        # AirComp receiver noise z/K on the aggregated update, K the actual
+        # scheduled count (the same normalizer as the gradient weights)
+        if noise_std:
+            grads = add_awgn(grads, z, noise_std
+                             / torch.clamp_min(torch.sum(mask), 1.0))
+
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        params = apply_updates(params, updates)
+
+        if fused_probe:
+            # beyond the paper: stale (w^t) losses from the descent forward
+            client_losses = _segment_mean(per_ex, cids, num_clients)
+        else:
+            # Alg. 1 line 12: a second forward on the NEW model
+            client_losses = per_client_losses(model, params, batch,
+                                              num_clients, ctx,
+                                              microbatches=microbatches)
+        return params, opt_state, FLRoundMetrics(
+            loss=loss, client_losses=client_losses,
+            grad_norm=tree_l2_norm(grads))
+
+    return round_fn
+
+
+def _make_gather_round(model, optimizer, num_clients: int, noise_std, ctx):
+    """The selected-K production round (``make_fl_round(gather_k=True)``).
+
+    The dense round's weighted mean over all B examples is
+    ``(1/B)·Σ_b mask[cid_b]·(N/K)·nll_b``: every unselected example adds an
+    exact 0 yet pays its forward and backward. Here the K selected blocks
+    are gathered first and the same sum runs over K·(B/N) examples with the
+    same ``/B``. The λ-ascent probe stays full-population.
+    """
+
+    def round_fn(params, opt_state, batch, mask, idx, z=None):
+        bsz = batch["client_ids"].shape[0]
+        m = bsz // num_clients  # examples per client block
+        k_sched = torch.clamp_min(torch.sum(mask), 1.0)
+        idx = idx.long()
+        rows = (idx[:, None] * m
+                + torch.arange(m, device=idx.device)[None, :]).reshape(-1)
+        sub = {name: v[rows] for name, v in batch.items()}
+        # the gathered rows' weights: the dense round's mask[cid]·N/K, with
+        # gated slots (mask[idx] == 0) adding 0
+        w = torch.repeat_interleave(mask[idx], m) * (num_clients / k_sched)
+
+        def loss_fn(p):
+            per_ex = _per_example_nll(model, p, sub, ctx)
+            return torch.sum(per_ex * w) / bsz
+
+        grads, loss = grad_and_value(loss_fn)(params)
+        if noise_std:
+            grads = add_awgn(grads, z, noise_std / k_sched)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        params = apply_updates(params, updates)
+        client_losses = per_client_losses(model, params, batch, num_clients,
+                                          ctx)
+        return params, opt_state, FLRoundMetrics(
+            loss=loss, client_losses=client_losses,
+            grad_norm=tree_l2_norm(grads))
+
+    return round_fn
+
+
+def add_awgn(grads: dict, z: torch.Tensor, std) -> dict:
+    """grads + std·z (eq. 10's receiver noise), ``z`` the flat [P] standard
+    normals in sorted-leaf order, split back into the leaves; ``std`` a
+    number or a 0-d tensor."""
+    noise = unravel(grads, z, lead=0)
+    return {name: grads[name] + std * noise[name] for name in leaf_names(grads)}
+
+
+def _per_example_nll(model, params, batch, ctx):
+    """[B] per-example NLL of a model with a ``per_example_nll`` (e.g.
+    ``models.logreg.logistic_regression_prod``)."""
+    if hasattr(model, "per_example_nll"):
+        return model.per_example_nll(params, batch)
+    raise NotImplementedError(
+        "the production tier runs models with a per_example_nll (e.g. "
+        "models.logreg.logistic_regression_prod); training the model zoo's "
+        "families needs backward passes through the port's models, not "
+        "ported yet (ROADMAP Queue 1 item 10(c)(ii))")
+
+
+def _segment_mean(per_ex: torch.Tensor, cids: torch.Tensor,
+                  num_clients: int) -> torch.Tensor:
+    """[N] mean of ``per_ex`` over each client's examples (0 for a client
+    with none)."""
+    cids = cids.long()
+    sums = torch.zeros((num_clients,), dtype=per_ex.dtype,
+                       device=per_ex.device).index_add_(0, cids, per_ex)
+    cnts = torch.zeros((num_clients,), dtype=per_ex.dtype,
+                       device=per_ex.device).index_add_(0, cids,
+                                                        torch.ones_like(per_ex))
+    return sums / torch.clamp_min(cnts, 1.0)
+
+
+def per_client_losses(model, params, batch, num_clients: int, ctx=None,
+                      microbatches: int = 1) -> torch.Tensor:
+    """[N] mean loss per client: forward only, per-example NLL, segment
+    mean. Alg. 1's ascent-side f_i(w̄^{t+1}; ξ̃) for all clients at once
+    (the server masks it down to the ascent set), microbatched with the
+    descent pass's slicing."""
+    cids = batch["client_ids"]
+    if microbatches == 1:
+        per_ex = _per_example_nll(model, params, batch, ctx)
+    else:
+        bsz = cids.shape[0]
+        mb = {k: v.reshape((microbatches, bsz // microbatches) + v.shape[1:])
+              for k, v in batch.items()}
+        per_ex = torch.cat([
+            _per_example_nll(model, params, {k: v[i] for k, v in mb.items()}, ctx)
+            for i in range(microbatches)])
+    return _segment_mean(per_ex, cids, num_clients)
+
+
+def make_grad_norm_probe(model, num_clients: int, ctx=None,
+                         with_grads: bool = False):
+    """GCA's control-channel probe: [N] per-client gradient norms at w^t.
+
+    GCA needs ‖∇f_i(w^t)‖ before the round's mask exists, so each client's
+    mean-loss gradient is taken on its own block: one ``torch.func.vmap``
+    of ``grad_and_value`` over the [N, B/N, ...] blocks (one batched
+    forward and backward; the reference scans the clients one at a time).
+    The batch must hold each client's examples contiguous and equally
+    sized (B % N == 0).
+
+    ``with_grads=True`` returns ``(norms [N], losses [N], grads [N, P])``,
+    each client's mean gradient raveled to a flat f32 row (sorted-leaf
+    order) and its mean loss at w^t: the server reuses them as the round's
+    update. Every output is scattered by each block's observed client id,
+    so permuted blocks still land on the right client.
+    """
+
+    def client_loss(params, cbatch):
+        return torch.mean(_per_example_nll(model, params, cbatch, ctx))
+
+    per_client = vmap(grad_and_value(client_loss), in_dims=(None, 0))
+
+    def probe(params, batch):
+        bsz = batch["client_ids"].shape[0]
+        if bsz % num_clients:
+            raise ValueError("the probe needs equal per-client batches")
+        mb = {k: v.reshape((num_clients, bsz // num_clients) + v.shape[1:])
+              for k, v in batch.items()}
+        grads, losses = per_client(params, mb)
+        obs = mb["client_ids"][:, 0].long()
+
+        def scatter(v):
+            return torch.zeros_like(v).index_copy_(0, obs, v)
+
+        if not with_grads:
+            norms = torch.sqrt(sum(
+                torch.sum(torch.square(grads[name].to(torch.float32)).flatten(1),
+                          dim=-1)
+                for name in leaf_names(grads)))
+            return scatter(norms)
+        flats = ravel_stack(grads, torch.float32, lead=1)
+        norms = torch.sqrt(torch.sum(torch.square(flats), dim=-1))
+        return scatter(norms), scatter(losses), scatter(flats)
+
+    return probe

@@ -13,6 +13,10 @@ broadcast axis as a row or column block of one matrix product instead of
 copying the other operand along it. ``grad`` is the closed form of the mean
 cross-entropy's gradient, so local SGD on a [G, K, ...] stack is a few
 batched matrix products.
+
+``logistic_regression_prod`` is the same model behind the production
+tier's interface (``repro_torch.federated``): batches are dicts, and its
+gradients come from autograd, not from ``grad``.
 """
 from __future__ import annotations
 
@@ -29,6 +33,19 @@ class SimModel(NamedTuple):
     loss: Callable      # (params, x, y) -> mean loss over the last batch axis
     accuracy: Callable  # (params, x, y) -> accuracy over the last batch axis
     grad: Callable      # (params, x, y) -> d loss / d params, per client
+
+
+class ProdSimModel(NamedTuple):
+    """Production-tier (``federated.rounds``/``ParameterServer``) interface
+    over a simulator model: batches are dicts with ``x``/``labels``/
+    ``client_ids`` (+ optional per-example ``weights``), and the
+    per-example NLL feeds the λ-ascent control channel. This is what lets
+    one logreg run through both tiers for the cross-tier tests."""
+
+    init: Callable             # device -> params
+    loss_fn: Callable          # (params, batch, ctx) -> scalar weighted loss
+    per_example_nll: Callable  # (params, batch) -> [B]
+    accuracy: Callable         # (params, x, y) -> scalar
 
 
 def _logits(params, x):
@@ -65,6 +82,34 @@ def logistic_regression(dim: int = 784, num_classes: int = 10) -> SimModel:
                 "w": torch.matmul(x.transpose(-1, -2), g)}
 
     return SimModel(init, loss, accuracy, grad)
+
+
+def logistic_regression_prod(dim: int = 784,
+                             num_classes: int = 10) -> ProdSimModel:
+    """The paper's logreg wearing the production-tier model interface.
+
+    Shares ``logistic_regression``'s init (zeros), so both tiers start from
+    identical parameters. Every function is plain differentiable PyTorch
+    on one batch [B, ...] (``torch.func.vmap`` adds the client axis of the
+    gradient probe).
+    """
+    sim = logistic_regression(dim, num_classes)
+
+    def per_example_nll(params, batch):
+        logits = torch.matmul(batch["x"], params["w"]) + params["b"]
+        logp = torch.log_softmax(logits, dim=-1)
+        return -torch.gather(logp, -1,
+                             batch["labels"].long().unsqueeze(-1)).squeeze(-1)
+
+    def loss_fn(params, batch, ctx=None):
+        per_ex = per_example_nll(params, batch)
+        if "weights" in batch:
+            per_ex = per_ex * batch["weights"]
+        return torch.mean(per_ex)
+
+    return ProdSimModel(init=sim.init, loss_fn=loss_fn,
+                        per_example_nll=per_example_nll,
+                        accuracy=sim.accuracy)
 
 
 def params_from_jax(np_params, device=None) -> dict:

@@ -54,3 +54,10 @@ def unravel(template: dict, flat: torch.Tensor, lead: int = 1) -> dict:
                      .to(template[name].dtype))
         off += size
     return out
+
+
+def tree_l2_norm(tree: dict) -> torch.Tensor:
+    """The f32 L2 norm over every leaf: sqrt of the per-leaf sums of
+    squares, added in sorted-key order."""
+    return torch.sqrt(sum(torch.sum(torch.square(leaf.to(torch.float32)))
+                          for leaf in tree_leaves(tree)))

@@ -488,6 +488,52 @@ def test_gca_round_on_the_card_equals_the_cpu(card):
     assert len(set(cpu.num_scheduled.tolist())) > 1
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,transport,kernel", [
+    ("ca_afl", "quantized", "quant_aircomp"), ("ca_afl", "sparse", "sparse_aircomp"),
+    ("gca", "analog", "aircomp")])
+def test_server_kernel_paths_launch_once_a_step_and_equal_the_cpu(card, method,
+                                                                  transport, kernel):
+    """The parameter server's three kernel paths at quickstart scale (N = 20,
+    64-dim inputs, 10 examples a client, 5 steps): the path's kernel once a
+    step over all N rows and no other, and the card's steps equal to the
+    CPU's on the same draws and batches (num_scheduled exactly, energy rtol
+    1e-5, λ atol 1e-6, params rtol 1e-5 / atol 1e-6, loss rtol 1e-4)."""
+    import warnings
+
+    from repro_torch.core.draws import round_draws
+    from repro_torch.federated.server import ParameterServer
+    from repro_torch.models.logreg import logistic_regression_prod
+    from repro_torch.optim import sgd
+    fl = FLConfig(num_clients=20, clients_per_round=8, rounds=5, batch_size=10,
+                  lr0=0.3, noise_std=1e-2, method=method, transport=transport)
+    rng = np.random.default_rng(0)
+    batch = {"x": rng.normal(size=(200, 64)).astype(np.float32),
+             "labels": rng.integers(0, 10, 200).astype(np.int32),
+             "client_ids": np.repeat(np.arange(20), 10).astype(np.int32)}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # quantized/sparse bypass the optimizer
+        cpu, gpu = (ParameterServer(logistic_regression_prod(64, 10), sgd(fl.lr0), fl,
+                                    device=dev) for dev in ("cpu", card))
+    counters = {"aircomp": aircomp_cuda, "quant_aircomp": quant_aircomp_cuda,
+                "sparse_aircomp": sparse_aircomp_cuda}
+    before = {name: c.launches for name, c in counters.items()}
+    sc, sg = cpu.init_state(), gpu.init_state()
+    for d in round_draws(0, fl, 650, 1, "cpu"):
+        sc, sg = cpu.step(sc, batch, d), gpu.step(sg, batch, d.to(card))
+    torch.cuda.synchronize()
+    for name, c in counters.items():
+        assert c.launches - before[name] == (fl.rounds if name == kernel else 0), name
+    for rc, rg in zip(sc.history, sg.history, strict=True):
+        assert rg["num_scheduled"] == rc["num_scheduled"]
+        np.testing.assert_allclose(rg["energy_j"], rc["energy_j"], rtol=1e-5)
+        np.testing.assert_allclose(rg["loss"], rc["loss"], rtol=1e-4)
+    np.testing.assert_allclose(sg.lam.cpu().numpy(), sc.lam.numpy(), rtol=0, atol=1e-6)
+    for name in sc.params:
+        np.testing.assert_allclose(sg.params[name].cpu().numpy(), sc.params[name].numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+
+
 # ---------------------------------------------------------------------------
 # rmsnorm and flash attention (the dense decoder's serve path)
 # ---------------------------------------------------------------------------

@@ -25,7 +25,9 @@ CHIP_SMOKE = SRC.parents[1] / "chip_smoke.py"
 def test_port_imports_no_jax_and_no_reference_package():
     modules = sorted(m.name for m in pkgutil.walk_packages([str(SRC)], "repro_torch."))
     assert {"repro_torch.core.simulator", "repro_torch.models.xlstm",
-            "repro_torch.kernels.slstm.ops", "repro_torch.configs.xlstm_1_3b"} <= set(modules)
+            "repro_torch.kernels.slstm.ops", "repro_torch.configs.xlstm_1_3b",
+            "repro_torch.federated.server", "repro_torch.federated.rounds",
+            "repro_torch.optim.adamw", "repro_torch.data.pipeline"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
@@ -57,21 +59,34 @@ def test_entry_point_without_device_raises_when_no_card(monkeypatch):
 
 @pytest.mark.parametrize("entry", ["init_sim_state", "transport_from_config",
                                    "scenario_from_config", "sweep_point_from_config",
-                                   "logreg_init", "logreg_params_from_jax"])
+                                   "logreg_init", "logreg_params_from_jax",
+                                   "ParameterServer", "server_init_state",
+                                   "sgd_init", "adamw_init", "chain_init"])
 def test_public_function_without_device_raises_when_no_card(monkeypatch, entry):
     """``device=None`` means the card, as at every entry point: without one
     these raise, and with ``device="cpu"`` they build on the CPU."""
+    from repro_torch import optim
     from repro_torch.core import channel, simulator, sweep, transport
+    from repro_torch.federated.server import ParameterServer
     from repro_torch.models import logreg
     fl = FLConfig(num_clients=4, clients_per_round=2, rounds=1, batch_size=2)
     model = logistic_regression(3, 10)
     params = {"b": np.zeros(10, np.float32), "w": np.zeros((3, 10), np.float32)}
+    tparams = {k: torch.from_numpy(v) for k, v in params.items()}
+    server = lambda dev: ParameterServer(logreg.logistic_regression_prod(3, 10),  # noqa: E731
+                                         optim.sgd(0.1), fl, device=dev)
     call = {"init_sim_state": lambda dev: simulator.init_sim_state(model, fl, dev),
             "transport_from_config": lambda dev: transport.transport_from_config(fl, dev),
             "scenario_from_config": lambda dev: channel.scenario_from_config(fl, dev),
             "sweep_point_from_config": lambda dev: sweep.sweep_point_from_config(fl, dev),
             "logreg_init": lambda dev: model.init(dev),
-            "logreg_params_from_jax": lambda dev: logreg.params_from_jax(params, dev)}[entry]
+            "logreg_params_from_jax": lambda dev: logreg.params_from_jax(params, dev),
+            "ParameterServer": lambda dev: server(dev).scenario,
+            "server_init_state": lambda dev: server(dev).init_state(),
+            "sgd_init": lambda dev: optim.sgd(0.1, momentum=0.9).init(tparams, dev),
+            "adamw_init": lambda dev: optim.adamw(0.1).init(tparams, dev),
+            "chain_init": lambda dev: optim.chain(optim.clip_by_global_norm(1.0),
+                                                  optim.sgd(0.1)).init(tparams, dev)}[entry]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call(None)
