@@ -67,7 +67,23 @@ these phases and fails (non-zero exit, no result line) if any of them fails:
      each: no kernel under ca_afl analog and digital, quant_aircomp /
      sparse_aircomp exactly 30 times over all 100 rows under quantized /
      sparse, aircomp 30 times under GCA analog (its probe-reuse apply),
-     quant_aircomp 30 times under GCA quantized, no other kernel;
+     quant_aircomp 30 times under GCA quantized, no other kernel; then the
+     sharded control plane (``control_plane="sharded"``, per-id draws from
+     the hash stream, the top-k tree, the bisection projection) at the same
+     width on one card: CA-AFL under the four transports, GCA analog and
+     CA-AFL analog under battery_constrained, 30 rounds each, the
+     transport's kernel exactly 30 times over the [K, P] slots (none under
+     GCA analog), each run against the CPU's on the same hash stream
+     (discrete fields equal, a gate decided apart at a near-tie allowed as
+     above, the rest to the simulator's tolerances), rounds/s beside the
+     replicated main path's; ``run_simulation_control_sharded`` over a
+     one-rank NCCL process group (a ``FileStore`` in a temporary directory)
+     under analog, quantized and sparse with the flat tree and fan-in 1,
+     each equal to the one-device run (discrete exactly, the rest within
+     rtol 2e-5, atol 2e-6); and popscale's shapes (DIM 16, 4 classes, 2
+     samples a client, K = 32) at N = 10⁴, 10⁵ and 10⁶ on the card: rounds/s,
+     aircomp 4 times in 4 rounds, and the peak bytes the run allocates
+     above its inputs, which per client must stay within 1.6× of N = 10⁴'s;
   4. the serve path at full width, f32 with TF32 off, through
      ``repro_torch.launch.serve``, random weights from a seed, run A (the
      launcher's defaults: batch 4, prompt 32, 32 tokens) and run B (a long
@@ -84,9 +100,11 @@ these phases and fails (non-zero exit, no result line) if any of them fails:
   5. after all the timed runs of 3 and 4, a torch.profiler window over each
      (device time, the device's busy share, device time by kernel), over
      one sweep group per transport (G = 20, 10 rounds), over 10 rounds
-     of a temporal analog run and of a GCA quantized run, and over 10
+     of a temporal analog run and of a GCA quantized run, over 10
      server steps of ca_afl quantized and of GCA analog (launches a step,
-     device ms, busy share, the kernel's µs a launch at [100, 7850]);
+     device ms, busy share, the kernel's µs a launch at [100, 7850]), and
+     over 10 rounds of the sharded plane's CA-AFL analog and quantized
+     runs beside the replicated main path's windows;
   6. the card against the CPU: the simulator on the same ``RoundDraws`` at
      quickstart scale for analog, quantized and sparse; each serve path on
      the same full-width weights (xlstm-1.3b cut to one super-block, 8
@@ -585,7 +603,7 @@ def phase_main_path(torch, counters, data, transport):
     hist, wall, launches = timed_run(torch, counters, model, fl, data)
     check_launches(launches, {kernel: fl.rounds}, f"main path {transport}")
     check_history(torch, hist, fl.rounds, fl.clients_per_round)
-    emit({"main_path": {
+    entry = {
         "model": cfg.name, "transport": transport,
         "P": 7850,
         "N": fl.num_clients, "K": fl.clients_per_round, "batch": fl.batch_size,
@@ -594,8 +612,9 @@ def phase_main_path(torch, counters, data, transport):
         "wall_s": wall, "rounds_per_s": fl.rounds / wall, "launches": launches,
         "final_avg_acc": float(hist.avg_acc[-1]),
         "final_worst_acc": float(hist.worst_acc[-1]),
-        "energy_J": float(hist.energy[-1])}})
-    return launches[kernel]
+        "energy_J": float(hist.energy[-1])}
+    emit({"main_path": entry})
+    return entry
 
 
 def phase_main_path_trace(torch, data, transport):
@@ -1550,6 +1569,261 @@ def phase_server_card_vs_cpu(torch, data, steps=5):
 
 
 # ---------------------------------------------------------------------------
+# The sharded control plane: per-id draws, the top-k tree, the bisection
+# ---------------------------------------------------------------------------
+
+FMA_TOL = dict(rtol=2e-5, atol=2e-6)   # the reference's mesh-vs-one-device bound
+# (label, method, transport, scenario) of the sharded plane's full-width runs
+SHARDED_RUNS = (("ca_afl analog", "ca_afl", "analog", None),
+                ("ca_afl quantized", "ca_afl", "quantized", None),
+                ("ca_afl sparse", "ca_afl", "sparse", None),
+                ("ca_afl digital", "ca_afl", "digital", None),
+                ("gca analog", "gca", "analog", None),
+                ("ca_afl analog battery", "ca_afl", "analog", "battery_constrained"))
+
+
+def sharded_config(method, transport, scenario=None):
+    """The main path's configuration (N = 100, K = 40, batch 50, P = 7850,
+    σ = 1e-2, T = 30) under the sharded control plane."""
+    from repro_torch.core.channel import SCENARIOS
+
+    cfg, fl, model = main_path_config(transport)
+    fl = replace(fl, method=method, control_plane="sharded",
+                 **(SCENARIOS[scenario] if scenario else {}))
+    return cfg, fl, model
+
+
+def sharded_want(method, transport):
+    """The launches of a 30-round sharded run: an exact-K round launches its
+    transport's kernel once over the [K, P] slots; GCA aggregates per leaf
+    under analog and digital (no kernel, as on the replicated plane)."""
+    if method == "gca" and transport in ("analog", "digital"):
+        return {}
+    return {TRANSPORT_KERNEL[transport]: 30}
+
+
+def unbatched_log(log):
+    """A ``RoundLog`` of the sharded plane's one-cell round, its [N]
+    records given the cell axis ``near_tie`` reads."""
+    log.gates = [(a[None], b[None]) for a, b in log.gates]
+    log.gca = [(a[None], b[None]) for a, b in log.gca]
+    return log
+
+
+def phase_control_sharded(torch, counters, data, main_runs):
+    """The sharded control plane at full width, one device (ids =
+    arange(N)): CA-AFL under the four transports, GCA analog and CA-AFL
+    analog under battery_constrained, 30 timed rounds each with its launch
+    counts exact; finite histories; then each run again on the CPU with the
+    same hash stream (``HashDraws(0)`` there), the card's discrete fields
+    equal (a battery gate or GCA threshold decided apart within 4 ulps of a
+    tie allowed, and then compared up to that round) and the continuous
+    ones within the simulator's tolerances. rounds/s beside the replicated
+    plane's main path of the same transport in this call."""
+    from repro_torch.core.draws import HashDraws
+    from repro_torch.core.simulator import run_simulation
+
+    cpu_data = tuple(a.cpu() for a in data)
+    out, hists = [], {}
+    for label, method, transport, scenario in SHARDED_RUNS:
+        cfg, fl, model = sharded_config(method, transport, scenario)
+        what = f"control_sharded {label}"
+        run_simulation(model, replace(fl, rounds=3), data, seed=1)  # warm-up
+        hist, wall, launches = timed_run(torch, counters, model, fl, data)
+        check_launches(launches, sharded_want(method, transport), what)
+        check_finite_history(torch, hist, what)
+        with RoundLog() as log:
+            cpu = run_simulation(model, fl, cpu_data, seed=0, device="cpu",
+                                 draws=HashDraws(0, "cpu"))
+        r = first_discrete_divergence(hist, cpu)
+        got, want = hist, cpu
+        if r is not None:
+            accept_divergence(unbatched_log(log), r, 0, what)
+            got, want = head(hist, r), head(cpu, r)
+        budget = fl.battery_init
+        bad = history_mismatch(got, want, data[3].shape[1], budget)
+        sched = hist.num_scheduled.cpu()
+        replicated = next((m for m in main_runs if m["transport"] == transport), None)
+        entry = {"run": label, "method": method, "transport": transport,
+                 "scenario": scenario or "default", "N": fl.num_clients,
+                 "K": fl.clients_per_round, "P": 7850, "rounds": fl.rounds,
+                 "wall_s": wall, "rounds_per_s": fl.rounds / wall,
+                 "replicated_rounds_per_s": (replicated["rounds_per_s"]
+                                             if replicated and method == "ca_afl"
+                                             and scenario is None else None),
+                 "launches": launches,
+                 "num_scheduled_min": float(sched.min()),
+                 "num_scheduled_max": float(sched.max()),
+                 "avail_count_min": float(hist.avail_count.min()),
+                 "energy_J": float(hist.energy[-1]),
+                 "final_worst_acc": float(hist.worst_acc[-1]),
+                 "card_vs_cpu_discrete_divergence_round": r,
+                 "card_vs_cpu_mismatch": bad or None,
+                 "card_vs_cpu_max_lam_diff": float((got.lam.cpu() - want.lam).abs().max())
+                 if got.lam.shape[0] else None}
+        emit({"control_sharded": entry})
+        if bad:
+            raise AssertionError(f"{what}: card and CPU differ (field: first "
+                                 f"round): {bad}")
+        out.append(entry)
+        hists[label] = hist
+    return out, hists
+
+
+def phase_control_sharded_mesh(torch, counters, data, one_device):
+    """``run_simulation_control_sharded`` over a one-rank NCCL process
+    group (a ``FileStore`` in a temporary directory, destroyed at the end)
+    for CA-AFL under analog, quantized and sparse, with the flat top-k tree
+    and with fan-in 1: each equal to the one-device run of the phase above
+    (discrete fields exactly, continuous ones within rtol 2e-5, atol 2e-6,
+    the reference's mesh bound), its transport's kernel 30 times."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core.sharding import ClientAxis, run_simulation_control_sharded
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    out = []
+    try:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        axis = ClientAxis()
+        for transport in ("analog", "quantized", "sparse"):
+            cfg, fl, model = sharded_config("ca_afl", transport)
+            one = one_device[transport]
+            for group_size in (None, 1):
+                what = f"control_sharded_mesh {transport} group_size={group_size}"
+                torch.cuda.synchronize()
+                for c in counters.values():
+                    c.launches = 0
+                t0 = time.perf_counter()
+                hist = run_simulation_control_sharded(model, fl, data, axis, seed=0,
+                                                      group_size=group_size)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = {name: c.launches for name, c in counters.items()}
+                check_launches(launches, sharded_want("ca_afl", transport), what)
+                worst, equal = {}, []
+                for f in one._fields:
+                    a, b = getattr(hist, f).double().cpu(), getattr(one, f).double().cpu()
+                    if torch.equal(a, b):
+                        equal.append(f)
+                    if f in ("num_scheduled", "avail_count"):
+                        if not torch.equal(a, b):
+                            raise AssertionError(f"{what}: {f} differs from the "
+                                                 "one-device run")
+                        continue
+                    if a.shape != b.shape:
+                        raise AssertionError(f"{what}: {f} shape {a.shape} != {b.shape}")
+                    excess = torch.where(a == b, 0.0, (a - b).abs()
+                                         - (FMA_TOL["atol"] + FMA_TOL["rtol"] * b.abs()))
+                    worst[f] = float(excess.max())
+                entry = {"transport": transport, "group_size": group_size,
+                         "ranks": axis.size, "backend": dist.get_backend(),
+                         "rounds_per_s": fl.rounds / wall, "launches": launches,
+                         "max_excess_over_tolerance": max(worst.values()),
+                         "bit_equal_fields": equal}
+                emit({"control_sharded_mesh": entry})
+                if max(worst.values()) > 0:
+                    raise AssertionError(f"{what}: beyond tolerance: {worst}")
+                out.append(entry)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+POPSCALE_N = (10_000, 100_000, 1_000_000)
+POPSCALE_CEILING = 1.6   # the reference's CEILING_FACTOR
+
+
+def phase_popscale(torch, counters):
+    """The sharded control plane at popscale's shapes on one card (DIM 16,
+    4 classes, 2 samples a client, K = 32, batch 2, one local step, flat
+    fading, eval and λ snapshot every T rounds): N ∈ {10⁴, 10⁵, 10⁶},
+    data from a seeded generator on the card, T = 4 timed rounds after a
+    warm-up. Per N: rounds/s, aircomp exactly T times over [32, 68], and
+    the peak bytes the run allocates above its inputs
+    (``reset_peak_memory_stats``/``max_memory_allocated``), in total and
+    per client; per-client bytes must stay within 1.6× of the smallest
+    N's (a [N, P], [N, K] or per-draw [N] buffer held per client would
+    break it)."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core.simulator import run_simulation
+    from repro_torch.models.logreg import logistic_regression
+
+    dim, cls, shard, k, rounds = 16, 4, 2, 32, 4
+    model = logistic_regression(dim, cls)
+    rows = []
+    for n in POPSCALE_N:
+        fl = FLConfig(num_clients=n, clients_per_round=k, rounds=rounds,
+                      batch_size=shard, local_steps=1, num_subcarriers=1,
+                      method="ca_afl", lr0=0.1, ascent_lr=1e-2,
+                      control_plane="sharded", eval_every=rounds,
+                      record_lambda_every=rounds)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        x = torch.randn((n, shard, dim), generator=gen, device="cuda")
+        y = torch.randint(0, cls, (n, shard), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        data = (x, y, x, y)
+        run_simulation(model, replace(fl, rounds=1), data, seed=1)   # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        hist, wall, launches = timed_run(torch, counters, model, fl, data)
+        peak = torch.cuda.max_memory_allocated()
+        check_launches(launches, {"aircomp": rounds}, f"popscale N={n}")
+        if not bool(torch.isfinite(hist.lam).all()) or \
+                abs(float(hist.lam.double().sum()) - 1.0) > 1e-4:
+            raise AssertionError(f"popscale N={n}: λ is not a finite simplex")
+        if float(hist.num_scheduled.max()) > k or not bool(torch.isfinite(hist.avg_acc).all()):
+            raise AssertionError(f"popscale N={n}: bad history")
+        row = {"N": n, "rounds": rounds, "wall_s": wall, "rounds_per_s": rounds / wall,
+               "launches": launches, "input_bytes": base,
+               "peak_bytes_total": peak, "run_peak_bytes": peak - base,
+               "run_peak_bytes_per_client": (peak - base) / n,
+               "total_peak_bytes_per_client": peak / n,
+               "lam_history_shape": list(hist.lam.shape)}
+        emit({"popscale": row})
+        rows.append(row)
+        del x, y, data, hist
+        torch.cuda.empty_cache()
+    first = rows[0]["run_peak_bytes_per_client"]
+    worst = max(r["run_peak_bytes_per_client"] for r in rows)
+    emit({"popscale_ceiling": {"smallest_N_bytes_per_client": first,
+                               "largest_bytes_per_client": worst,
+                               "ratio": worst / first, "limit": POPSCALE_CEILING}})
+    if worst > POPSCALE_CEILING * first:
+        raise AssertionError(f"popscale: per-client peak bytes grew {worst / first:.2f}x "
+                             f"from N = {POPSCALE_N[0]} (limit {POPSCALE_CEILING}x)")
+    return rows
+
+
+def phase_control_sharded_trace(torch, data, main_traces):
+    """A profiler window over 10 rounds of the sharded plane's CA-AFL
+    analog and quantized runs, beside the replicated main path's window of
+    the same transport in this call: device launches a round, device ms a
+    round, busy share, the kernel's µs a launch."""
+    out = {}
+    for transport in ("analog", "quantized"):
+        _, fl, model = sharded_config("ca_afl", transport)
+        trace = profile_rounds(torch, model, replace(fl, rounds=10), data,
+                               TRANSPORT_KERNEL[transport])
+        rep = main_traces.get(TRANSPORT_KERNEL[transport])
+        emit({"control_sharded_trace": {
+            "transport": transport, **(trace or {}),
+            "replicated_device_launches_per_round":
+                rep and rep["device_launches_per_round"],
+            "replicated_device_ms_per_round": rep and rep["device_ms_per_round"]}})
+        out[transport] = trace
+    return out
+
+# ---------------------------------------------------------------------------
 # rmsnorm and flash attention: the serve path's kernels
 # ---------------------------------------------------------------------------
 
@@ -2117,18 +2391,24 @@ def main() -> int:
     cfg, fl = fmnist_logreg.CONFIG, fmnist_logreg.FL
     data = fmnist_data(torch, cfg.dim, cfg.num_train, cfg.num_test,
                        fl.num_clients, "cuda")
-    launches, traces = {}, {}
+    launches, traces, main_runs = {}, {}, []
     # every timed run before the first profiler window: a finished window
     # leaves the host slower at launching
-    for transport in TRANSPORT_KERNEL:
-        launches.setdefault(TRANSPORT_KERNEL[transport],
-                            phase_main_path(torch, counters, data, transport))
+    for transport, kernel in TRANSPORT_KERNEL.items():
+        main_runs.append(phase_main_path(torch, counters, data, transport))
+        launches.setdefault(kernel, main_runs[-1]["launches"][kernel])
     sweep_groups = phase_sweep(torch, counters, data)
     temporal_runs = phase_temporal(torch, counters, data)
     phase_temporal_degenerate(torch, data)
     gca_runs = phase_gca(torch, counters, data)
     temporal_group = phase_temporal_sweep(torch, counters, data)
     server_runs = phase_server(torch, counters, data)
+    sharded_runs, sharded_hists = phase_control_sharded(torch, counters, data,
+                                                        main_runs)
+    mesh_runs = phase_control_sharded_mesh(
+        torch, counters, data,
+        {t: sharded_hists[f"ca_afl {t}"] for t in ("analog", "quantized", "sparse")})
+    popscale_rows = phase_popscale(torch, counters)
     # one model on the card at a time, so each run's peak memory is its
     # own; a model is made again from its seed for its profiler windows
     serve_counts, serve_traces = {}, {}
@@ -2144,6 +2424,7 @@ def main() -> int:
         phase_sweep_trace(torch, data, transport)
     phase_temporal_gca_trace(torch, data)
     phase_server_trace(torch, data)
+    phase_control_sharded_trace(torch, data, traces)
     for arch in SERVE_ARCHS:
         served = serve_setup(torch, arch)
         for run in SERVE_RUNS:
@@ -2179,7 +2460,17 @@ def main() -> int:
                                                      if name == "aircomp" else 0),
                             server_launches={f"{r['method']} {r['transport']}":
                                              r["launches"][name] for r in server_runs
-                                             if r["kernel"] == name})
+                                             if r["kernel"] == name},
+                            control_sharded_launches={
+                                r["run"]: r["launches"][name] for r in sharded_runs
+                                if r["launches"][name]},
+                            control_sharded_mesh_launches={
+                                f"{r['transport']} group_size={r['group_size']}":
+                                r["launches"][name] for r in mesh_runs
+                                if r["launches"][name]},
+                            popscale_launches={r["N"]: r["launches"][name]
+                                               for r in popscale_rows
+                                               if r["launches"][name]})
                for name, line in (("aircomp", 175), ("quant_aircomp", 131),
                                   ("sparse_aircomp", 90))]
     for name, tpu, arch, timing in (

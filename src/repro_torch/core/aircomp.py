@@ -20,6 +20,12 @@ A batched round (``core/simulator.py``) gives every argument a leading cell
 axis [G]: the stack [G, K, ...], the weights [G, K], z [G, P], σ and k [G].
 :func:`fused_pass` then launches the kernel once per cell, so a round of G
 cells launches it G times, as G single runs would.
+
+:func:`aircomp_psum_tree` is eq. (10) over clients sharded along a
+``sharding.ClientAxis``: a local weighted partial sum, then a ``psum``
+across the shards (the over-the-air superposition is that all-reduce),
+then the replicated noise and the 1/K. It is plain PyTorch, as the
+reference's is plain jnp.
 """
 from __future__ import annotations
 
@@ -125,6 +131,28 @@ def aircomp_aggregate_tree(trees: dict, mask, z=None, noise_std=0.0, k=None):
                                     None if noise is None else noise[name],
                                     noise_std, k)
             for name in leaf_names(trees)}
+
+
+def aircomp_psum_tree(trees_local: dict, weights_local, axis, z=None,
+                      noise_std=0.0, k=None) -> dict:
+    """Population-sharded eq. (10): each leaf's weighted partial sum over
+    this shard's clients [n_local, ...], a ``psum`` over ``axis``, then the
+    AWGN (``z`` [P] in sorted-leaf order, the same on every shard) and the
+    1/k. ``k`` must be the global scheduled count (default: the psum of
+    the local weights)."""
+    if k is None:
+        k = axis.psum(torch.sum(weights_local))
+    noise = (None if is_static_zero(noise_std)
+             else unravel(trees_local, z, lead=1))
+    out = {}
+    for name in leaf_names(trees_local):
+        leaf = trees_local[name]
+        mshape = (-1,) + (1,) * (leaf.dim() - 1)
+        total = axis.psum(torch.sum(leaf * weights_local.reshape(mshape), dim=0))
+        if noise is not None:
+            total = total + noise_std * noise[name]
+        out[name] = total / k
+    return out
 
 
 def flat_awgn(gen: torch.Generator, model_size: int, dtype=torch.float32,

@@ -10,14 +10,18 @@ A batched round gives every draw a leading cell axis [G] and every
 scenario knob the shape [G] (``pathloss`` [G, N]). The temporal processes
 (``core/dynamics.py``) evolve the small-scale state themselves and share
 :func:`compose_channel`, with their shadow walk as ``walk_gain``; their
-named scenarios are in :data:`SCENARIOS` beside the static ones. The
-content-addressed per-client draws of the sharded control plane are not
-ported (ROADMAP Queue 1 item 9).
+named scenarios are in :data:`SCENARIOS` beside the static ones.
+
+The sharded control plane draws per client id (the ``*_ids`` functions):
+the round's ``chan`` stream (``draws.RoundStreams``) gives a client's
+fading normals at its id, its stream 1 the shadow normal, and a [N]
+``pathloss`` is indexed by the ids, so a row depends only on the client,
+never on which other rows are drawn with it.
 """
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any
 
 import torch
@@ -103,6 +107,46 @@ def draw_channels_scenario(chan_normal: torch.Tensor,
     if scenario.flat:
         mag = mag.expand(*mag.shape[:-1], num_subcarriers)
     return compose_channel(mag, shadow_normal, scenario)
+
+
+def rayleigh_mag_ids(chan, scenario: ChannelScenario, ids: torch.Tensor,
+                     num_subcarriers: int) -> torch.Tensor:
+    """Small-scale |CN(0, 1)| magnitudes [n, num_subcarriers] of the clients
+    ``ids`` from the round's ``chan`` stream (draw_sc = 1 when flat)."""
+    draw_sc = 1 if scenario.flat else num_subcarriers
+    re_im = chan.normal(ids, (2, draw_sc)) / math.sqrt(2.0)
+    mag = torch.sqrt(re_im[:, 0] ** 2 + re_im[:, 1] ** 2)
+    if scenario.flat:
+        mag = mag.expand(ids.shape[0], num_subcarriers)
+    return mag
+
+
+def ids_scenario(scenario: ChannelScenario, ids: torch.Tensor) -> ChannelScenario:
+    """``scenario`` with a per-client [N] ``pathloss`` cut to the rows
+    ``ids`` (an O(N) input is fine; the sharded plane avoids O(N) draws)."""
+    pathloss = torch.as_tensor(scenario.pathloss)
+    if pathloss.dim() != 1:
+        return scenario
+    return replace(scenario, pathloss=pathloss[ids.long()])
+
+
+def compose_channel_ids(mag: torch.Tensor, chan, scenario: ChannelScenario,
+                        ids: torch.Tensor, walk_gain=None) -> torch.Tensor:
+    """Per-id large-scale composition: mag × shadow × pathloss,
+    floor-clipped, with the i.i.d. shadow from stream 1 of ``chan`` at
+    ``ids`` and the [N] pathloss indexed by ``ids``."""
+    shadow_normal = chan.fold(1).normal(ids)[:, None]
+    return compose_channel(mag, shadow_normal, ids_scenario(scenario, ids),
+                           walk_gain=walk_gain)
+
+
+def draw_channels_scenario_ids(chan, scenario: ChannelScenario,
+                               ids: torch.Tensor,
+                               num_subcarriers: int) -> torch.Tensor:
+    """Channel magnitudes [n, num_subcarriers] of the clients ``ids``: row
+    c depends only on (the round's ``chan`` stream, ids[c])."""
+    mag = rayleigh_mag_ids(chan, scenario, ids, num_subcarriers)
+    return compose_channel_ids(mag, chan, scenario, ids)
 
 
 # Named FLConfig overrides, the reference's registry entry for entry.

@@ -25,15 +25,33 @@ cells that share a seed and a :func:`draw_signature` may share one stream,
 and a noise-free cell of a noisy group keeps its own stream (it draws no
 AWGN, so its later draws differ from a noisy cell's) and reads a zero AWGN
 row.
+
+The sharded control plane (``control_plane="sharded"``) cannot take a
+table of [N] rows a round: a shard holds only its own clients, and the
+round asks for values at ids it learns inside the round (the K winners'
+batch indices and rounding uniforms). Its randomness is an
+:class:`IdDraws` source instead, which answers ``(round, stream, ids) ->
+values``: ``source.round(t)`` gives the round's :class:`RoundStreams`, one
+:class:`Stream` a role in the reference's split order (``chan``, ``sel``,
+``batch``, ``noise``, ``asel``, ``abatch``), and ``stream.fold(i)`` a
+sub-stream, as ``fold_in`` does to a key. A client's values depend only on
+(source, round, stream, id), never on which other ids are asked, so a
+shard draws its own rows and a mesh run equals the one-device run.
+:class:`HashDraws` is the port's own source: a counter-based hash of
+(seed, round, stream, id, element) in exact integer arithmetic, which gives
+the same integers on the CPU and on the card. The receiver noise stays one
+[P] draw a round, addressed by round and element, the same on every rank.
 """
 from __future__ import annotations
 
-from typing import Iterator, NamedTuple, Optional, Sequence
+import math
+from typing import Callable, Iterator, NamedTuple, Optional, Sequence
 
 import torch
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.aircomp import flat_awgn
+from repro_torch.utils.device import resolve_device
 
 
 class RoundDraws(NamedTuple):
@@ -213,3 +231,203 @@ def stack_init_draws(cells: Sequence[InitDraws]) -> InitDraws:
     """G cells' initial draws as one ``InitDraws`` with a leading [G]."""
     vals = [d.fast_normal for d in cells]
     return InitDraws(None if vals[0] is None else torch.stack(vals))
+
+
+# ---------------------------------------------------------------------------
+# Id-addressed draws (the sharded control plane)
+# ---------------------------------------------------------------------------
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mix32(x: int) -> int:
+    """A 32-bit integer hash (Wellons' lowbias32) of a Python int."""
+    x &= _MASK32
+    x ^= x >> 16
+    x = (x * 0x7FEB352D) & _MASK32
+    x ^= x >> 15
+    x = (x * 0x846CA68B) & _MASK32
+    return x ^ (x >> 16)
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x·c) mod 2³² for int64 ``x`` in [0, 2³²): c in two 16-bit limbs, so
+    no product exceeds 2⁴⁸ and nothing relies on int64 overflow."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _MASK32
+
+
+def _mix(x: torch.Tensor) -> torch.Tensor:
+    """:func:`_mix32` elementwise over an int64 tensor of 32-bit values."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+class Stream:
+    """An id-addressed random stream, as a JAX key is under the sharded
+    control plane: every method answers ``[n, *shape]`` values for the
+    global client ids ``ids`` [n], row c a function of (stream, ids[c])
+    alone. Subclasses give :meth:`fold` and the four draws."""
+
+    def fold(self, i: int) -> "Stream":
+        raise NotImplementedError
+
+    def normal(self, ids: torch.Tensor, shape=()) -> torch.Tensor:
+        raise NotImplementedError
+
+    def uniform(self, ids: torch.Tensor, shape=()) -> torch.Tensor:
+        raise NotImplementedError
+
+    def gumbel(self, ids: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def randint(self, ids: torch.Tensor, shape, high: int) -> torch.Tensor:
+        raise NotImplementedError
+
+
+class HashStream(Stream):
+    """A stream of :class:`HashDraws`: ``key`` is the 32-bit hash of its
+    path (seed, round, role, folds). Element e of client i's row is
+    mix(mix(key ^ i) ^ mix(e·φ + 1)) with φ the golden-ratio constant, a
+    32-bit integer computed in int64 on the ids' device; the floats come
+    from its top bits."""
+
+    def __init__(self, key: int):
+        self.key = key
+
+    def fold(self, i: int) -> "HashStream":
+        return HashStream(_mix32(self.key ^ _mix32(0x3C6EF372 + int(i))))
+
+    def bits(self, ids: torch.Tensor, width: int) -> torch.Tensor:
+        """[n, width] int64 values in [0, 2³²)."""
+        row = _mix((ids.to(torch.int64) & _MASK32) ^ self.key)
+        e = torch.arange(width, dtype=torch.int64, device=ids.device)
+        col = _mix((_mul32(e, 0x9E3779B9) + 1) & _MASK32)
+        return _mix(row[:, None] ^ col[None, :])
+
+    def _draw(self, ids, shape):
+        width = math.prod(shape)
+        return self.bits(ids, width), (ids.shape[0], *shape)
+
+    def uniform(self, ids, shape=()):
+        """U[0, 1) on the 2⁻²⁴ grid (exact in f32)."""
+        b, out = self._draw(ids, shape)
+        return ((b >> 8).to(torch.float32) * 2.0 ** -24).reshape(out)
+
+    def normal(self, ids, shape=()):
+        """√2·erfinv(v), v = (2m + 1 − 2²³)·2⁻²³ for the top 23 bits m:
+        an exact f32 in (−1, 1), so no draw is infinite (|x| < 5.3)."""
+        b, out = self._draw(ids, shape)
+        v = ((b >> 9) * 2 + 1 - (1 << 23)).to(torch.float32) * 2.0 ** -23
+        return (torch.erfinv(v) * math.sqrt(2.0)).reshape(out)
+
+    def gumbel(self, ids):
+        """−log(−log U), U in [tiny, 1), as ``draws.gumbel``."""
+        u = self.uniform(ids)
+        return -torch.log(-torch.log(torch.clamp_min(u, torch.finfo(u.dtype).tiny)))
+
+    def randint(self, ids, shape, high: int):
+        """int32 in [0, high): the top of the 32-bit value times ``high``
+        (exact: the product stays below 2⁶³)."""
+        if not 0 < high < 2 ** 31:
+            raise ValueError(f"randint needs 0 < high < 2**31, got {high}")
+        b, out = self._draw(ids, shape)
+        return ((b * high) >> 32).to(torch.int32).reshape(out)
+
+
+class RoundStreams(NamedTuple):
+    """One round's streams, in the reference's split order
+    ``(k_chan, k_sel, k_batch, k_noise, k_asel, k_abatch)``, and its
+    receiver noise: ``awgn(model_size)`` is the [P] AWGN in sorted-leaf
+    order, the same wherever it is asked."""
+
+    chan: Stream     # fading normals; fold 1 shadow, 2 walk, 3 availability
+    sel: Stream      # selection Gumbel
+    batch: Stream    # descent batch indices
+    noise: Stream    # fold 7: the quantized transport's rounding uniforms
+    asel: Stream     # ascent-set Gumbel
+    abatch: Stream   # ascent (and descent-loss) batch indices
+    awgn: Callable   # model_size -> [P] standard normals
+
+
+class IdDraws:
+    """A run's id-addressed random source: :meth:`round` gives round t's
+    streams, :meth:`init` the stream of the initial state (a temporal run's
+    fading normals)."""
+
+    def round(self, t: int) -> RoundStreams:
+        raise NotImplementedError
+
+    def init(self) -> Stream:
+        raise NotImplementedError
+
+
+class HashDraws(IdDraws):
+    """The port's own id-addressed source: a counter-based hash of (seed,
+    round, stream, id, element) on ``device`` (``None``: the card). The
+    same seed gives the same integers on every device and for any split of
+    the ids."""
+
+    ROLES = ("chan", "sel", "batch", "noise", "asel", "abatch")
+
+    def __init__(self, seed: int, device=None):
+        self.seed, self.device = int(seed), resolve_device(device)
+        self._base = _mix32(_mix32(self.seed & _MASK32) ^ _mix32(self.seed >> 32))
+
+    def _stream(self, *path: int) -> HashStream:
+        key = self._base
+        for p in path:
+            key = _mix32(key ^ _mix32(int(p) + 0x9E3779B9))
+        return HashStream(key)
+
+    def round(self, t: int) -> RoundStreams:
+        streams = [self._stream(t + 1, r) for r in range(len(self.ROLES))]
+        noise = self._stream(t + 1, len(self.ROLES))
+        dev = self.device
+
+        def awgn(model_size: int) -> torch.Tensor:
+            one = torch.zeros((1,), dtype=torch.int64, device=dev)
+            return noise.normal(one, (model_size,))[0]
+
+        return RoundStreams(*streams, awgn=awgn)
+
+    def init(self) -> Stream:
+        return self._stream(0)
+
+
+def client_rows(draws: RoundStreams, fl: FLConfig, ids: torch.Tensor,
+                model_size: int, shard_size: int) -> RoundDraws:
+    """A round's draws at the clients ``ids`` as a :class:`RoundDraws` whose
+    rows are those clients (all N of them at ``ids = arange(N)``), for code
+    that takes a whole round's table: the parameter server under the
+    sharded control plane. Roles as the sharded simulator round reads them;
+    the AWGN is the round's [P] draw."""
+    draw_sc = 1 if fl.flat_fading else fl.num_subcarriers
+    b = fl.batch_size
+    chan = draws.chan
+    return RoundDraws(
+        chan_normal=chan.normal(ids, (2, draw_sc)).movedim(0, 1),
+        shadow_normal=chan.fold(1).normal(ids)[:, None],
+        sel_gumbel=None if fl.method == "greedy" else draws.sel.gumbel(ids),
+        batch_idx=draws.batch.randint(ids, (b,), shard_size),
+        noise=None if fl.noise_std == 0 else draws.awgn(model_size),
+        asc_gumbel=draws.asel.gumbel(ids),
+        asc_batch_idx=draws.abatch.randint(ids, (b,), shard_size),
+        quant_uniform=(draws.noise.fold(7).uniform(ids, (model_size,))
+                       if fl.transport == "quantized" else None),
+        walk_normal=chan.fold(2).normal(ids) if fl.temporal else None,
+        avail_uniform=chan.fold(3).uniform(ids) if fl.temporal else None,
+    )
+
+
+def client_init_rows(source: IdDraws, fl: FLConfig,
+                     ids: torch.Tensor) -> InitDraws:
+    """The initial draws at the clients ``ids``: a temporal run's fading
+    normals [2, n, draw_sc] from ``source.init()`` (none for a static run)."""
+    if not fl.temporal:
+        return InitDraws()
+    draw_sc = 1 if fl.flat_fading else fl.num_subcarriers
+    return InitDraws(source.init().normal(ids, (2, draw_sc)).movedim(0, 1))

@@ -1,8 +1,10 @@
 """Distributionally-robust λ machinery (paper P1 + Alg. 1 lines 10-15).
 
-Port of ``repro.core.dro``, replicated discipline: the ascent step adds
-γ·f_i to the K uniformly sampled entries and projects back onto the simplex
-with the sort-based projection. Every function works row-wise on the last
+Port of ``repro.core.dro``: the ascent step adds γ·f_i to the K uniformly
+sampled entries and projects back onto the simplex, with the sort-based
+projection under the replicated control plane and the bisection on the
+water level (``sharding.project_simplex_sharded``) under the sharded one,
+whose λ is a shard's local rows. Every function works row-wise on the last
 axis, so λ may carry a leading cell axis [G, N].
 """
 from __future__ import annotations
@@ -32,17 +34,27 @@ def project_simplex(v: torch.Tensor, acc_dtype=torch.float32) -> torch.Tensor:
     return torch.clamp_min(v.to(acc_dtype) - theta, 0.0).to(v.dtype)
 
 
-def lambda_ascent(lam, losses, ascent_mask, gamma) -> torch.Tensor:
+def lambda_ascent(lam, losses, ascent_mask, gamma, *,
+                  local_rows=False) -> torch.Tensor:
     """One ascent step of Alg. 1: update entries in U^(t), project. ``gamma``
-    may be a [G] vector against λ [G, N]."""
-    return project_simplex(lam + per_cell(gamma, lam) * ascent_mask * losses)
+    may be a [G] vector against λ [G, N]. ``local_rows`` selects the
+    sharded control plane's bisection projection (one device's rows)."""
+    lam_tilde = lam + per_cell(gamma, lam) * ascent_mask * losses
+    if local_rows:
+        from repro_torch.core.sharding import project_simplex_sharded
+        return project_simplex_sharded(lam_tilde)
+    return project_simplex(lam_tilde)
 
 
-def lambda_summary(lam: torch.Tensor):
+def lambda_summary(lam: torch.Tensor, axis=None):
     """O(1) λ diagnostics ``(max, entropy, effective support size 1/Σλ²)``
-    of each row; entropy uses 0·log 0 = 0."""
+    of each row; entropy uses 0·log 0 = 0. With an ``axis``
+    (``sharding.ClientAxis``) ``lam`` is this shard's rows and each
+    statistic is a pmax or psum of local ones, never a gather."""
     lmax = torch.amax(lam, dim=-1)
     plogp = lam * torch.log(torch.where(lam > 0, lam, 1.0))
     ent = -torch.sum(plogp, dim=-1)
     sq = torch.sum(torch.square(lam), dim=-1)
+    if axis is not None:
+        lmax, ent, sq = axis.pmax(lmax), axis.psum(ent), axis.psum(sq)
     return lmax, ent, 1.0 / torch.clamp_min(sq, torch.finfo(lam.dtype).tiny)

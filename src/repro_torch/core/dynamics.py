@@ -31,8 +31,12 @@ normals and the chain's uniforms are the round's ``walk_normal`` and
 and an unlimited battery, a temporal round computes the static round's
 numbers bit for bit.
 
-The per-id (``*_ids``) variants of the sharded control plane are not
-ported (ROADMAP Queue 1 item 9).
+The sharded control plane's variants (``*_ids``, ``step_process(...,
+ids=)``) draw the same roles per client id from the round's ``chan``
+stream (``draws.RoundStreams``): the innovation from the stream itself,
+the i.i.d. shadow from its fold 1, the walk from fold 2 and the
+availability uniforms from fold 3, so a shard evolves only its own rows
+and a client's values do not depend on the sharding.
 """
 from __future__ import annotations
 
@@ -43,7 +47,8 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.configs.base import FLConfig
-from repro_torch.core.channel import compose_channel, effective_channel
+from repro_torch.core.channel import (compose_channel, effective_channel,
+                                      ids_scenario)
 from repro_torch.core.transport import downlink_energy, uplink_energy
 from repro_torch.utils.cells import per_cell
 from repro_torch.utils.device import resolve_device
@@ -107,6 +112,15 @@ def init_chan_state(process: ChannelProcess,
     )
 
 
+def init_chan_state_ids(process: ChannelProcess, stream, ids: torch.Tensor,
+                        num_subcarriers: int, flat: bool) -> ChanState:
+    """The stationary initial state of the clients ``ids``, its fading
+    normals [2, n, draw_sc] drawn per id from ``stream`` (the source's
+    ``init()``), so a shard's rows equal those rows of the whole state."""
+    draw_sc = 1 if flat else num_subcarriers
+    return init_chan_state(process, stream.normal(ids, (2, draw_sc)).movedim(0, 1))
+
+
 def _knob(v, like: torch.Tensor) -> torch.Tensor:
     """A knob as an f32 tensor shaped to broadcast against ``like``."""
     return per_cell(torch.as_tensor(v, dtype=torch.float32, device=like.device),
@@ -133,6 +147,20 @@ def evolve_fading(chan_normal: torch.Tensor, shadow_normal: torch.Tensor,
     h_mag = compose_channel(mag, shadow_normal, scenario,
                             walk_gain=torch.exp(log_shadow)[..., None])
     return h_mag, fast, log_shadow
+
+
+def evolve_fading_ids(chan, scenario, process: ChannelProcess,
+                      state: ChanState, ids: torch.Tensor,
+                      num_subcarriers: int):
+    """:func:`evolve_fading` for the clients ``ids`` (``state`` holds their
+    rows), every draw per id from the round's ``chan`` stream: innovation
+    on the stream, i.i.d. shadow on fold 1, walk on fold 2; a [N]
+    ``pathloss`` is indexed by ``ids``."""
+    draw_sc = 1 if scenario.flat else num_subcarriers
+    return evolve_fading(chan.normal(ids, (2, draw_sc)).movedim(0, 1),
+                         chan.fold(1).normal(ids)[:, None],
+                         chan.fold(2).normal(ids), ids_scenario(scenario, ids),
+                         process, state, num_subcarriers)
 
 
 def evolve_availability(avail_uniform: torch.Tensor, process: ChannelProcess,
@@ -162,7 +190,7 @@ class ProcessStep(NamedTuple):
 def step_process(d, scenario, process: ChannelProcess, state: ChanState,
                  num_subcarriers: int, model_size: int,
                  scheme: str = "analog", tp=None,
-                 dl_num_tx: int = 1) -> ProcessStep:
+                 dl_num_tx: int = 1, ids=None) -> ProcessStep:
     """Evolve fading and availability from the round's draws ``d``
     (``draws.RoundDraws``) and price this round's uploads and broadcast
     receive under the uplink ``scheme`` (``tp`` its ``TransportParams``;
@@ -174,12 +202,22 @@ def step_process(d, scenario, process: ChannelProcess, state: ChanState,
     the receive, and is schedulable iff it received and can also pay the
     upload, so batteries never go negative. At the default dl_power = 0 the
     receive is free and ``recv`` equals ``avail``.
+
+    ``ids`` (the sharded control plane): ``state`` holds these clients'
+    rows and ``d`` is the round's ``chan`` stream, drawn per id
+    (:func:`evolve_fading_ids`; availability uniforms on its fold 3).
     """
-    h_mag, fast, log_shadow = evolve_fading(
-        d.chan_normal, d.shadow_normal, d.walk_normal, scenario, process,
-        state, num_subcarriers)
+    if ids is None:
+        h_mag, fast, log_shadow = evolve_fading(
+            d.chan_normal, d.shadow_normal, d.walk_normal, scenario, process,
+            state, num_subcarriers)
+        avail_uniform = d.avail_uniform
+    else:
+        h_mag, fast, log_shadow = evolve_fading_ids(
+            d, scenario, process, state, ids, num_subcarriers)
+        avail_uniform = d.fold(3).uniform(ids)
     h = effective_channel(h_mag)
-    avail = evolve_availability(d.avail_uniform, process, state.avail)
+    avail = evolve_availability(avail_uniform, process, state.avail)
     e_need = uplink_energy(scheme, tp, h, model_size, scenario)
     e_dl = (torch.zeros((), dtype=torch.float32, device=h.device)
             if tp is None else

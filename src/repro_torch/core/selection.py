@@ -13,6 +13,11 @@ in-spirit reconstruction, ``repro/core/selection.py``), so its scheduled
 count varies from round to round and is not bounded by K. Its knobs
 (``GCAParams``) are numbers or [G] vectors.
 
+``ids`` (the sharded control plane): the inputs hold only the clients
+``ids`` and ``gumbel`` is the round's id-addressed stream
+(``draws.Stream``), which :func:`client_gumbel` draws at those ids, so a
+client scores the same on whichever shard holds it.
+
 ``avail`` (temporal runs, ``core/dynamics.py``): an unavailable client
 gets a -inf logit (or is dropped from GCA's mask) and the returned mask is
 multiplied by ``avail``, so no method schedules it, even when fewer than K
@@ -47,17 +52,27 @@ def availability_logits(avail: Optional[torch.Tensor]):
     return torch.where(avail > 0, 0.0, float("-inf"))
 
 
+def client_gumbel(stream, ids: torch.Tensor) -> torch.Tensor:
+    """[n] Gumbel noise of the clients ``ids`` from an id-addressed
+    ``stream``: entry c depends only on (stream, ids[c])."""
+    return stream.gumbel(ids)
+
+
 def gumbel_topk(gumbel: torch.Tensor, logits: torch.Tensor, k: int):
     """Sample k items w/o replacement from softmax(logits); (mask, idx)."""
     return _exact_k(logits + gumbel, k)
 
 
-def exact_k_scores(method: str, gumbel: Optional[torch.Tensor],
-                   lam: torch.Tensor, h_eff: torch.Tensor, C=0.0,
-                   avail: Optional[torch.Tensor] = None) -> torch.Tensor:
+def exact_k_scores(method: str, gumbel, lam: torch.Tensor,
+                   h_eff: torch.Tensor, C=0.0,
+                   avail: Optional[torch.Tensor] = None,
+                   ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The score vector [..., N] whose top-k IS the method's selection.
     Greedy is deterministic and takes no Gumbel noise (``gumbel`` may be
-    None). ``C`` is a number, a 0-d tensor or a [G] vector, one per cell."""
+    None). ``C`` is a number, a 0-d tensor or a [G] vector, one per cell.
+    With ``ids``, the rows are those clients' and ``gumbel`` is the round's
+    selection stream, drawn at ``ids``; λ enters per client (the logits
+    carry no normalizer), so each row scores as in the full vector."""
     a_logits = availability_logits(avail)
     if method == "greedy":
         return h_eff + a_logits
@@ -70,6 +85,8 @@ def exact_k_scores(method: str, gumbel: Optional[torch.Tensor],
     else:
         raise ValueError(
             f"sparse selection needs a static-K method, got {method!r}")
+    if ids is not None:
+        gumbel = client_gumbel(gumbel, ids)
     return logits + gumbel
 
 

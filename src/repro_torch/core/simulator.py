@@ -50,8 +50,20 @@ Every random number comes from a ``RoundDraws`` per round and an
 through the round: nothing is copied to the host until the history is
 read.
 
-Not ported yet, and raising ``NotImplementedError``: the sharded control
-plane and meshes (ROADMAP Queue 1 item 9).
+The sharded control plane (``control_plane="sharded"``,
+:func:`make_control_sharded_round_fn`) is a round of its own, one cell:
+each device holds only its rows of channels, availability, scores, λ and
+batch indices, every draw addressed by global client id (an
+``draws.IdDraws`` source); exact-K selection is a top-k tree over the
+shards, the K winners' rows are assembled by ownership, the exact-K slot
+path runs on every device, and λ is projected by bisection
+(``core/sharding.py``). Without an axis it runs on one device with
+``ids = arange(N)``, and reaches the same eq. (10) kernels as the
+replicated plane's selected-K path.
+
+Not ported yet, and raising ``NotImplementedError``: population sharding of
+the replicated control plane (a mesh of more than one device; ROADMAP
+Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -61,22 +73,32 @@ import torch
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.aircomp import (aircomp_aggregate_stack_tree,
-                                      aircomp_aggregate_tree)
-from repro_torch.core.channel import draw_channels_scenario, effective_channel
-from repro_torch.core.draws import (InitDraws, RoundDraws, round_draws,
-                                    stack_draws, stack_init_draws)
+                                      aircomp_aggregate_tree, aircomp_psum_tree)
+from repro_torch.core.channel import (draw_channels_scenario,
+                                      draw_channels_scenario_ids,
+                                      effective_channel)
+from repro_torch.core.draws import (IdDraws, InitDraws, RoundDraws,
+                                    round_draws, stack_draws, stack_init_draws)
 from repro_torch.core.draws import init_draws as seeded_init_draws
 from repro_torch.core.dro import lambda_ascent, lambda_summary
 from repro_torch.core.dynamics import (commit_process, init_chan_state,
+                                       init_chan_state_ids,
                                        process_from_config, step_process)
 from repro_torch.core.selection import (EXACT_K_METHODS, availability_logits,
+                                        client_gumbel, exact_k_scores,
                                         gumbel_topk, select_clients,
                                         select_clients_sparse)
+from repro_torch.core.sharding import (all_gather_axis, assemble_batch_rows,
+                                       assemble_rows, hierarchical_top_k,
+                                       local_slice, project_simplex_sharded,
+                                       top_k)
 from repro_torch.core.transport import (downlink_energy,
+                                        quantized_aggregate_psum_tree,
                                         quantized_aggregate_stack_tree,
                                         require_ported, round_energy,
+                                        sparse_aggregate_psum_tree,
                                         sparse_aggregate_stack_tree,
-                                        sparse_k_coords)
+                                        sparse_k_coords, uplink_energy)
 from repro_torch.models.logreg import SimModel
 from repro_torch.utils.cells import per_cell
 from repro_torch.utils.device import resolve_device
@@ -84,7 +106,9 @@ from repro_torch.utils.tree import leaf_names, tree_size
 
 
 class SimState(NamedTuple):
-    # every field leads with the cell axis [G]
+    # every field leads with the cell axis [G] (none under the sharded
+    # control plane, whose state is one cell's, λ, ChanState and the
+    # residuals being the device's own client rows)
     w: dict              # global model {name: [G, ...]}
     lam: torch.Tensor    # [G, N] simplex weights
     energy: torch.Tensor  # [G] cumulative Joules
@@ -113,15 +137,25 @@ class SimHistory(NamedTuple):
     dl_energy: torch.Tensor    # [T] cumulative downlink Joules
 
 
+def mesh_size(mesh) -> int:
+    """The device count of a mesh: a ``sharding.ClientAxis`` (or anything
+    with a ``size``, an int or a method); None is one device."""
+    if mesh is None:
+        return 1
+    size = mesh.size
+    return int(size() if callable(size) else size)
+
+
 def check_supported(fl: FLConfig, mesh=None) -> None:
     """Raise for a configuration whose code path the port does not carry."""
-    if mesh is not None or fl.control_plane == "sharded":
-        raise NotImplementedError(
-            "meshes and the sharded control plane are not ported yet "
-            "(ROADMAP Queue 1 item 9)")
-    if fl.control_plane != "replicated":
+    if fl.control_plane not in ("replicated", "sharded"):
         raise ValueError(f"unknown control_plane {fl.control_plane!r}; "
                          "pick 'replicated' or 'sharded'")
+    if fl.control_plane == "replicated" and mesh_size(mesh) > 1:
+        raise NotImplementedError(
+            "population sharding of the replicated control plane is not "
+            "ported yet (ROADMAP Queue 1 item 9); control_plane='sharded' "
+            "runs on a mesh")
     require_ported(fl.transport)
     if fl.method not in EXACT_K_METHODS + ("gca",):
         raise ValueError(f"unknown selection method {fl.method!r}")
@@ -161,7 +195,7 @@ def _record_lambda(fl: FLConfig, state: SimState, lam_new, t: int):
     if e == 1:
         return lam_new, state.lam_snaps
     if e > 1 and t % e == 0:
-        state.lam_snaps[:, t // e] = lam_new
+        state.lam_snaps[..., t // e, :] = lam_new
     return (), state.lam_snaps
 
 
@@ -181,6 +215,9 @@ def make_param_round_fn(model: SimModel, fl: FLConfig, data, model_size: int,
     always runs the [N, model] path, whatever ``dense`` says.
     """
     check_supported(fl)
+    if fl.control_plane == "sharded":
+        raise ValueError("the sharded control plane's round is "
+                         "make_control_sharded_round_fn")
     x, y, x_test, y_test = data
     n, k_sched = fl.num_clients, fl.clients_per_round
     temporal, gca = fl.temporal, method == "gca"
@@ -380,9 +417,296 @@ def make_param_round_fn(model: SimModel, fl: FLConfig, data, model_size: int,
     return round_fn
 
 
+def _batch_indices_ids(stream, ids: torch.Tensor, shard_size: int,
+                       batch_size: int) -> torch.Tensor:
+    """[n, B] int32 in-shard sample indices of the clients ``ids``, row c
+    drawn from ``stream`` at ids[c] alone: a shard draws its own rows, and
+    the slot path draws just the K winners' rows, with the same values."""
+    return stream.randint(ids, (batch_size,), shard_size)
+
+
+def make_control_sharded_round_fn(model: SimModel, fl: FLConfig, data,
+                                  model_size: int, method: str,
+                                  draws: IdDraws,
+                                  noise_free: Optional[bool] = None,
+                                  axis=None,
+                                  topk_group_size: Optional[int] = None):
+    """Build ``round_fn(point, state, t) -> (state, metrics)`` of the
+    sharded control plane, one cell: ``point`` holds 0-d knobs, ``state``
+    this device's rows (``init_sim_state(ids=...)``), and round t's
+    randomness is ``draws.round(t)``, addressed by global client id.
+
+    ``data`` = (x, y, x_test, y_test) hold this device's n_rows = N/D
+    clients (all N without an ``axis``, a ``sharding.ClientAxis``). Exact-K
+    methods score their rows, select by the top-k tree
+    (``sharding.hierarchical_top_k``, fan-in ``topk_group_size``), assemble
+    the K winners' batches, channels and residual rows by ownership, and
+    run local SGD and eq. (10) on the [K] slots on every device (the
+    transport's kernel on the card); the ascent set is a second tree top-k
+    over per-id Gumbel scores, its losses and the descent losses taken at
+    the slots and scattered back to the owners' rows. GCA runs its [N,
+    model] probe on the local rows and gathers the O(N) norms, channels and
+    gates for its population-wide threshold (the one O(N) collective of
+    the round); on a mesh its eq. (10) is the local partial sum + psum of
+    ``*_psum_tree``. λ is projected by the psum bisection and the test
+    statistics are psums of local rows, so no other collective moves O(N)
+    values.
+    """
+    x, y, x_test, y_test = data
+    n, kk = fl.num_clients, fl.clients_per_round
+    shard, b = y.shape[1], fl.batch_size
+    if noise_free is None:
+        noise_free = fl.noise_std == 0
+    scheme = fl.transport
+    require_ported(scheme)
+    gca = method == "gca"
+    if not gca and method not in EXACT_K_METHODS:
+        raise ValueError(f"unknown selection method {method!r}")
+    n_rows = y.shape[0]
+    n_shards = 1 if axis is None else axis.size
+    if n_rows * n_shards != n:
+        raise ValueError(f"{n_rows} client rows on each of {n_shards} devices "
+                         f"for N = {n}")
+    temporal = fl.temporal
+    k_coords = (sparse_k_coords(fl.sparse_density, model_size)
+                if scheme == "sparse" else None)
+    dev = y.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    off = 0 if axis is None else axis.rank * n_rows
+    ids = off + torch.arange(n_rows, dtype=torch.int64, device=dev)
+    ones_k = torch.ones((kk,), **f32)
+    zeros_rows = torch.zeros((n_rows,), **f32)
+    n_0d = torch.full((), float(n), **f32)
+    inf_0d = torch.full((), float("inf"), **f32)
+
+    def psum(v):
+        return v if axis is None else axis.psum(v)
+
+    def local_update(w, eta, xb, yb, g0=None):
+        """``local_steps`` SGD steps from the global model for a stack of
+        clients [C, B, ...]; ``g0``: the first step's gradients (GCA's
+        probe)."""
+        wc = {name: w[name].unsqueeze(0) for name in leaf_names(w)}
+        for step in range(fl.local_steps):
+            g = g0 if step == 0 and g0 is not None else model.grad(wc, xb, yb)
+            wc = {name: wc[name] - eta * g[name] for name in leaf_names(g)}
+        return wc
+
+    def topk_idx(scores):
+        if axis is None:
+            return top_k(scores, kk)[1]
+        return hierarchical_top_k(scores, kk, axis, group_size=topk_group_size)
+
+    def slot_vals(vals, idx):
+        """vals[idx] across the shards (by ownership on a mesh)."""
+        return vals[idx] if axis is None else assemble_rows(vals, idx, axis, n_rows)
+
+    def slot_batches(arr, idx, bidx):
+        if axis is None:
+            return arr[idx[:, None], bidx.long()]
+        return assemble_batch_rows(arr, idx, bidx, axis, n_rows)
+
+    def owned_rows(idx):
+        lidx = torch.clamp(idx - off, 0, n_rows - 1)
+        return lidx, (idx >= off) & (idx < off + n_rows)
+
+    def scatter_slots(idx, wvals):
+        """[K] slot values added into this device's [n_rows] (owned slots
+        only; the others add exact zeros)."""
+        lidx, owned = owned_rows(idx)
+        return zeros_rows.index_add(0, lidx, torch.where(
+            owned, wvals, torch.zeros((), **f32)))
+
+    def round_fn(point, state: SimState, t: int):
+        d = draws.round(t)
+        scen = point.scenario
+        # ---- physical layer: per-id draws of this device's rows only
+        if temporal:
+            pstep = step_process(d.chan, scen, point.process, state.chan_state,
+                                 fl.num_subcarriers, model_size, scheme=scheme,
+                                 tp=point.transport, dl_num_tx=kk, ids=ids)
+            h, avail, eligible = pstep.h, pstep.avail, pstep.eligible
+        else:
+            h = effective_channel(draw_channels_scenario_ids(
+                d.chan, scen, ids, fl.num_subcarriers))
+            avail = eligible = None
+        eta = point.lr0 * point.lr_decay ** t
+        noise_std = 0.0 if noise_free else scen.noise_std
+        z = None if noise_free else d.awgn(model_size)
+
+        if gca:
+            # the [N, model] probe on local rows; its batch is the descent
+            # batch and its gradients SGD step 1
+            xb, yb = _all_batches(x, y, _batch_indices_ids(d.batch, ids, shard, b))
+            grads0 = model.grad({name: state.w[name].unsqueeze(0)
+                                 for name in leaf_names(state.w)}, xb, yb)
+            gnorms = torch.sqrt(sum(
+                torch.sum(torch.square(grads0[name]).flatten(1), dim=-1)
+                for name in leaf_names(grads0)))
+            if axis is None:
+                gnorms_f, h_f, elig_f = gnorms, h, eligible
+            else:
+                # the threshold's mean and median are population-wide: the
+                # round's one O(N) gather
+                gnorms_f, h_f = all_gather_axis(gnorms, axis), all_gather_axis(h, axis)
+                elig_f = all_gather_axis(eligible, axis) if temporal else None
+            mask_f = select_clients("gca", None, torch.zeros_like(h_f), h_f, kk,
+                                    avail=elig_f, grad_norms=gnorms_f,
+                                    gca=point.gca)
+            mask_l = mask_f if axis is None else local_slice(mask_f, axis, n_rows)
+            num_sched = torch.sum(mask_f)
+            k_denom = torch.clamp_min(num_sched, 1.0)
+            w_stack = local_update(state.w, eta, xb, yb, g0=grads0)
+            ef_new = state.ef_resid
+            if scheme == "quantized":
+                u = d.noise.fold(7).uniform(ids, (model_size,))
+                if axis is None:
+                    w_new = quantized_aggregate_stack_tree(
+                        state.w, w_stack, mask_l, u, z, noise_std,
+                        point.transport.bits, k_denom)
+                else:
+                    w_new = quantized_aggregate_psum_tree(
+                        state.w, w_stack, mask_l, u, z, noise_std,
+                        point.transport.bits, k_denom, axis)
+            elif scheme == "sparse":
+                # residual rows stay on their device
+                if axis is None:
+                    w_new, ef_new = sparse_aggregate_stack_tree(
+                        state.w, w_stack, mask_l, z, noise_std, k_coords,
+                        k_denom, state.ef_resid)
+                else:
+                    w_new, ef_new = sparse_aggregate_psum_tree(
+                        state.w, w_stack, mask_l, z, noise_std, k_coords,
+                        k_denom, state.ef_resid, axis)
+            else:
+                eff_noise = 0.0 if scheme == "digital" else noise_std
+                if axis is None:
+                    w_new = aircomp_aggregate_tree(w_stack, mask_l, z, eff_noise,
+                                                   k_denom)
+                else:
+                    w_new = aircomp_psum_tree(w_stack, mask_l, axis, z,
+                                              eff_noise, k_denom)
+            e_round = psum(round_energy(scheme, point.transport, h, mask_l,
+                                        model_size, scen))
+        else:
+            # ---- exact-K: per-id scores -> top-k tree -> slot path
+            scores = exact_k_scores(method, d.sel, state.lam, h,
+                                    C=point.energy_C, avail=eligible, ids=ids)
+            sel_idx = topk_idx(scores)
+            # a gated slot keeps its index and carries weight 0
+            sel_w = slot_vals(eligible, sel_idx) if temporal else ones_k
+            num_sched = torch.sum(sel_w)
+            k_denom = torch.clamp_min(num_sched, 1.0)
+            mask_l = scatter_slots(sel_idx, sel_w)
+            bidx = _batch_indices_ids(d.batch, sel_idx, shard, b)
+            w_sel = local_update(state.w, eta, slot_batches(x, sel_idx, bidx),
+                                 slot_batches(y, sel_idx, bidx))
+            ef_new = state.ef_resid
+            if scheme == "quantized":
+                w_new = quantized_aggregate_stack_tree(
+                    state.w, w_sel, sel_w,
+                    d.noise.fold(7).uniform(sel_idx, (model_size,)), z,
+                    noise_std, point.transport.bits, k_denom)
+            elif scheme == "sparse":
+                # the winners' residual rows come by ownership, compress on
+                # every device, and go back to their owners' rows only (a
+                # clipped index of a row not owned adds an exact zero and
+                # no hit; owned top-k indices are unique)
+                w_new, resid = sparse_aggregate_stack_tree(
+                    state.w, w_sel, sel_w, z, noise_std, k_coords, k_denom,
+                    slot_vals(state.ef_resid, sel_idx))
+                lidx, owned = owned_rows(sel_idx)
+                upd = torch.zeros_like(state.ef_resid).index_add(
+                    0, lidx, torch.where(owned[:, None], resid,
+                                         torch.zeros((), **f32)))
+                hit = zeros_rows.index_add(0, lidx, owned.to(torch.float32))
+                ef_new = torch.where(hit[:, None] > 0, upd, state.ef_resid)
+            else:
+                w_new = aircomp_aggregate_stack_tree(
+                    w_sel, sel_w, z, 0.0 if scheme == "digital" else noise_std,
+                    k_denom)
+            # the ledger as a [K]-slot sum: the same shape and order on a
+            # mesh and on one device
+            e_round = torch.sum(sel_w * uplink_energy(
+                scheme, point.transport, slot_vals(h, sel_idx), model_size, scen))
+        if temporal or gca:
+            # an empty scheduled set sends nothing: keep the model
+            sent = num_sched > 0
+            w_new = {name: torch.where(sent, w_new[name], state.w[name])
+                     for name in leaf_names(w_new)}
+
+        # ---- downlink: every listening client pays the broadcast receive
+        recv_count = psum(torch.sum(pstep.recv)) if temporal else n_0d
+        e_dl = recv_count * downlink_energy(scheme, point.transport, model_size,
+                                            scen, num_tx=kk)
+        dl_energy = state.dl_energy + e_dl
+        energy = state.energy + e_round + e_dl
+
+        # ---- temporal carry (local rows)
+        if temporal:
+            chan_state = commit_process(pstep, state.chan_state, mask_l)
+            avail_count = psum(torch.sum(eligible))
+            min_battery = torch.amin(chan_state.battery)
+            if axis is not None:
+                min_battery = axis.pmin(min_battery)
+        else:
+            chan_state, avail_count, min_battery = state.chan_state, n_0d, inf_0d
+
+        # ---- ascent on λ: uniform K of the available clients, per-id
+        # Gumbel scores, the top-k tree again
+        ascores = zeros_rows + availability_logits(avail) + client_gumbel(d.asel, ids)
+        asc_idx = topk_idx(ascores)
+        a_gate = slot_vals(avail, asc_idx) if temporal else ones_k
+        if gca:
+            xab, yab = _all_batches(x, y, _batch_indices_ids(d.abatch, ids, shard, b))
+            losses = model.loss(w_new, xab, yab)
+            asc_contrib = scatter_slots(asc_idx, a_gate) * losses
+            sel_loss = psum(torch.sum(mask_l * losses)) / k_denom
+        else:
+            # losses only where they are read: the ascent and descent slots
+            bidx_a = _batch_indices_ids(d.abatch, asc_idx, shard, b)
+            asc_losses = model.loss(w_new, slot_batches(x, asc_idx, bidx_a),
+                                    slot_batches(y, asc_idx, bidx_a))
+            asc_contrib = scatter_slots(asc_idx, a_gate * asc_losses)
+            bidx_d = _batch_indices_ids(d.abatch, sel_idx, shard, b)
+            sel_loss = torch.sum(sel_w * model.loss(
+                w_new, slot_batches(x, sel_idx, bidx_d),
+                slot_batches(y, sel_idx, bidx_d))) / k_denom
+        lam_new = project_simplex_sharded(
+            state.lam + point.ascent_lr * asc_contrib, axis=axis)
+        lam_max, lam_entropy, lam_ess = lambda_summary(lam_new, axis=axis)
+        lam_hist, lam_snaps = _record_lambda(fl, state, lam_new, t)
+
+        # ---- metrics: the test statistics as sums of local rows
+        if t % fl.eval_every == 0:
+            accs = model.accuracy(w_new, x_test, y_test)   # [n_rows]
+            if axis is None:
+                stats = torch.stack([accs.mean(), accs.amin(),
+                                     accs.std(correction=0)])
+            else:
+                mean = axis.psum(torch.sum(accs)) / n
+                var = axis.psum(torch.sum(torch.square(accs - mean))) / n
+                stats = torch.stack([mean, axis.pmin(torch.amin(accs)),
+                                     torch.sqrt(var)])
+        else:
+            stats = state.eval_cache
+        eval_cache = () if fl.eval_every == 1 else stats
+        metrics = SimHistory(
+            avg_acc=stats[0], worst_acc=stats[1], std_acc=stats[2],
+            energy=energy, loss=sel_loss, num_scheduled=num_sched,
+            lam=lam_hist, avail_count=avail_count, min_battery=min_battery,
+            lam_max=lam_max, lam_entropy=lam_entropy, lam_ess=lam_ess,
+            dl_energy=dl_energy)
+        return SimState(w_new, lam_new, energy, eval_cache, lam_snaps,
+                        dl_energy, ef_new, chan_state), metrics
+
+    return round_fn
+
+
 def init_sim_state(model: SimModel, fl: FLConfig, device=None,
                    cells: int = 1, process=None,
-                   init: Optional[InitDraws] = None) -> SimState:
+                   init: Optional[InitDraws] = None, ids=None,
+                   draws: Optional[IdDraws] = None) -> SimState:
     """Initial state of ``cells`` cells: the model's init, uniform λ, zero
     energy (and zero error-feedback residuals for the sparse transport), on
     ``device`` (``None``: the card). Every field leads with [cells].
@@ -390,8 +714,19 @@ def init_sim_state(model: SimModel, fl: FLConfig, device=None,
     A temporal run also starts its process (``dynamics.init_chan_state``)
     from ``init`` (``InitDraws`` with [cells] leading) and ``process``, the
     cells' ``ChannelProcess`` (its ``battery_init`` a [cells] vector or a
-    scalar; default: ``fl``'s)."""
+    scalar; default: ``fl``'s).
+
+    Under the sharded control plane the state is one cell's, with no cell
+    axis, and holds the rows of the global client ids ``ids`` (default:
+    all N): λ, the residuals and a temporal run's process, whose fading
+    normals come per id from ``draws.init()`` (``draws`` the run's
+    ``IdDraws``), so a shard's rows equal those rows of the whole state."""
     device = resolve_device(device)
+    if fl.control_plane == "sharded":
+        return _init_rows(model, fl, device, process, ids, draws)
+    if ids is not None:
+        raise ValueError("ids is a control_plane='sharded' argument; the "
+                         "replicated plane initializes all N rows")
     chan_state = ()
     if fl.temporal:
         if init is None or init.fast_normal is None:
@@ -414,6 +749,37 @@ def init_sim_state(model: SimModel, fl: FLConfig, device=None,
                    else torch.zeros((cells, (fl.rounds + e - 1) // e, n), **f32)),
         dl_energy=torch.zeros((cells,), **f32),
         ef_resid=(torch.zeros((cells, n, tree_size(w0)), **f32)
+                  if fl.transport == "sparse" else ()),
+        chan_state=chan_state,
+    )
+
+
+def _init_rows(model: SimModel, fl: FLConfig, device, process, ids,
+               draws: Optional[IdDraws]) -> SimState:
+    """The sharded control plane's initial state of the rows ``ids``."""
+    if ids is None:
+        ids = torch.arange(fl.num_clients, dtype=torch.int64, device=device)
+    n_rows = ids.shape[0]
+    chan_state = ()
+    if fl.temporal:
+        if draws is None:
+            raise ValueError("a temporal run's state needs its IdDraws")
+        if process is None:
+            process = process_from_config(fl, device)
+        chan_state = init_chan_state_ids(process, draws.init(), ids,
+                                         fl.num_subcarriers, fl.flat_fading)
+    e = fl.record_lambda_every
+    f32 = dict(dtype=torch.float32, device=device)
+    w = model.init(device)
+    return SimState(
+        w=w,
+        lam=torch.full((n_rows,), 1.0 / fl.num_clients, **f32),
+        energy=torch.zeros((), **f32),
+        eval_cache=() if fl.eval_every == 1 else torch.zeros((3,), **f32),
+        lam_snaps=(() if e in (0, 1)
+                   else torch.zeros(((fl.rounds + e - 1) // e, n_rows), **f32)),
+        dl_energy=torch.zeros((), **f32),
+        ef_resid=(torch.zeros((n_rows, tree_size(w)), **f32)
                   if fl.transport == "sparse" else ()),
         chan_state=chan_state,
     )
@@ -454,12 +820,33 @@ def run_simulation(model: SimModel, fl: FLConfig, data,
     ``InitDraws`` (a temporal run's initial fading normals); by default
     ``draws.init_draws`` from the same seed. ``device=None`` is the CUDA
     card, and raises when there is none.
+
+    ``control_plane="sharded"`` runs the sharded control plane
+    (``sharding.run_simulation_control_sharded``): ``draws`` is then the
+    run's ``draws.IdDraws`` (default ``HashDraws(seed)``), which gives the
+    initial draws too, and ``mesh`` a ``sharding.ClientAxis`` of more than
+    one device shards the population (one device: ``ids = arange(N)``).
     """
     from repro_torch.core.sweep import stack_points, sweep_point_from_config
 
     dev = resolve_device(device)
     check_supported(fl, mesh)
     seed = fl.seed if seed is None else seed
+    if fl.control_plane == "sharded":
+        from repro_torch.core.sharding import run_simulation_control_sharded
+        if dense:
+            raise ValueError("control_plane='sharded' has one program a "
+                             "method (its slot path); dense=True is the "
+                             "replicated plane's [N, model] path")
+        if init_draws is not None:
+            raise ValueError("under control_plane='sharded' the IdDraws "
+                             "source gives the initial draws")
+        if draws is not None and not isinstance(draws, IdDraws):
+            raise TypeError("control_plane='sharded' takes an IdDraws "
+                            f"source as draws, got {type(draws).__name__}")
+        return run_simulation_control_sharded(
+            model, fl, data, mesh if mesh_size(mesh) > 1 else None,
+            seed=seed, draws=draws, device=dev)
     data = tuple(torch.as_tensor(a).to(dev) for a in data)
     point = stack_points([sweep_point_from_config(fl, dev)])
     if init_draws is None:

@@ -25,8 +25,8 @@ cells run one by one. Every knob of a point is an f32 device tensor, so the
 round never copies a knob from the host. A group of temporal cells carries
 each cell's process state on the cell axis, and a GCA group runs the
 [N, model] round; both are one batched run like any other group. Not
-ported yet: meshes (``devices``, ``client_devices``; ROADMAP Queue 1
-item 9).
+ported yet: meshes (``devices``, ``client_devices``) and groups of the
+sharded control plane (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -312,6 +312,10 @@ def run_sweep(
             "(ROADMAP Queue 1 item 9)")
     for _, fl in specs:
         check_supported(fl)
+        if fl.control_plane == "sharded":
+            raise NotImplementedError(
+                "sweep groups of the sharded control plane are not ported "
+                "yet (ROADMAP Queue 1 item 9); run_simulation runs one")
     dev = resolve_device(device)
     seeds = tuple(int(s) for s in seeds)
     num_seeds = len(seeds)

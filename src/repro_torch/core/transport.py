@@ -29,8 +29,12 @@ identical values. A batched round gives every knob of ``TransportParams``
 the shape [G] and every tensor a leading cell axis: the energy functions
 broadcast the knobs over [G, N], and the aggregates take stacks [G, C, ...]
 and launch their kernel once per cell (``core/aircomp.py::fused_pass``).
-The population-sharded (psum) variants are not ported (ROADMAP Queue 1
-item 9).
+
+The ``*_psum_tree`` variants aggregate clients sharded along a
+``sharding.ClientAxis`` (GCA's [N, model] path on a mesh): a local partial
+sum of the rounded or compressed deltas, a ``psum``, then the replicated
+noise, the 1/k and w̄. They are plain PyTorch, as the reference's are
+plain jnp; a sparse shard keeps and updates only its own residual rows.
 """
 from __future__ import annotations
 
@@ -250,6 +254,21 @@ def quantized_aggregate_stack_tree(w_base: dict, trees: dict, weights, u, z,
     return unravel(trees, new, lead=cells + 1)
 
 
+def quantized_aggregate_psum_tree(w_base: dict, trees_local: dict,
+                                  weights_local, u_local, z, noise_std, bits,
+                                  k, axis) -> dict:
+    """Population-sharded quantized eq. (10): w̄ + (psum over ``axis`` of
+    Σ_c w_c·Q(tree_c − w̄) + σz)/k over this shard's rows, ``u_local``
+    [n_local, P] their rounding uniforms (drawn at their global ids, so
+    each row rounds as on one device)."""
+    base, delta = _flat_base_and_delta(w_base, trees_local, 0)
+    q = sround(delta, quant_step(delta, bits), u_local.to(base.dtype))
+    total = axis.psum(torch.einsum("cp,c->p", q, weights_local.to(base.dtype)))
+    if not is_static_zero(noise_std):
+        total = total + noise_std * z.to(base.dtype)
+    return unravel(trees_local, base + total / k, lead=1)
+
+
 # ---------------------------------------------------------------------------
 # Sparse (error-feedback top-k) aggregation
 # ---------------------------------------------------------------------------
@@ -338,3 +357,22 @@ def sparse_aggregate_stack_tree(w_base: dict, trees: dict, weights, z,
     new, resid = sparse_aggregate_flat_rows(base, delta, resid_rows, weights,
                                             noise_std, k_coords, k, z=zz)
     return unravel(trees, new, lead=cells + 1), resid
+
+
+def sparse_aggregate_psum_tree(w_base: dict, trees_local: dict, weights_local,
+                               z, noise_std, k_coords: int, k, resid_local,
+                               axis):
+    """Population-sharded sparse eq. (10); returns ``(new_tree,
+    new_resid_local)``. Each shard compresses its own rows v = Δ + r (a
+    within-row threshold, so rows compress as on one device), sums them,
+    and the partial sums meet in a ``psum`` over ``axis``; the residual
+    rows stay on their shard, kept where a row sent nothing."""
+    base, delta = _flat_base_and_delta(w_base, trees_local, 0)
+    v = delta + resid_local.to(base.dtype)
+    c, _ = sparse_compress_rows(v, k_coords)
+    total = axis.psum(torch.einsum("cp,c->p", c, weights_local.to(base.dtype)))
+    if not is_static_zero(noise_std):
+        total = total + noise_std * z.to(base.dtype)
+    sent = (weights_local > 0)[..., None]
+    new_resid = torch.where(sent, (v - c).to(resid_local.dtype), resid_local)
+    return unravel(trees_local, base + total / k, lead=1), new_resid

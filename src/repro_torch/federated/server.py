@@ -24,9 +24,17 @@ step, the simulator's role order, so a test that fills the draws from the
 reference's key chain reproduces its steps. Every path reads the receiver
 noise as the [P] ``RoundDraws.noise`` in sorted-leaf order.
 
-Not ported yet, and raising ``NotImplementedError``: the sharded control
-plane and meshes of more than one device (ROADMAP Queue 1 item 9), and
-models without a ``per_example_nll``, i.e. the model zoo (item 10(c)(ii)).
+Under the sharded control plane (``control_plane="sharded"``) the server
+is one device with ``ids = arange(N)``: its channels, ``ChanState``,
+selection and ascent-set Gumbel noise and rounding uniforms are the
+clients' id-addressed draws (``draws.HashDraws`` from ``seed``, round t
+of the source at step t, read as one ``RoundDraws`` by
+``draws.client_rows``), and λ is projected by the simulator's bisection,
+so one step equals one round of the sharded simulator.
+
+Not ported yet, and raising ``NotImplementedError``: meshes of more than
+one device (ROADMAP Queue 1 item 9), and models without a
+``per_example_nll``, i.e. the model zoo (item 10(c)(ii)).
 """
 from __future__ import annotations
 
@@ -41,7 +49,8 @@ from repro_torch.configs.base import FLConfig
 from repro_torch.core import transport as transport_mod
 from repro_torch.core.channel import (draw_channels_scenario, effective_channel,
                                       scenario_from_config)
-from repro_torch.core.draws import (InitDraws, RoundDraws, draw_init,
+from repro_torch.core.draws import (HashDraws, InitDraws, RoundDraws,
+                                    client_init_rows, client_rows, draw_init,
                                     draw_round, seed_generators)
 from repro_torch.core.dro import lambda_ascent, lambda_summary
 from repro_torch.core.dynamics import (commit_process, init_chan_state,
@@ -49,6 +58,7 @@ from repro_torch.core.dynamics import (commit_process, init_chan_state,
 from repro_torch.core.selection import (EXACT_K_METHODS, availability_logits,
                                         gumbel_topk, select_clients,
                                         select_clients_sparse)
+from repro_torch.core.simulator import mesh_size
 from repro_torch.federated.rounds import (FLRoundMetrics, add_awgn,
                                           make_fl_round, make_grad_norm_probe,
                                           per_client_losses)
@@ -76,11 +86,6 @@ class ServerState:
     dl_energy_joules: float = 0.0
 
 
-def _mesh_size(mesh) -> int:
-    size = mesh.size
-    return int(size() if callable(size) else size)
-
-
 class ParameterServer:
     """CA-AFL parameter server for the production tier. ``device=None`` is
     the CUDA card, and raises when there is none."""
@@ -91,11 +96,10 @@ class ParameterServer:
         if fl.control_plane not in ("replicated", "sharded"):
             raise ValueError(f"unknown control_plane {fl.control_plane!r}; "
                              "pick 'replicated' or 'sharded'")
-        if fl.control_plane == "sharded" or (mesh is not None
-                                             and _mesh_size(mesh) > 1):
+        if mesh_size(mesh) > 1:
             raise NotImplementedError(
-                "meshes and the sharded control plane are not ported yet "
-                "(ROADMAP Queue 1 item 9)")
+                "a parameter server on a mesh of more than one device is "
+                "not ported yet (ROADMAP Queue 1 item 9)")
         if not hasattr(model, "per_example_nll"):
             raise NotImplementedError(
                 "the port's parameter server runs models with a "
@@ -161,6 +165,12 @@ class ParameterServer:
         # the temporal stream opens with the initial state's draws, as a
         # seeded simulator run's does
         self._init_draws = draw_init(self._temporal_gen, fl)
+        # the sharded control plane: every client's draws by its id
+        self._ids = self._id_draws = None
+        if fl.control_plane == "sharded":
+            self._ids = torch.arange(n, dtype=torch.int64, device=self.device)
+            self._id_draws = HashDraws(seed, self.device)
+            self._init_draws = client_init_rows(self._id_draws, fl, self._ids)
 
     # ------------------------------------------------------------------
     # the three aggregate applies
@@ -279,13 +289,17 @@ class ParameterServer:
              draws: Optional[RoundDraws] = None) -> ServerState:
         """One CA-AFL round on ``batch`` (``x``/``labels``/``client_ids``,
         numpy or tensors) with the round's ``draws`` (default: drawn from
-        the server's generators)."""
+        the server's generators, or under the sharded control plane the
+        clients' id-addressed draws of this round)."""
         fl = self.fl
         n, k = fl.num_clients, fl.clients_per_round
         if self._model_size is None:
             self._model_size = tree_size(state.params)
         model_size = self._model_size
-        if draws is None:
+        if draws is None and self._id_draws is not None:
+            draws = client_rows(self._id_draws.round(state.round), fl,
+                                self._ids, model_size, 1)
+        elif draws is None:
             draws = draw_round(self._gen, self._quant_gen, fl, model_size, 1,
                                temporal_gen=self._temporal_gen)
         d = draws.to(self.device)
@@ -399,8 +413,9 @@ class ParameterServer:
                                + availability_logits(avail), k)
         if avail is not None:
             amask = amask * avail
+        # the sharded plane projects by the simulator's bisection
         lam = lambda_ascent(state.lam, metrics.client_losses, amask,
-                            fl.ascent_lr)
+                            fl.ascent_lr, local_rows=self._ids is not None)
         lam_max, lam_entropy, lam_ess = lambda_summary(lam)
 
         # --- the history row: one host copy ---------------------------------

@@ -14,6 +14,14 @@ normals, ``normal(fold_in(k_init, 1), (2, N, draw_sc))``. The reference's
 sweep seeds cell (p, s) with ``PRNGKey(s)`` as ``run_simulation(seed=s)``
 does, so ``reference_draws(fl_p, s, ...)`` is that cell's stream too.
 
+``ReferenceIdDraws`` is the sharded control plane's counterpart, a
+``repro_torch.core.draws.IdDraws`` that answers with the reference's own
+per-id numbers: each stream is a JAX key of the same discipline (the 7-way
+split, ``fold_in`` per stream, ``client_keys(k, ids)`` per client, the
+quantizer's ``fold_in(fold_in(k_noise, 7), id)``, the ascent and the
+descent-loss batches both from ``k_abatch``), which fills a full-N table
+from ``jax.random`` once and answers by indexing it.
+
 Tolerances of ``assert_history_close``: ``num_scheduled`` and
 ``avail_count`` exact; energy rtol 1e-5 (a different selected set would
 move it by a whole client's upload, far more); ``min_battery`` rtol 1e-5
@@ -34,8 +42,9 @@ import numpy as np
 import torch
 
 from _torch_compare import first_discrete_divergence, head, near_tie
+from repro.core.channel import client_keys
 from repro.core.transport import _client_uniforms
-from repro_torch.core.draws import InitDraws, RoundDraws
+from repro_torch.core.draws import IdDraws, InitDraws, RoundDraws, RoundStreams, Stream
 
 
 @functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5, 6, 7))
@@ -147,3 +156,85 @@ def assert_run_close(port, ref, s_test, log=None, cell=None,
     assert near_tie(log, r, cell), f"discrete fields diverge at round {r}"
     assert_history_close(head(port, r), head(ref, r), s_test, budget)
     return r
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2, 3))
+def _client_table(key, n, kind, shape):
+    """A full-N per-id table of the sharded control plane's draws: row c
+    from ``fold_in(key, c)`` (``channel.client_keys``)."""
+    keys = client_keys(key, jnp.arange(n, dtype=jnp.int32))
+    if kind == "normal":
+        return jax.vmap(lambda k: jax.random.normal(k, shape))(keys)
+    if kind == "uniform":
+        return jax.vmap(lambda k: jax.random.uniform(k, shape))(keys)
+    if kind == "gumbel":
+        return jax.vmap(lambda k: jax.random.gumbel(k, shape))(keys)
+    high, shape = shape[0], shape[1:]
+    return jax.vmap(lambda k: jax.random.randint(k, shape, 0, high))(keys)
+
+
+class ReferenceStream(Stream):
+    """One JAX key of the reference's per-id discipline: a draw fills the
+    key's [N, ...] table once and answers rows ``ids``."""
+
+    def __init__(self, key, n):
+        self.key, self.n, self.tables = key, n, {}
+
+    def fold(self, i):
+        return ReferenceStream(jax.random.fold_in(self.key, i), self.n)
+
+    def _rows(self, kind, shape, ids):
+        if (kind, shape) not in self.tables:
+            self.tables[kind, shape] = torch.from_numpy(np.array(
+                _client_table(self.key, self.n, kind, tuple(shape))))
+        return self.tables[kind, shape][ids.long().cpu()].to(ids.device)
+
+    def normal(self, ids, shape=()):
+        return self._rows("normal", tuple(shape), ids)
+
+    def uniform(self, ids, shape=()):
+        return self._rows("uniform", tuple(shape), ids)
+
+    def gumbel(self, ids):
+        return self._rows("gumbel", (), ids)
+
+    def randint(self, ids, shape, high):
+        return self._rows("randint", (high, *shape), ids)
+
+
+class ReferenceIdDraws(IdDraws):
+    """The reference's sharded-plane randomness of a run seeded with
+    ``seed`` as an ``IdDraws``: the simulator's key chain
+    (``split(PRNGKey(seed))[1]`` first, ``init_sim_state``) or, with
+    ``server=True``, the parameter server's (``PRNGKey(seed)`` itself); the
+    initial state from ``fold_in(split(PRNGKey(seed))[0], 1)`` either way.
+    ``leaf_shapes``: the model's parameter shapes in sorted-key order, for
+    the per-leaf AWGN of ``aircomp.flat_awgn``."""
+
+    def __init__(self, fl, seed, leaf_shapes, server=False):
+        k_init, k_run = jax.random.split(jax.random.PRNGKey(seed))
+        self.n, self.leaf_shapes = fl.num_clients, tuple(leaf_shapes)
+        self.k_cs = jax.random.fold_in(k_init, 1)
+        key = jax.random.PRNGKey(seed) if server else k_run
+        self.rounds = []
+        for _ in range(fl.rounds):
+            key, *roles = jax.random.split(key, 7)
+            self.rounds.append(roles)
+
+    def round(self, t):
+        k_chan, k_sel, k_batch, k_noise, k_asel, k_abatch = self.rounds[t]
+        streams = [ReferenceStream(k, self.n)
+                   for k in (k_chan, k_sel, k_batch, k_noise, k_asel, k_abatch)]
+        shapes = self.leaf_shapes
+
+        def awgn(model_size):
+            keys = jax.random.split(k_noise, len(shapes))
+            z = np.concatenate([np.asarray(jax.random.normal(k, s)).reshape(-1)
+                                for k, s in zip(keys, shapes)])
+            assert z.shape[0] == model_size
+            return torch.from_numpy(z)
+
+        return RoundStreams(*streams, awgn=awgn)
+
+    def init(self):
+        return ReferenceStream(self.k_cs, self.n)

@@ -162,6 +162,58 @@ def test_selected_k_round_launches_aircomp_once(card):
 
 
 @pytest.mark.cuda
+def test_hash_stream_gives_the_same_integers_on_the_card(card):
+    """The sharded control plane's id-addressed draws: the same integers on
+    the card as on the CPU for every stream and id, so uniforms (exact on
+    the 2⁻²⁴ grid) and batch indices are bit-equal, and normals and
+    Gumbels differ by at most a few ulps (erfinv and log, not the bits)."""
+    from repro_torch.core.draws import HashDraws
+    ids = torch.arange(100_003, dtype=torch.int64)
+    cpu, gpu = HashDraws(11, "cpu").round(7), HashDraws(11, card).round(7)
+    for role in ("chan", "sel", "batch", "noise", "asel", "abatch"):
+        a, b = getattr(cpu, role).fold(3), getattr(gpu, role).fold(3)
+        assert torch.equal(a.bits(ids, 3), b.bits(ids.to(card), 3).cpu()), role
+        assert torch.equal(a.uniform(ids, (2,)), b.uniform(ids.to(card), (2,)).cpu())
+        assert torch.equal(a.randint(ids, (4,), 50), b.randint(ids.to(card), (4,), 50).cpu())
+        torch.testing.assert_close(b.normal(ids.to(card)).cpu(), a.normal(ids),
+                                   rtol=4 * EPS32, atol=4 * EPS32)
+        torch.testing.assert_close(b.gumbel(ids.to(card)).cpu(), a.gumbel(ids),
+                                   rtol=8 * EPS32, atol=8 * EPS32)
+    torch.testing.assert_close(gpu.awgn(7850).cpu(), cpu.awgn(7850),
+                               rtol=4 * EPS32, atol=4 * EPS32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transport,kernel", [
+    ("analog", "aircomp"), ("quantized", "quant_aircomp"),
+    ("sparse", "sparse_aircomp"), ("digital", "aircomp")])
+def test_sharded_plane_round_launches_its_kernel_once(card, transport, kernel):
+    """Under control_plane="sharded" an exact-K round launches its
+    transport's kernel once over the [K, P] slots and no other kernel, and
+    the run equals the CPU's on the same hash stream (num_scheduled
+    exactly, λ atol 1e-6, energy rtol 1e-5)."""
+    counters = {"aircomp": aircomp_cuda, "quant_aircomp": quant_aircomp_cuda,
+                "sparse_aircomp": sparse_aircomp_cuda}
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(12, 10, 8)).astype(np.float32)
+    y = rng.integers(0, 10, size=(12, 10)).astype(np.int32)
+    fl = FLConfig(num_clients=12, clients_per_round=4, rounds=5, batch_size=5,
+                  noise_std=1e-2, transport=transport, sparse_density=0.2,
+                  control_plane="sharded")
+    model = logistic_regression(8, 10)
+    before = {name: c.launches for name, c in counters.items()}
+    gpu = run_simulation(model, fl, (x, y, x, y), device=card)
+    for name, c in counters.items():
+        want = fl.rounds if name == kernel else 0
+        assert c.launches - before[name] == want, name
+    cpu = run_simulation(model, fl, (x, y, x, y), device="cpu")
+    assert gpu.num_scheduled.cpu().tolist() == [4.0] * fl.rounds
+    assert torch.equal(gpu.num_scheduled.cpu(), cpu.num_scheduled)
+    torch.testing.assert_close(gpu.lam.cpu(), cpu.lam, rtol=0, atol=1e-6)
+    torch.testing.assert_close(gpu.energy.cpu(), cpu.energy, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("transport", ["analog", "quantized", "sparse", "digital"])
 def test_sweep_group_equals_its_cells_on_the_card(card, transport):
     """A group of 2 points × 2 seeds on the card launches its transport's

@@ -27,7 +27,8 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert {"repro_torch.core.simulator", "repro_torch.models.xlstm",
             "repro_torch.kernels.slstm.ops", "repro_torch.configs.xlstm_1_3b",
             "repro_torch.federated.server", "repro_torch.federated.rounds",
-            "repro_torch.optim.adamw", "repro_torch.data.pipeline"} <= set(modules)
+            "repro_torch.optim.adamw", "repro_torch.data.pipeline",
+            "repro_torch.core.sharding"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
@@ -39,8 +40,11 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 
 def test_port_sources_name_no_jax_or_reference_import():
+    """The port, ``chip_smoke.py`` and the mesh tests' worker, which runs
+    where only PyTorch and the port are imported."""
     assert CHIP_SMOKE.is_file()
-    for path in [*SRC.rglob("*.py"), CHIP_SMOKE]:
+    worker = Path(__file__).with_name("_torch_mesh_worker.py")
+    for path in [*SRC.rglob("*.py"), CHIP_SMOKE, worker]:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
@@ -61,18 +65,24 @@ def test_entry_point_without_device_raises_when_no_card(monkeypatch):
                                    "scenario_from_config", "sweep_point_from_config",
                                    "logreg_init", "logreg_params_from_jax",
                                    "ParameterServer", "server_init_state",
-                                   "sgd_init", "adamw_init", "chain_init"])
+                                   "sgd_init", "adamw_init", "chain_init",
+                                   "HashDraws", "sharded_init_sim_state",
+                                   "run_simulation_control_sharded"])
 def test_public_function_without_device_raises_when_no_card(monkeypatch, entry):
     """``device=None`` means the card, as at every entry point: without one
     these raise, and with ``device="cpu"`` they build on the CPU."""
     from repro_torch import optim
-    from repro_torch.core import channel, simulator, sweep, transport
+    from repro_torch.core import (channel, draws, sharding, simulator, sweep,
+                                  transport)
     from repro_torch.federated.server import ParameterServer
     from repro_torch.models import logreg
     fl = FLConfig(num_clients=4, clients_per_round=2, rounds=1, batch_size=2)
     model = logistic_regression(3, 10)
     params = {"b": np.zeros(10, np.float32), "w": np.zeros((3, 10), np.float32)}
     tparams = {k: torch.from_numpy(v) for k, v in params.items()}
+    sharded = dataclasses.replace(fl, control_plane="sharded")
+    data = (np.zeros((4, 2, 3), np.float32), np.zeros((4, 2), np.int32),
+            np.zeros((4, 2, 3), np.float32), np.zeros((4, 2), np.int32))
     server = lambda dev: ParameterServer(logreg.logistic_regression_prod(3, 10),  # noqa: E731
                                          optim.sgd(0.1), fl, device=dev)
     call = {"init_sim_state": lambda dev: simulator.init_sim_state(model, fl, dev),
@@ -86,7 +96,13 @@ def test_public_function_without_device_raises_when_no_card(monkeypatch, entry):
             "sgd_init": lambda dev: optim.sgd(0.1, momentum=0.9).init(tparams, dev),
             "adamw_init": lambda dev: optim.adamw(0.1).init(tparams, dev),
             "chain_init": lambda dev: optim.chain(optim.clip_by_global_norm(1.0),
-                                                  optim.sgd(0.1)).init(tparams, dev)}[entry]
+                                                  optim.sgd(0.1)).init(tparams, dev),
+            "HashDraws": lambda dev: draws.HashDraws(0, dev).round(0).awgn(4),
+            "sharded_init_sim_state": lambda dev: simulator.init_sim_state(
+                model, sharded, dev),
+            "run_simulation_control_sharded": lambda dev:
+                sharding.run_simulation_control_sharded(model, sharded, data,
+                                                        device=dev)}[entry]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call(None)

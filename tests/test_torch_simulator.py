@@ -152,9 +152,27 @@ def test_default_draws_run_is_seeded(data):
 
 
 def test_unported_paths_raise(data):
+    """The sharded control plane runs on one device (``ids = arange(N)``):
+    its run is seeded and schedules K every round. Population sharding of
+    the replicated plane, a mesh of more than one device, still raises
+    naming item 9 (a mesh of one device is a no-op)."""
+    class Mesh:
+        def __init__(self, size):
+            self.size = size
+
     model = logistic_regression(DIM, 10)
+    sharded = FLConfig(**{**BASE, "control_plane": "sharded", "rounds": 3})
+    a = run_simulation(model, sharded, data, seed=3, device="cpu")
+    b = run_simulation(model, sharded, data, seed=3, device="cpu", mesh=Mesh(1))
+    np.testing.assert_array_equal(a.num_scheduled.numpy(), np.full(3, K))
+    np.testing.assert_array_equal(a.lam.numpy(), b.lam.numpy())
+    np.testing.assert_allclose(a.lam.numpy().sum(axis=1), 1.0, atol=1e-5)
     with pytest.raises(NotImplementedError, match="item 9"):
-        run_simulation(model, FLConfig(**{**BASE, "control_plane": "sharded"}),
+        run_simulation(model, FLConfig(**BASE), data, device="cpu", mesh=Mesh(2))
+    run_simulation(model, replace(FLConfig(**BASE), rounds=1), data,
+                   device="cpu", mesh=Mesh(1))
+    with pytest.raises(ValueError, match="control_plane"):
+        run_simulation(model, FLConfig(**{**BASE, "control_plane": "ring"}),
                        data, device="cpu")
 
 
