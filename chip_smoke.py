@@ -143,6 +143,7 @@ F32_FLOPS = 67e12           # f32 outside the tensor cores
 BF16_FLOPS = 989e12         # bf16 tensor cores, dense
 TF32_FLOPS = 495e12         # TF32 tensor cores, dense
 SAMPLES = 21
+MAIN_ROUNDS = 30            # the simulator's timed runs at full width
 
 
 def emit(obj) -> None:
@@ -588,7 +589,7 @@ def main_path_config(transport):
     from repro_torch.models.logreg import logistic_regression
 
     cfg = fmnist_logreg.CONFIG
-    return (cfg, replace(fmnist_logreg.FL, rounds=30, transport=transport),
+    return (cfg, replace(fmnist_logreg.FL, rounds=MAIN_ROUNDS, transport=transport),
             logistic_regression(cfg.dim, cfg.num_classes))
 
 
@@ -898,20 +899,7 @@ def phase_sweep(torch, counters, data):
     sweep.run_sweep(model, data, sweep_specs(replace(fl, rounds=2)),
                     seeds=SWEEP_SEEDS)   # warm-up at the groups' shapes
     torch.cuda.synchronize()
-    groups, inner = [], sweep._run_group
-
-    def timed_group(*args, **kw):
-        torch.cuda.synchronize()
-        start = {name: c.launches for name, c in counters.items()}
-        t0 = time.perf_counter()
-        hist = inner(*args, **kw)    # ends in a copy to the host
-        wall = time.perf_counter() - t0
-        groups.append({"fls": args[2], "wall_s": wall,
-                       "launches": {n: c.launches - start[n]
-                                    for n, c in counters.items()}})
-        return hist
-
-    sweep._run_group = timed_group
+    groups, restore = timed_groups(torch, counters, sweep, "_run_group")
     try:
         with RoundLog() as sel:
             for c in counters.values():
@@ -921,15 +909,13 @@ def phase_sweep(torch, counters, data):
             sweep_wall = time.perf_counter() - t0
             launches = {name: c.launches for name, c in counters.items()}
     finally:
-        sweep._run_group = inner
+        restore()
     group_masks = sel.masks
     s_test = data[3].shape[1]
     rows, out = 0, []
     for g in groups:
-        transport = g["fls"][0].transport
+        transport, cells, t = g["transport"], g["cells"], fl.rounds
         kernel = TRANSPORT_KERNEL[transport]
-        cells = len(g["fls"]) * len(SWEEP_SEEDS)
-        t = g["fls"][0].rounds
         masks = torch.stack(group_masks[rows:rows + t])   # [T, G, N]
         rows += t
         for name, n in g["launches"].items():
@@ -976,7 +962,7 @@ def phase_sweep(torch, counters, data):
                     "groups": len(groups), "wall_s": sweep_wall,
                     "cell_rounds_per_s": len(specs) * len(SWEEP_SEEDS) * fl.rounds
                     / sweep_wall, "launches": launches}})
-    return out
+    return out, result
 
 
 def phase_sweep_trace(torch, data, transport):
@@ -1599,15 +1585,7 @@ def sharded_want(method, transport):
     under analog and digital (no kernel, as on the replicated plane)."""
     if method == "gca" and transport in ("analog", "digital"):
         return {}
-    return {TRANSPORT_KERNEL[transport]: 30}
-
-
-def unbatched_log(log):
-    """A ``RoundLog`` of the sharded plane's one-cell round, its [N]
-    records given the cell axis ``near_tie`` reads."""
-    log.gates = [(a[None], b[None]) for a, b in log.gates]
-    log.gca = [(a[None], b[None]) for a, b in log.gca]
-    return log
+    return {TRANSPORT_KERNEL[transport]: MAIN_ROUNDS}
 
 
 def phase_control_sharded(torch, counters, data, main_runs):
@@ -1638,7 +1616,7 @@ def phase_control_sharded(torch, counters, data, main_runs):
         r = first_discrete_divergence(hist, cpu)
         got, want = hist, cpu
         if r is not None:
-            accept_divergence(unbatched_log(log), r, 0, what)
+            accept_divergence(log, r, 0, what)
             got, want = head(hist, r), head(cpu, r)
         budget = fl.battery_init
         bad = history_mismatch(got, want, data[3].shape[1], budget)
@@ -1670,20 +1648,25 @@ def phase_control_sharded(torch, counters, data, main_runs):
     return out, hists
 
 
-def phase_control_sharded_mesh(torch, counters, data, one_device):
+def phase_control_sharded_mesh(torch, counters, data, one_device, pop_ref):
     """``run_simulation_control_sharded`` over a one-rank NCCL process
     group (a ``FileStore`` in a temporary directory, destroyed at the end)
     for CA-AFL under analog, quantized and sparse, with the flat top-k tree
     and with fan-in 1: each equal to the one-device run of the phase above
     (discrete fields exactly, continuous ones within rtol 2e-5, atol 2e-6,
-    the reference's mesh bound), its transport's kernel 30 times."""
+    the reference's mesh bound), its transport's kernel 30 times; and
+    ``run_simulation_sharded`` (population sharding of the replicated
+    plane, CA-AFL analog) over the same group: the replicated fields equal
+    to the one-device dense run ``pop_ref`` bit for bit, the rest to the
+    mesh gate, no kernel launched."""
     import os
     import shutil
     import tempfile
 
     import torch.distributed as dist
 
-    from repro_torch.core.sharding import ClientAxis, run_simulation_control_sharded
+    from repro_torch.core.sharding import (ClientAxis, run_simulation_control_sharded,
+                                           run_simulation_sharded)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
     out = []
@@ -1730,6 +1713,26 @@ def phase_control_sharded_mesh(torch, counters, data, one_device):
                 if max(worst.values()) > 0:
                     raise AssertionError(f"{what}: beyond tolerance: {worst}")
                 out.append(entry)
+        fl, model = pop_config("ca_afl", "analog", None)
+        what = "control_sharded_mesh population_sharded analog"
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        hist = run_simulation_sharded(model, fl, data, axis, seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counters.items()}
+        check_launches(launches, {}, what)
+        bad, equal = mesh_mismatch(hist, pop_ref, POP_EXACT)
+        entry = {"transport": "analog", "plane": "replicated, population-sharded",
+                 "ranks": axis.size, "backend": dist.get_backend(),
+                 "rounds_per_s": fl.rounds / wall, "launches": launches,
+                 "bit_equal_fields": equal, "beyond_tolerance": bad or None}
+        emit({"control_sharded_mesh": entry})
+        if bad:
+            raise AssertionError(f"{what}: differs from the one-device dense run: {bad}")
+        out.append(entry)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -1822,6 +1825,600 @@ def phase_control_sharded_trace(torch, data, main_traces):
             "replicated_device_ms_per_round": rep and rep["device_ms_per_round"]}})
         out[transport] = trace
     return out
+
+# ---------------------------------------------------------------------------
+# The multi-device layer: population sharding, cells over ranks, the 2-D mesh
+# ---------------------------------------------------------------------------
+
+# (label, method, transport, scenario) of the population-sharded runs
+POP_RUNS = (("ca_afl analog", "ca_afl", "analog", None),
+            ("ca_afl quantized", "ca_afl", "quantized", None),
+            ("ca_afl sparse", "ca_afl", "sparse", None),
+            ("ca_afl digital", "ca_afl", "digital", None),
+            ("gca analog", "gca", "analog", None),
+            ("ca_afl analog battery_constrained", "ca_afl", "analog",
+             "battery_constrained"))
+# bit-equal to the one-device dense run: every [N] decision is replicated
+POP_EXACT = ("num_scheduled", "energy", "avail_count", "min_battery")
+MESH_DISCRETE = ("num_scheduled", "avail_count")
+SHARDED_SWEEP_TRANSPORTS = ("analog", "quantized")
+RANK_TIMEOUT_S = 600
+
+
+def pop_config(method, transport, scenario):
+    """The main path's configuration (replicated plane) under ``method``
+    and ``scenario``."""
+    from repro_torch.core.channel import SCENARIOS
+
+    _, fl, model = main_path_config(transport)
+    return replace(fl, method=method,
+                   **(SCENARIOS[scenario] if scenario else {})), model
+
+
+def sharded_sweep_specs():
+    """The sharded plane's ca_afl group under analog and quantized, C ∈
+    {0, 2, 8, 32}, at the main path's width: two structural groups."""
+    _, fl, _ = sharded_config("ca_afl", "analog")
+    return [(f"{tr}:ca_afl_C{c:g}", replace(fl, transport=tr, energy_C=c))
+            for tr in SHARDED_SWEEP_TRANSPORTS for c in SWEEP_C]
+
+
+def mesh_mismatch(got, want, exact=MESH_DISCRETE):
+    """Per field of two histories (numpy or tensors): for ``exact`` fields
+    the count of unequal entries, for the rest the largest excess over the
+    reference's mesh bound (rtol 2e-5, atol 2e-6), the accuracies
+    included; and the fields equal bit for bit."""
+    import numpy as np
+    host = lambda v: np.asarray(v.cpu() if hasattr(v, "cpu") else v, np.float64)  # noqa: E731
+    rtol, atol = FMA_TOL["rtol"], FMA_TOL["atol"]
+    out, equal = {}, []
+    for f in want._fields:
+        b = getattr(want, f)
+        a = getattr(got, f)
+        if isinstance(b, tuple):
+            out[f] = 0.0 if isinstance(a, tuple) else math.inf
+            continue
+        a, b = host(a), host(b)
+        if a.shape != b.shape:
+            out[f] = math.inf
+            continue
+        same = (a == b) | (np.isnan(a) & np.isnan(b))
+        if same.all():
+            equal.append(f)
+        if f in exact:
+            out[f] = float((~same).sum())
+            continue
+        with np.errstate(invalid="ignore"):
+            excess = np.where(same, 0.0, np.abs(a - b) - (atol + rtol * np.abs(b)))
+        out[f] = float(np.nan_to_num(excess, nan=math.inf).max()) if excess.size else 0.0
+    return {f: v for f, v in out.items() if v > 0}, equal
+
+
+def save_histories(path, hists):
+    """``{name: SimHistory}`` into one .npz, keys ``name/field``."""
+    import numpy as np
+    arrays = {}
+    for name, h in hists.items():
+        for f in h._fields:
+            v = getattr(h, f)
+            if not isinstance(v, tuple):
+                arrays[f"{name}/{f}"] = np.asarray(v.cpu() if hasattr(v, "cpu") else v)
+    np.savez(path, **arrays)
+
+
+def load_histories(path, template):
+    """The histories :func:`save_histories` wrote, by name."""
+    import numpy as np
+    z = np.load(path)
+    names = sorted({k.rsplit("/", 1)[0] for k in z.files})
+    return {n: template(*(z[f"{n}/{f}"] if f"{n}/{f}" in z.files else ()
+                          for f in template._fields)) for n in names}
+
+
+def timed_groups(torch, counters, module, name):
+    """Wrap ``module.name`` (a sweep group runner) so that each call is
+    timed to a synchronise and its launches counted; returns (records,
+    restore)."""
+    inner, groups = getattr(module, name), []
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        start = {n: c.launches for n, c in counters.items()}
+        t0 = time.perf_counter()
+        hist = inner(*args, **kw)
+        torch.cuda.synchronize()
+        groups.append({"transport": args[2][0].transport,
+                       "cells": len(args[2]) * len(args[4]),
+                       "wall_s": time.perf_counter() - t0,
+                       "launches": {n: c.launches - start[n]
+                                    for n, c in counters.items()}})
+        return hist
+
+    setattr(module, name, timed)
+    return groups, lambda: setattr(module, name, inner)
+
+
+def rank_population_sharded(torch, counters, data, axis, out_dir, rank):
+    """This rank's population-sharded runs (``run_simulation(mesh=axis)``
+    of the replicated plane, 30 rounds at full width): rounds/s, launches
+    (none: eq. (10) is a psum of per-leaf partial sums), peak memory; the
+    histories go to the parent, which holds them against the one-device
+    dense runs."""
+    from repro_torch.core.simulator import run_simulation
+
+    fl, model = pop_config("ca_afl", "analog", None)
+    run_simulation(model, replace(fl, rounds=3), data, seed=1, mesh=axis)  # warm-up
+    rows, hists = {}, {}
+    for label, method, transport, scenario in POP_RUNS:
+        fl, model = pop_config(method, transport, scenario)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        hist = run_simulation(model, fl, data, seed=0, mesh=axis)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rows[label] = {"wall_s": wall, "rounds_per_s": fl.rounds / wall,
+                       "launches": {n: c.launches for n, c in counters.items()},
+                       "peak_bytes": torch.cuda.max_memory_allocated()}
+        hists[label] = hist
+    save_histories(Path(out_dir, f"population_sharded_{axis.size}_{rank}.npz"), hists)
+    return rows
+
+
+def rank_sweep_cells(torch, counters, data, axis, out_dir, rank):
+    """PR 21's sweep (4 transports × 4 C × 5 seeds, 30 rounds) with its
+    seed columns over this world's ranks (``run_sweep(devices=D)``): each
+    group's wall time to a synchronise and launches on this rank; the
+    histories go to the parent."""
+    from repro_torch.core import sweep
+
+    _, fl, model = main_path_config("analog")
+    n = axis.size
+    sweep.run_sweep(model, data, sweep_specs(replace(fl, rounds=2)),
+                    seeds=SWEEP_SEEDS, devices=n)   # warm-up
+    groups, restore = timed_groups(torch, counters, sweep, "_run_group")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = sweep.run_sweep(model, data, sweep_specs(fl), seeds=SWEEP_SEEDS,
+                                 devices=n)
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    save_histories(Path(out_dir, f"sweep_cells_{n}_{rank}.npz"),
+                   dict(zip(result.labels, result.histories)))
+    return {"groups": groups, "wall_s": wall,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def rank_sweep_2d(torch, counters, data, axis, out_dir, rank):
+    """The sharded plane's ca_afl groups (analog, quantized; 4 C × 5
+    seeds, 30 rounds) on the 2 × 2 cells × clients mesh
+    (``run_sweep(devices=4, client_devices=2)``): each group's wall time
+    and launches on this rank; the histories go to the parent."""
+    from repro_torch.core import sweep
+
+    _, _, model = sharded_config("ca_afl", "analog")
+    specs = sharded_sweep_specs()
+    sweep.run_sweep(model, data, [(lbl, replace(f, rounds=2)) for lbl, f in specs],
+                    seeds=SWEEP_SEEDS, devices=4, client_devices=2)   # warm-up
+    groups, restore = timed_groups(torch, counters, sweep, "_run_sharded_group")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = sweep.run_sweep(model, data, specs, seeds=SWEEP_SEEDS, devices=4,
+                                 client_devices=2)
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    save_histories(Path(out_dir, f"sweep_2d_{rank}.npz"),
+                   dict(zip(result.labels, result.histories)))
+    return {"groups": groups, "wall_s": wall,
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+RANK_JOBS = {"population_sharded": rank_population_sharded,
+             "sweep_cells": rank_sweep_cells, "sweep_2d": rank_sweep_2d}
+
+
+def rank_main(rank, world, store_path, out_dir, jobs):
+    """One rank of a multi-rank phase: a process on ``cuda:0`` in a gloo
+    group of ``world`` processes (a ``FileStore`` at ``store_path``),
+    running ``jobs`` in order; it writes its verdict to
+    ``out_dir/rank<rank>.json`` (an ``error`` entry if anything raised)."""
+    import traceback
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import fmnist_logreg
+    from repro_torch.core.sharding import ClientAxis
+    from repro_torch.kernels.aircomp.kernel import (aircomp_cuda,
+                                                    quant_aircomp_cuda,
+                                                    sparse_aircomp_cuda)
+    counters = {"aircomp": aircomp_cuda, "quant_aircomp": quant_aircomp_cuda,
+                "sparse_aircomp": sparse_aircomp_cuda}
+    verdict = {}
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        cfg, fl = fmnist_logreg.CONFIG, fmnist_logreg.FL
+        data = fmnist_data(torch, cfg.dim, cfg.num_train, cfg.num_test,
+                           fl.num_clients, "cuda")
+        axis = ClientAxis()
+        for job in jobs:
+            verdict[job] = RANK_JOBS[job](torch, counters, data, axis, out_dir, rank)
+    except Exception:   # noqa: BLE001 — the parent reads it and fails the run
+        verdict["error"] = traceback.format_exc()
+    finally:
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(verdict))
+        dist.destroy_process_group()
+
+
+def run_ranks(world, jobs, out_dir):
+    """Spawn ``world`` processes of :func:`rank_main` on the one card and
+    wait for them (at most ``RANK_TIMEOUT_S`` seconds); every process is
+    ended before this returns. Raises if a rank times out, exits non-zero,
+    writes no verdict or reports an error; returns the verdicts."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    store = Path(out_dir, f"store_{world}")
+    procs = [ctx.Process(target=rank_main, args=(r, world, str(store), str(out_dir), jobs))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    try:
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+    finally:
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    if hung:
+        raise AssertionError(f"{world} ranks: ranks {hung} did not finish in "
+                             f"{RANK_TIMEOUT_S} s")
+    verdicts = []
+    for r, p in enumerate(procs):
+        f = Path(out_dir, f"rank{r}.json")
+        if not f.exists():
+            raise AssertionError(f"{world} ranks: rank {r} (exit {p.exitcode}) "
+                                 "wrote no verdict")
+        v = json.loads(f.read_text())
+        if "error" in v:
+            raise AssertionError(f"{world} ranks: rank {r} failed:\n{v['error']}")
+        if p.exitcode != 0:
+            raise AssertionError(f"{world} ranks: rank {r} exited {p.exitcode}")
+        verdicts.append(v)
+    return verdicts
+
+
+def population_refs(torch, data):
+    """The one-device dense run of each population-sharded configuration
+    on the card (seed 0), the histories the ranks are held against."""
+    from repro_torch.core.simulator import run_simulation
+
+    refs = {}
+    for label, method, transport, scenario in POP_RUNS:
+        fl, model = pop_config(method, transport, scenario)
+        refs[label] = run_simulation(model, fl, data, seed=0, dense=True)
+    return refs
+
+
+def check_population_sharded(world, verdicts, out_dir, refs):
+    """Each rank's population-sharded runs against the one-device dense
+    runs: the replicated fields bit for bit, the rest to the mesh gate;
+    no kernel launched."""
+    from repro_torch.core.simulator import SimHistory
+
+    out = []
+    for label, method, transport, scenario in POP_RUNS:
+        rows = []
+        for r, v in enumerate(verdicts):
+            got = load_histories(Path(out_dir, f"population_sharded_{world}_{r}.npz"),
+                                 SimHistory)[label]
+            bad, equal = mesh_mismatch(got, refs[label], POP_EXACT)
+            row = v["population_sharded"][label]
+            check_launches(row["launches"], {}, f"population_sharded {world} ranks "
+                                                f"{label} rank {r}")
+            rows.append({"rank": r, **row, "bit_equal_fields": equal,
+                         "beyond_tolerance": bad or None})
+            if bad:
+                raise AssertionError(f"population_sharded {world} ranks {label} rank "
+                                     f"{r}: differs from the one-device dense run {bad}")
+        entry = {"run": label, "ranks": world, "backend": "gloo (processes sharing "
+                 "one card)", "N": 100, "K": 40, "P": 7850, "rounds": MAIN_ROUNDS,
+                 "per_rank": rows,
+                 "rounds_per_s_min": min(x["rounds_per_s"] for x in rows)}
+        emit({"population_sharded": entry})
+        out.append(entry)
+    return out
+
+
+def check_sweep_groups(what, world, verdicts, out_dir, ref, prefix, kernels_want):
+    """Each rank's sweep against the one-device ``SweepResult`` ``ref``,
+    label for label: discrete fields exactly, the rest to the mesh gate;
+    each group's launches on each rank exactly ``kernels_want(group)``."""
+    from repro_torch.core.simulator import SimHistory
+
+    out = []
+    for r, v in enumerate(verdicts):
+        got = load_histories(Path(out_dir, f"{prefix}_{r}.npz"), SimHistory)
+        bad, differ, worst = {}, set(), 0.0
+        for lbl in ref.labels:
+            b, equal = mesh_mismatch(got[lbl], ref.history(lbl))
+            for f in set(SimHistory._fields) - set(equal):
+                a, w = getattr(got[lbl], f), getattr(ref.history(lbl), f)
+                if not isinstance(w, tuple):
+                    differ.add(f)
+                    worst = max(worst, float(abs(a - w.cpu().numpy()
+                                                 if hasattr(w, "cpu") else a - w).max()))
+            if b:
+                bad[lbl] = b
+        for g in v[what]["groups"]:
+            check_launches(g["launches"], kernels_want(g), f"{what} rank {r} "
+                                                            f"{g['transport']}")
+        entry = {"ranks": world, "rank": r, "wall_s": v[what]["wall_s"],
+                 "peak_bytes": v[what]["peak_bytes"],
+                 "groups": [{"transport": g["transport"], "cells": g["cells"],
+                             "wall_s": g["wall_s"],
+                             "cell_rounds_per_s": g["cells"] * MAIN_ROUNDS / g["wall_s"],
+                             "launches": {n: c for n, c in g["launches"].items() if c}}
+                            for g in v[what]["groups"]],
+                 "bit_equal_to_one_device": not differ,
+                 "fields_not_bit_equal": sorted(differ),
+                 "max_abs_diff": worst, "beyond_tolerance": bad or None}
+        emit({what: entry})
+        if bad:
+            raise AssertionError(f"{what} rank {r}: differs from the one-device "
+                                 f"sweep: {bad}")
+        out.append(entry)
+    return out
+
+
+ACC_FIELDS = ("avg_acc", "worst_acc", "std_acc")
+
+
+class EvalLog:
+    """The test evaluations of every run made with ``self.model``, in call
+    order: the weights evaluated and, for each test prediction ([G, N,
+    S_t] each), its correctness, the gap between its two largest logits
+    and how far logits can move when the weights move within the mesh
+    bound: for the two classes together, Σ_c rtol·(Σ_d |x_d||w_dc| +
+    |b_c|) + atol·(‖x‖₁ + 1), the forward bound of a dot product. It wraps
+    the logistic regression's ``accuracy``, computing the logits as the
+    model does; a call whose logged correctness does not give the model's
+    own accuracy raises."""
+
+    def __init__(self, torch, model):
+        self.calls = []
+        inner = model.accuracy
+        rtol, atol = FMA_TOL["rtol"], FMA_TOL["atol"]
+
+        def accuracy(params, x, y):
+            acc = inner(params, x, y)
+            w, b = params["w"], params["b"]
+            logits = torch.einsum("...bd,...dl->...bl", x, w) + b.unsqueeze(-2)
+            top, idx = torch.topk(logits, 2, dim=-1)
+            mag = torch.einsum("...bd,...dl->...bl", x.abs(), w.abs()) + b.abs().unsqueeze(-2)
+            l1 = x.abs().sum(dim=-1) + 1.0
+            bound = (rtol * torch.gather(mag, -1, idx).sum(dim=-1)
+                     + 2 * atol * l1.expand(mag.shape[:-1]))
+            correct = torch.argmax(logits, dim=-1) == y.long()
+            if not torch.equal(correct.to(torch.float32).mean(dim=-1), acc):
+                raise AssertionError("EvalLog: the logged predictions do not "
+                                     "give the model's accuracy")
+            self.calls.append({"correct": correct, "gap": top[..., 0] - top[..., 1],
+                               "bound": bound, "w": w.clone(), "b": b.clone()})
+            return acc
+
+        self.model = model._replace(accuracy=accuracy)
+
+
+def accuracy_flips(cell, single, g_call, s_call, eval_every):
+    """The rounds in which an accuracy field of ``cell`` differs from
+    ``single`` beyond the mesh bound, each explained by the test
+    predictions the two runs decide apart. ``g_call(i)``/``s_call(i)`` give
+    the two runs' ``EvalLog`` records of their i-th evaluation (one cell's:
+    [N, S_t] and its weights). Returns one record a round: its flips,
+    their largest logit gap and its bound in each run, and how far the two
+    runs' weights exceed the mesh bound (reported, not gated). Raises
+    unless there are flips, each one at a near-tie in both runs (its top
+    two logits closer than weights within the mesh bound can move them),
+    and they account for the round's whole difference in each accuracy
+    field (to the mesh bound)."""
+    import numpy as np
+    rtol, atol = FMA_TOL["rtol"], FMA_TOL["atol"]
+    host = lambda v: np.asarray(v.cpu() if hasattr(v, "cpu") else v, np.float64)  # noqa: E731
+    cols = {f: (host(getattr(cell, f)), host(getattr(single, f))) for f in ACC_FIELDS}
+    rounds = sorted({int(r) for a, b in cols.values()
+                     for r in np.flatnonzero(np.abs(a - b) > atol + rtol * np.abs(b))})
+
+    def stats(correct):
+        acc = correct.double().mean(dim=-1)   # [N]
+        return [float(acc.mean()), float(acc.min()), float(acc.std(correction=0))]
+
+    out = []
+    for r in rounds:
+        g, o = g_call(r // eval_every), s_call(r // eval_every)
+        flip = g["correct"] != o["correct"]
+        n = int(flip.sum())
+        logged = [x - y for x, y in zip(stats(g["correct"]), stats(o["correct"]))]
+        explained = all(abs((a[r] - b[r]) - d) <= atol + rtol * abs(b[r])
+                        for (a, b), d in zip(cols.values(), logged))
+        near = n > 0 and all(bool((e["gap"][flip] <= e["bound"][flip]).all())
+                             for e in (g, o))
+        w_excess = max(float(((g[k] - o[k]).abs() - (atol + rtol * o[k].abs())).max())
+                       for k in ("w", "b"))
+        rec = {"round": r, "flips": n, "explained": explained, "near_ties": near,
+               "gaps_group": g["gap"][flip].tolist(), "bounds_group": g["bound"][flip].tolist(),
+               "gaps_single": o["gap"][flip].tolist(), "bounds_single": o["bound"][flip].tolist(),
+               "weights_max_excess_over_mesh_bound": max(w_excess, 0.0)}
+        out.append(rec)
+        if not (near and explained):
+            raise AssertionError(f"accuracies differ at round {r} beyond the mesh "
+                                 f"bound, not by test predictions at near-ties: {rec}")
+    return out
+
+
+def phase_sweep_sharded_group(torch, counters, data):
+    """The sharded plane's ca_afl group (analog, quantized; C ∈ {0, 2, 8,
+    32} × 5 seeds, 30 rounds) as one batched [G = 20] run on one card:
+    each group launches its transport's kernel exactly G × T = 600 times
+    and no other, each cell equals its own ``run_simulation`` of the
+    sharded plane (a group of one, the same hash stream; discrete fields
+    exactly, the rest to the mesh gate), and cell-rounds/s of the group
+    against its 20 cells one by one in this call."""
+    from repro_torch.core import sweep
+    from repro_torch.core.simulator import run_simulation
+
+    _, _, model = sharded_config("ca_afl", "analog")
+    specs = sharded_sweep_specs()
+    sweep.run_sweep(model, data, [(lbl, replace(f, rounds=2)) for lbl, f in specs],
+                    seeds=SWEEP_SEEDS)   # warm-up at the groups' shapes
+    groups, restore = timed_groups(torch, counters, sweep, "_run_sharded_group")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        result = sweep.run_sweep(model, data, specs, seeds=SWEEP_SEEDS)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        restore()
+    out = []
+    for g in groups:
+        transport, kernel = g["transport"], TRANSPORT_KERNEL[g["transport"]]
+        check_launches(g["launches"], {kernel: g["cells"] * MAIN_ROUNDS},
+                       f"sweep_sharded_group {transport}")
+        labels = [lbl for lbl, f in specs if f.transport == transport]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        singles = [(lbl, s, run_simulation(model, dict(specs)[lbl], data, seed=s))
+                   for lbl in labels for s in SWEEP_SEEDS]
+        torch.cuda.synchronize()
+        one_wall = time.perf_counter() - t0
+        bad, equal_all = {}, True
+        for lbl, s, single in singles:
+            h = result.history(lbl)
+            i = SWEEP_SEEDS.index(s)
+            cell = type(h)(*(v if isinstance(v, tuple) else v[i] for v in h))
+            b, equal = mesh_mismatch(cell, single)
+            equal_all &= len(equal) == len(h._fields)
+            if b:
+                bad[(lbl, s)] = b
+        flips = {}
+        if bad and all(set(b) <= set(ACC_FIELDS) for b in bad.values()):
+            flips = explain_flips(torch, model, data, specs, labels, result,
+                                  dict(((lbl, s), h) for lbl, s, h in singles), bad)
+            bad = {}
+        entry = {"transport": transport, "kernel": kernel, "G": g["cells"], "T": MAIN_ROUNDS,
+                 "N": 100, "K": 40, "P": 7850, "wall_s": g["wall_s"],
+                 "cell_rounds_per_s": g["cells"] * MAIN_ROUNDS / g["wall_s"],
+                 "one_by_one_wall_s": one_wall,
+                 "one_by_one_cell_rounds_per_s": g["cells"] * MAIN_ROUNDS / one_wall,
+                 "launches": g["launches"][kernel], "peak_bytes": peak,
+                 "cells_bit_equal_to_their_runs": equal_all,
+                 "accuracy_flips": flips or None,
+                 "beyond_tolerance": {f"{lbl} seed {s}": b
+                                      for (lbl, s), b in bad.items()} or None}
+        emit({"sweep_sharded_group": entry})
+        if bad:
+            raise AssertionError(f"sweep_sharded_group {transport}: cells differ "
+                                 f"from their own runs: {bad}")
+        out.append(entry)
+    return out, result
+
+
+def explain_flips(torch, model, data, specs, labels, result, singles, bad):
+    """The cells of ``bad`` (``{(label, seed): fields}``) differ from their
+    own runs only in accuracy fields: run the group of ``labels`` and those
+    cells' own runs again with an ``EvalLog`` model, require each rerun's
+    history to equal the first run's bit for bit, and explain every round
+    beyond the mesh bound by :func:`accuracy_flips`. Returns ``{"label
+    seed s": [records]}``."""
+    from repro_torch.core import sweep
+    from repro_torch.core.simulator import run_simulation
+
+    fls = dict(specs)
+    g_log = EvalLog(torch, model)
+    again = sweep.run_sweep(g_log.model, data, [(lbl, fls[lbl]) for lbl in labels],
+                            seeds=SWEEP_SEEDS)
+    out = {}
+    for lbl, s in bad:
+        first, h = result.history(lbl), again.history(lbl)
+        if mesh_mismatch(h, first, exact=h._fields)[0]:
+            raise AssertionError(f"sweep_sharded_group {lbl}: a rerun of the group "
+                                 "differs from its first run")
+        s_log = EvalLog(torch, model)
+        single = run_simulation(s_log.model, fls[lbl], data, seed=s)
+        if mesh_mismatch(single, singles[(lbl, s)], exact=single._fields)[0]:
+            raise AssertionError(f"sweep_sharded_group {lbl} seed {s}: a rerun of "
+                                 "its own run differs from the first")
+        i = SWEEP_SEEDS.index(s)
+        cell = type(h)(*(v if isinstance(v, tuple) else v[i] for v in h))
+        g = labels.index(lbl) * len(SWEEP_SEEDS) + i   # the cell's place in [G]
+        recs = accuracy_flips(cell, single,
+                              lambda k: {f: v[g] for f, v in g_log.calls[k].items()},
+                              lambda k: {f: v[0] for f, v in s_log.calls[k].items()},
+                              fls[lbl].eval_every)
+        if not recs:
+            raise AssertionError(f"sweep_sharded_group {lbl} seed {s}: no round of "
+                                 "the reruns differs as the first runs did")
+        out[f"{lbl} seed {s}"] = recs
+    emit({"sweep_sharded_group_accuracy_flips": out})
+    return out
+
+
+def phase_multi_rank(torch, pop_refs, sweep_result, sharded_result):
+    """The multi-rank phases: 2 and then 4 processes on the one card, each
+    in one gloo group (``FileStore`` in a temporary directory): population
+    sharding on 2 and 4 ranks, PR 21's sweep with its cells over 2 ranks,
+    and the sharded plane's groups on the 2 × 2 cells × clients mesh.
+    Launches exact: none under population sharding, 12 × 30 = 360 of the
+    group's kernel on each rank of the other two (5 seeds padded to 6,
+    3 seed columns a rank). Every rank's result against the one-device
+    runs of this call."""
+    import shutil
+    import tempfile
+
+    out = {}
+    for world, jobs in ((2, ("population_sharded", "sweep_cells")),
+                        (4, ("population_sharded", "sweep_2d"))):
+        tmp = tempfile.mkdtemp(prefix=f"chip_smoke_ranks{world}_")
+        try:
+            t0 = time.perf_counter()
+            verdicts = run_ranks(world, jobs, tmp)
+            emit({"multi_rank_job": {"ranks": world, "jobs": list(jobs),
+                                     "wall_s": time.perf_counter() - t0,
+                                     "backend": "gloo, processes sharing one card"}})
+            out[f"population_sharded_{world}"] = check_population_sharded(
+                world, verdicts, tmp, pop_refs)
+            if "sweep_cells" in jobs:
+                out["sweep_cells"] = check_sweep_groups(
+                    "sweep_cells", world, verdicts, tmp, sweep_result,
+                    f"sweep_cells_{world}",
+                    lambda g: {TRANSPORT_KERNEL[g["transport"]]: 12 * MAIN_ROUNDS})
+            if "sweep_2d" in jobs:
+                out["sweep_2d"] = check_sweep_groups(
+                    "sweep_2d", world, verdicts, tmp, sharded_result,
+                    "sweep_2d",
+                    lambda g: {TRANSPORT_KERNEL[g["transport"]]: 12 * MAIN_ROUNDS})
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
 
 # ---------------------------------------------------------------------------
 # rmsnorm and flash attention: the serve path's kernels
@@ -2397,7 +2994,7 @@ def main() -> int:
     for transport, kernel in TRANSPORT_KERNEL.items():
         main_runs.append(phase_main_path(torch, counters, data, transport))
         launches.setdefault(kernel, main_runs[-1]["launches"][kernel])
-    sweep_groups = phase_sweep(torch, counters, data)
+    sweep_groups, sweep_result = phase_sweep(torch, counters, data)
     temporal_runs = phase_temporal(torch, counters, data)
     phase_temporal_degenerate(torch, data)
     gca_runs = phase_gca(torch, counters, data)
@@ -2405,10 +3002,14 @@ def main() -> int:
     server_runs = phase_server(torch, counters, data)
     sharded_runs, sharded_hists = phase_control_sharded(torch, counters, data,
                                                         main_runs)
+    pop_refs = population_refs(torch, data)
     mesh_runs = phase_control_sharded_mesh(
         torch, counters, data,
-        {t: sharded_hists[f"ca_afl {t}"] for t in ("analog", "quantized", "sparse")})
+        {t: sharded_hists[f"ca_afl {t}"] for t in ("analog", "quantized", "sparse")},
+        pop_refs["ca_afl analog"])
     popscale_rows = phase_popscale(torch, counters)
+    sharded_groups, sharded_result = phase_sweep_sharded_group(torch, counters, data)
+    multi = phase_multi_rank(torch, pop_refs, sweep_result, sharded_result)
     # one model on the card at a time, so each run's peak memory is its
     # own; a model is made again from its seed for its profiler windows
     serve_counts, serve_traces = {}, {}
@@ -2470,7 +3071,26 @@ def main() -> int:
                                 if r["launches"][name]},
                             popscale_launches={r["N"]: r["launches"][name]
                                                for r in popscale_rows
-                                               if r["launches"][name]})
+                                               if r["launches"][name]},
+                            population_sharded_launches={
+                                f"{e['ranks']} ranks {e['run']}":
+                                max(x["launches"][name] for x in e["per_rank"])
+                                for key in ("population_sharded_2",
+                                            "population_sharded_4")
+                                for e in multi[key]},
+                            sweep_sharded_group_launches={
+                                g["transport"]: g["launches"] for g in sharded_groups
+                                if g["kernel"] == name},
+                            sweep_cells_launches_per_rank={
+                                f"rank {e['rank']} {g['transport']}":
+                                g["launches"].get(name, 0)
+                                for e in multi["sweep_cells"] for g in e["groups"]
+                                if TRANSPORT_KERNEL[g["transport"]] == name},
+                            sweep_2d_launches_per_rank={
+                                f"rank {e['rank']} {g['transport']}":
+                                g["launches"].get(name, 0)
+                                for e in multi["sweep_2d"] for g in e["groups"]
+                                if TRANSPORT_KERNEL[g["transport"]] == name})
                for name, line in (("aircomp", 175), ("quant_aircomp", 131),
                                   ("sparse_aircomp", 90))]
     for name, tpu, arch, timing in (

@@ -139,19 +139,23 @@ def aircomp_psum_tree(trees_local: dict, weights_local, axis, z=None,
     this shard's clients [n_local, ...], a ``psum`` over ``axis``, then the
     AWGN (``z`` [P] in sorted-leaf order, the same on every shard) and the
     1/k. ``k`` must be the global scheduled count (default: the psum of
-    the local weights)."""
+    the local weights). With ``weights_local`` [G, n_local] the leaves are
+    [G, n_local, ...], z is [G, P], σ and k are [G]: one psum a leaf for
+    the whole group."""
+    lead = weights_local.dim()
     if k is None:
-        k = axis.psum(torch.sum(weights_local))
+        k = axis.psum(torch.sum(weights_local, dim=-1))
     noise = (None if is_static_zero(noise_std)
-             else unravel(trees_local, z, lead=1))
+             else unravel(trees_local, z, lead=lead))
     out = {}
     for name in leaf_names(trees_local):
         leaf = trees_local[name]
-        mshape = (-1,) + (1,) * (leaf.dim() - 1)
-        total = axis.psum(torch.sum(leaf * weights_local.reshape(mshape), dim=0))
+        mshape = weights_local.shape + (1,) * (leaf.dim() - lead)
+        total = axis.psum(torch.sum(leaf * weights_local.reshape(mshape),
+                                    dim=lead - 1))
         if noise is not None:
-            total = total + noise_std * noise[name]
-        out[name] = total / k
+            total = total + per_cell(noise_std, total) * noise[name]
+        out[name] = total / per_cell(k, total)
     return out
 
 

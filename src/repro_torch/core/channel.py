@@ -16,7 +16,9 @@ The sharded control plane draws per client id (the ``*_ids`` functions):
 the round's ``chan`` stream (``draws.RoundStreams``) gives a client's
 fading normals at its id, its stream 1 the shadow normal, and a [N]
 ``pathloss`` is indexed by the ids, so a row depends only on the client,
-never on which other rows are drawn with it.
+never on which other rows are drawn with it. A group's stream
+(``draws.CellDraws``) gives every draw a leading [G], and the knobs are
+[G] vectors, as in the replicated plane's batched round.
 """
 from __future__ import annotations
 
@@ -115,19 +117,20 @@ def rayleigh_mag_ids(chan, scenario: ChannelScenario, ids: torch.Tensor,
     ``ids`` from the round's ``chan`` stream (draw_sc = 1 when flat)."""
     draw_sc = 1 if scenario.flat else num_subcarriers
     re_im = chan.normal(ids, (2, draw_sc)) / math.sqrt(2.0)
-    mag = torch.sqrt(re_im[:, 0] ** 2 + re_im[:, 1] ** 2)
+    mag = torch.sqrt(re_im[..., 0, :] ** 2 + re_im[..., 1, :] ** 2)
     if scenario.flat:
-        mag = mag.expand(ids.shape[0], num_subcarriers)
+        mag = mag.expand(*mag.shape[:-1], num_subcarriers)
     return mag
 
 
 def ids_scenario(scenario: ChannelScenario, ids: torch.Tensor) -> ChannelScenario:
-    """``scenario`` with a per-client [N] ``pathloss`` cut to the rows
-    ``ids`` (an O(N) input is fine; the sharded plane avoids O(N) draws)."""
+    """``scenario`` with a per-client ``pathloss`` ([N], or [G, N] for a
+    group of cells) cut to the rows ``ids`` (an O(N) input is fine; the
+    sharded plane avoids O(N) draws)."""
     pathloss = torch.as_tensor(scenario.pathloss)
-    if pathloss.dim() != 1:
+    if pathloss.dim() == 0:
         return scenario
-    return replace(scenario, pathloss=pathloss[ids.long()])
+    return replace(scenario, pathloss=pathloss[..., ids.long()])
 
 
 def compose_channel_ids(mag: torch.Tensor, chan, scenario: ChannelScenario,
@@ -135,7 +138,7 @@ def compose_channel_ids(mag: torch.Tensor, chan, scenario: ChannelScenario,
     """Per-id large-scale composition: mag × shadow × pathloss,
     floor-clipped, with the i.i.d. shadow from stream 1 of ``chan`` at
     ``ids`` and the [N] pathloss indexed by ``ids``."""
-    shadow_normal = chan.fold(1).normal(ids)[:, None]
+    shadow_normal = chan.fold(1).normal(ids)[..., None]
     return compose_channel(mag, shadow_normal, ids_scenario(scenario, ids),
                            walk_gain=walk_gain)
 

@@ -41,6 +41,8 @@ shard draws its own rows and a mesh run equals the one-device run.
 (seed, round, stream, id, element) in exact integer arithmetic, which gives
 the same integers on the CPU and on the card. The receiver noise stays one
 [P] draw a round, addressed by round and element, the same on every rank.
+A sweep group's G sources are one :class:`CellDraws`, whose draws lead
+with [G] (hash sources: one hash over the G keys).
 """
 from __future__ import annotations
 
@@ -293,24 +295,39 @@ class HashStream(Stream):
     path (seed, round, role, folds). Element e of client i's row is
     mix(mix(key ^ i) ^ mix(e·φ + 1)) with φ the golden-ratio constant, a
     32-bit integer computed in int64 on the ids' device; the floats come
-    from its top bits."""
+    from its top bits.
 
-    def __init__(self, key: int):
+    A tuple of keys is G streams at once, one a cell: a draw at ids [n]
+    (the same clients in every cell) or [G, n] (each cell its own) answers
+    [G, n, ...], row g what the stream of key g alone gives."""
+
+    def __init__(self, key):
         self.key = key
+        self._keys = {}   # a tuple's keys as a [G, 1] tensor, by device
 
     def fold(self, i: int) -> "HashStream":
-        return HashStream(_mix32(self.key ^ _mix32(0x3C6EF372 + int(i))))
+        f = _mix32(0x3C6EF372 + int(i))
+        if isinstance(self.key, tuple):
+            return HashStream(tuple(_mix32(k ^ f) for k in self.key))
+        return HashStream(_mix32(self.key ^ f))
 
     def bits(self, ids: torch.Tensor, width: int) -> torch.Tensor:
-        """[n, width] int64 values in [0, 2³²)."""
-        row = _mix((ids.to(torch.int64) & _MASK32) ^ self.key)
+        """[..., n, width] int64 values in [0, 2³²)."""
+        key = self.key
+        if isinstance(key, tuple):
+            if ids.device not in self._keys:
+                self._keys[ids.device] = torch.tensor(
+                    key, dtype=torch.int64).to(ids.device)[:, None]
+            key = self._keys[ids.device]
+        row = _mix((ids.to(torch.int64) & _MASK32) ^ key)
         e = torch.arange(width, dtype=torch.int64, device=ids.device)
         col = _mix((_mul32(e, 0x9E3779B9) + 1) & _MASK32)
-        return _mix(row[:, None] ^ col[None, :])
+        return _mix(row[..., None] ^ col)
 
     def _draw(self, ids, shape):
         width = math.prod(shape)
-        return self.bits(ids, width), (ids.shape[0], *shape)
+        b = self.bits(ids, width)
+        return b, (*b.shape[:-1], *shape)
 
     def uniform(self, ids, shape=()):
         """U[0, 1) on the 2⁻²⁴ grid (exact in f32)."""
@@ -336,6 +353,44 @@ class HashStream(Stream):
             raise ValueError(f"randint needs 0 < high < 2**31, got {high}")
         b, out = self._draw(ids, shape)
         return ((b * high) >> 32).to(torch.int32).reshape(out)
+
+
+class CellStream(Stream):
+    """G streams of any kind as one: a draw at ids [n] (the same clients in
+    every cell) or [G, n] (each cell its own) stacks the cells' draws into
+    [G, n, ...]."""
+
+    def __init__(self, streams: Sequence[Stream]):
+        self.streams = list(streams)
+
+    def fold(self, i: int) -> "CellStream":
+        return CellStream([s.fold(i) for s in self.streams])
+
+    def _each(self, name, ids, *args):
+        return torch.stack([getattr(s, name)(ids if ids.dim() == 1 else ids[g],
+                                             *args)
+                            for g, s in enumerate(self.streams)])
+
+    def normal(self, ids, shape=()):
+        return self._each("normal", ids, shape)
+
+    def uniform(self, ids, shape=()):
+        return self._each("uniform", ids, shape)
+
+    def gumbel(self, ids):
+        return self._each("gumbel", ids)
+
+    def randint(self, ids, shape, high: int):
+        return self._each("randint", ids, shape, high)
+
+
+def cell_stream(streams: Sequence[Stream]) -> Stream:
+    """One stream over the cells' ``streams``: a :class:`HashStream` of
+    their keys when all are hash streams (one draw for the whole group),
+    else a :class:`CellStream`."""
+    if all(isinstance(s, HashStream) and isinstance(s.key, int) for s in streams):
+        return HashStream(tuple(s.key for s in streams))
+    return CellStream(streams)
 
 
 class RoundStreams(NamedTuple):
@@ -383,19 +438,57 @@ class HashDraws(IdDraws):
             key = _mix32(key ^ _mix32(int(p) + 0x9E3779B9))
         return HashStream(key)
 
+    def awgn_stream(self, t: int) -> HashStream:
+        """Round t's receiver-noise stream, read at id 0."""
+        return self._stream(t + 1, len(self.ROLES))
+
     def round(self, t: int) -> RoundStreams:
         streams = [self._stream(t + 1, r) for r in range(len(self.ROLES))]
-        noise = self._stream(t + 1, len(self.ROLES))
-        dev = self.device
-
-        def awgn(model_size: int) -> torch.Tensor:
-            one = torch.zeros((1,), dtype=torch.int64, device=dev)
-            return noise.normal(one, (model_size,))[0]
-
-        return RoundStreams(*streams, awgn=awgn)
+        return RoundStreams(*streams, awgn=_hash_awgn(self.awgn_stream(t),
+                                                      self.device))
 
     def init(self) -> Stream:
         return self._stream(0)
+
+
+def _hash_awgn(noise: HashStream, device) -> Callable:
+    """``model_size -> [P]`` (or [G, P] for a tuple of keys) standard
+    normals of a receiver-noise stream, read at id 0."""
+    def awgn(model_size: int) -> torch.Tensor:
+        one = torch.zeros((1,), dtype=torch.int64, device=device)
+        return noise.normal(one, (model_size,))[..., 0, :]
+
+    return awgn
+
+
+class CellDraws(IdDraws):
+    """A sweep group's G id-addressed sources as one (``cells`` = G): each
+    round's streams answer [G, ...] draws (:func:`cell_stream`), its AWGN
+    is [G, P], and :meth:`init` the cells' initial streams. Cell g's values
+    are those of ``sources[g]`` alone, so a cell of a group draws what its
+    own run draws. Hash sources on one device draw the whole group at
+    once."""
+
+    def __init__(self, sources: Sequence[IdDraws]):
+        self.sources = list(sources)
+        self.cells = len(self.sources)
+        self._hash = all(isinstance(s, HashDraws) for s in self.sources) and \
+            len({str(s.device) for s in self.sources}) == 1
+
+    def round(self, t: int) -> RoundStreams:
+        rounds = [s.round(t) for s in self.sources]
+        streams = [cell_stream([r[i] for r in rounds])
+                   for i in range(len(HashDraws.ROLES))]
+        if self._hash:
+            awgn = _hash_awgn(cell_stream([s.awgn_stream(t) for s in self.sources]),
+                              self.sources[0].device)
+        else:
+            def awgn(model_size: int) -> torch.Tensor:
+                return torch.stack([r.awgn(model_size) for r in rounds])
+        return RoundStreams(*streams, awgn=awgn)
+
+    def init(self) -> Stream:
+        return cell_stream([s.init() for s in self.sources])
 
 
 def client_rows(draws: RoundStreams, fl: FLConfig, ids: torch.Tensor,

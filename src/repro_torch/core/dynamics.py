@@ -118,7 +118,8 @@ def init_chan_state_ids(process: ChannelProcess, stream, ids: torch.Tensor,
     normals [2, n, draw_sc] drawn per id from ``stream`` (the source's
     ``init()``), so a shard's rows equal those rows of the whole state."""
     draw_sc = 1 if flat else num_subcarriers
-    return init_chan_state(process, stream.normal(ids, (2, draw_sc)).movedim(0, 1))
+    return init_chan_state(process,
+                           stream.normal(ids, (2, draw_sc)).movedim(-3, -2))
 
 
 def _knob(v, like: torch.Tensor) -> torch.Tensor:
@@ -157,8 +158,8 @@ def evolve_fading_ids(chan, scenario, process: ChannelProcess,
     on the stream, i.i.d. shadow on fold 1, walk on fold 2; a [N]
     ``pathloss`` is indexed by ``ids``."""
     draw_sc = 1 if scenario.flat else num_subcarriers
-    return evolve_fading(chan.normal(ids, (2, draw_sc)).movedim(0, 1),
-                         chan.fold(1).normal(ids)[:, None],
+    return evolve_fading(chan.normal(ids, (2, draw_sc)).movedim(-3, -2),
+                         chan.fold(1).normal(ids)[..., None],
                          chan.fold(2).normal(ids), ids_scenario(scenario, ids),
                          process, state, num_subcarriers)
 

@@ -51,19 +51,24 @@ through the round: nothing is copied to the host until the history is
 read.
 
 The sharded control plane (``control_plane="sharded"``,
-:func:`make_control_sharded_round_fn`) is a round of its own, one cell:
-each device holds only its rows of channels, availability, scores, λ and
-batch indices, every draw addressed by global client id (an
-``draws.IdDraws`` source); exact-K selection is a top-k tree over the
-shards, the K winners' rows are assembled by ownership, the exact-K slot
-path runs on every device, and λ is projected by bisection
-(``core/sharding.py``). Without an axis it runs on one device with
-``ids = arange(N)``, and reaches the same eq. (10) kernels as the
-replicated plane's selected-K path.
+:func:`make_control_sharded_round_fn`) is a round of its own: each device
+holds only its rows of channels, availability, scores, λ and batch
+indices, every draw addressed by global client id (an ``draws.IdDraws``
+source; ``draws.CellDraws`` for a group of cells); exact-K selection is a
+top-k tree over the shards, the K winners' rows are assembled by
+ownership, the exact-K slot path runs on every device, and λ is projected
+by bisection (``core/sharding.py``). It leads with the cell axis [G] as
+the replicated round does, so a sweep group of the sharded plane is one
+batched run and each collective moves the group's [G, ...] at once.
+Without an axis it runs on one device with ``ids = arange(N)``, and
+reaches the same eq. (10) kernels as the replicated plane's selected-K
+path.
 
-Not ported yet, and raising ``NotImplementedError``: population sharding of
-the replicated control plane (a mesh of more than one device; ROADMAP
-Queue 1 item 9).
+Population sharding of the replicated plane (``make_param_round_fn(...,
+axis=)``, ``sharding.run_simulation_sharded``) keeps every [N] draw and
+decision replicated and splits only the model-sized work over the ranks;
+its eq. (10) is a psum of per-leaf partial sums and reaches no kernel, as
+in the reference.
 """
 from __future__ import annotations
 
@@ -91,7 +96,7 @@ from repro_torch.core.selection import (EXACT_K_METHODS, availability_logits,
 from repro_torch.core.sharding import (all_gather_axis, assemble_batch_rows,
                                        assemble_rows, hierarchical_top_k,
                                        local_slice, project_simplex_sharded,
-                                       top_k)
+                                       take_rows, top_k)
 from repro_torch.core.transport import (downlink_energy,
                                         quantized_aggregate_psum_tree,
                                         quantized_aggregate_stack_tree,
@@ -106,9 +111,9 @@ from repro_torch.utils.tree import leaf_names, tree_size
 
 
 class SimState(NamedTuple):
-    # every field leads with the cell axis [G] (none under the sharded
-    # control plane, whose state is one cell's, λ, ChanState and the
-    # residuals being the device's own client rows)
+    # every field leads with the cell axis [G] (under the sharded control
+    # plane λ, ChanState and the residuals hold the device's own client
+    # rows)
     w: dict              # global model {name: [G, ...]}
     lam: torch.Tensor    # [G, N] simplex weights
     energy: torch.Tensor  # [G] cumulative Joules
@@ -146,16 +151,11 @@ def mesh_size(mesh) -> int:
     return int(size() if callable(size) else size)
 
 
-def check_supported(fl: FLConfig, mesh=None) -> None:
+def check_supported(fl: FLConfig) -> None:
     """Raise for a configuration whose code path the port does not carry."""
     if fl.control_plane not in ("replicated", "sharded"):
         raise ValueError(f"unknown control_plane {fl.control_plane!r}; "
                          "pick 'replicated' or 'sharded'")
-    if fl.control_plane == "replicated" and mesh_size(mesh) > 1:
-        raise NotImplementedError(
-            "population sharding of the replicated control plane is not "
-            "ported yet (ROADMAP Queue 1 item 9); control_plane='sharded' "
-            "runs on a mesh")
     require_ported(fl.transport)
     if fl.method not in EXACT_K_METHODS + ("gca",):
         raise ValueError(f"unknown selection method {fl.method!r}")
@@ -201,7 +201,8 @@ def _record_lambda(fl: FLConfig, state: SimState, lam_new, t: int):
 
 def make_param_round_fn(model: SimModel, fl: FLConfig, data, model_size: int,
                         method: str, dense: bool = False,
-                        noise_free: Optional[bool] = None, cells: int = 1):
+                        noise_free: Optional[bool] = None, cells: int = 1,
+                        axis=None):
     """Build ``round_fn(point, state, t, draws) -> (state, metrics)`` for a
     group of ``cells`` cells that share ``fl``'s structural fields
     (``sweep.STATIC_FIELDS``): ``point`` holds [G] knobs, ``state`` and
@@ -213,6 +214,18 @@ def make_param_round_fn(model: SimModel, fl: FLConfig, data, model_size: int,
     statically; the sweep engine sets it only when every cell of the group
     is noise-free, and otherwise a quiet cell reads a zero AWGN row. GCA
     always runs the [N, model] path, whatever ``dense`` says.
+
+    ``axis`` (population sharding, a ``sharding.ClientAxis`` of D ranks):
+    ``data`` holds this rank's N/D client rows while ``fl.num_clients``
+    stays the global N, and the round is the dense [N, model] program. The
+    draws are the whole round's, the same on every rank, so selection,
+    the energy ledger, the process and λ run replicated on [N] and agree
+    bit for bit with the one-device run; local SGD, the losses and the
+    test eval run on the local rows (the losses and accuracies
+    all-gathered for λ and the statistics, GCA's gradient norms for its
+    threshold), and eq. (10) is a local partial sum + ``psum``
+    (``*_psum_tree``, no kernel, as in the reference). The sparse
+    transport's residual rows (``SimState.ef_resid``) are the rank's own.
     """
     check_supported(fl)
     if fl.control_plane == "sharded":
@@ -221,7 +234,17 @@ def make_param_round_fn(model: SimModel, fl: FLConfig, data, model_size: int,
     x, y, x_test, y_test = data
     n, k_sched = fl.num_clients, fl.clients_per_round
     temporal, gca = fl.temporal, method == "gca"
+    pop = axis is not None
+    if pop and not (dense or gca):
+        raise ValueError("population sharding runs the dense [N, model] "
+                         "program; build with dense=True (the selected-K "
+                         "path stays on one device)")
     dense = dense or gca
+    n_local = y.shape[0]
+    if n_local * (axis.size if pop else 1) != n:
+        raise ValueError(f"{n_local} client rows on each of "
+                         f"{axis.size if pop else 1} devices for N = {n}")
+    off = axis.rank * n_local if pop else 0
     if noise_free is None:
         noise_free = fl.noise_std == 0
     scheme = fl.transport
@@ -238,6 +261,15 @@ def make_param_round_fn(model: SimModel, fl: FLConfig, data, model_size: int,
     def rows(t, idx):
         """Rows ``idx`` [G, K] of each cell's ``t`` [G, N, ...]."""
         return t[cell_rows, idx]
+
+    def mine(t, dim=-1):
+        """This rank's client rows of a replicated [G, N, ...] tensor, the
+        client axis at ``dim`` (all of it on one device)."""
+        return t.narrow(dim, off, n_local) if pop else t
+
+    def gathered(t):
+        """[G, N] from every rank's [G, n_local]."""
+        return all_gather_axis(t, axis, dim=-1) if pop else t
 
     def local_update(w, eta, xb, yb, g0=None):
         """``local_steps`` SGD steps from each cell's global model, for the
@@ -259,6 +291,9 @@ def make_param_round_fn(model: SimModel, fl: FLConfig, data, model_size: int,
         sparse residuals are addressed by client id, so both paths round
         and compress every row identically."""
         z = None if noise_free else d.noise
+        if pop:
+            return aggregate_pop(tp, state, w_stack, mine(weights), d, z,
+                                 noise_std, k_denom)
         if scheme == "quantized":
             if d.quant_uniform is None:
                 raise ValueError("the quantized transport needs the round's "
@@ -287,6 +322,22 @@ def make_param_round_fn(model: SimModel, fl: FLConfig, data, model_size: int,
         return aircomp_aggregate_stack_tree(w_stack, weights, z, eff_noise,
                                             k_denom), state.ef_resid
 
+    def aggregate_pop(tp, state: SimState, w_stack, mask_l, d, z, noise_std,
+                      k_denom):
+        """Eq. (10) over this rank's rows: a local partial sum and a psum
+        (the quantized uniforms and the residuals are the rows' own)."""
+        if scheme == "quantized":
+            return quantized_aggregate_psum_tree(
+                state.w, w_stack, mask_l, mine(d.quant_uniform, -2), z,
+                noise_std, tp.bits, k_denom, axis), state.ef_resid
+        if scheme == "sparse":
+            return sparse_aggregate_psum_tree(
+                state.w, w_stack, mask_l, z, noise_std, k_coords, k_denom,
+                state.ef_resid, axis)
+        eff_noise = 0.0 if scheme == "digital" else noise_std
+        return aircomp_psum_tree(w_stack, mask_l, axis, z, eff_noise,
+                                 k_denom), state.ef_resid
+
     def round_fn(point, state: SimState, t: int, d: RoundDraws):
         scen = point.scenario
         # ---- physical layer, eq. (6): i.i.d. block fading, or the temporal
@@ -307,11 +358,11 @@ def make_param_round_fn(model: SimModel, fl: FLConfig, data, model_size: int,
         if gca:
             # one batch for every client: the probe batch is the descent
             # batch, and the probe gradients are SGD step 1
-            xb, yb = _all_batches(x, y, d.batch_idx)
+            xb, yb = _all_batches(x, y, mine(d.batch_idx, -2))
             grads0 = model.grad(_shared(state.w), xb, yb)
-            gnorms = torch.sqrt(sum(
+            gnorms = gathered(torch.sqrt(sum(
                 torch.sum(torch.square(grads0[name]).flatten(2), dim=-1)
-                for name in leaf_names(grads0)))
+                for name in leaf_names(grads0))))
             mask = select_clients(method, d.sel_gumbel, state.lam, h, k_sched,
                                   avail=eligible, grad_norms=gnorms,
                                   gca=point.gca)
@@ -330,7 +381,7 @@ def make_param_round_fn(model: SimModel, fl: FLConfig, data, model_size: int,
         noise_std = 0.0 if noise_free else scen.noise_std
         if dense:
             if not gca:
-                xb, yb = _all_batches(x, y, d.batch_idx)
+                xb, yb = _all_batches(x, y, mine(d.batch_idx, -2))
             w_stack = local_update(state.w, eta, xb, yb,
                                    g0=grads0 if gca else None)
             w_new, ef_resid = aggregate(point.transport, state, w_stack, mask,
@@ -380,8 +431,8 @@ def make_param_round_fn(model: SimModel, fl: FLConfig, data, model_size: int,
             amask = amask * avail
         w_cells = _shared(w_new)
         if dense:
-            xab, yab = _all_batches(x, y, d.asc_batch_idx)
-            losses = model.loss(w_cells, xab, yab)
+            xab, yab = _all_batches(x, y, mine(d.asc_batch_idx, -2))
+            losses = gathered(model.loss(w_cells, xab, yab))
             sel_loss = torch.sum(mask * losses, dim=-1) / k_denom
         else:
             # losses only at the ascent slots (λ update) and the descent
@@ -399,7 +450,7 @@ def make_param_round_fn(model: SimModel, fl: FLConfig, data, model_size: int,
 
         # ---- metrics: the N-client test eval on the eval_every cadence
         if t % fl.eval_every == 0:
-            accs = model.accuracy(w_cells, x_test, y_test)   # [G, N]
+            accs = gathered(model.accuracy(w_cells, x_test, y_test))   # [G, N]
             stats = torch.stack([accs.mean(dim=-1), accs.amin(dim=-1),
                                  accs.std(dim=-1, correction=0)], dim=-1)
         else:
@@ -427,31 +478,35 @@ def _batch_indices_ids(stream, ids: torch.Tensor, shard_size: int,
 
 def make_control_sharded_round_fn(model: SimModel, fl: FLConfig, data,
                                   model_size: int, method: str,
-                                  draws: IdDraws,
+                                  draws,
                                   noise_free: Optional[bool] = None,
                                   axis=None,
                                   topk_group_size: Optional[int] = None):
     """Build ``round_fn(point, state, t) -> (state, metrics)`` of the
-    sharded control plane, one cell: ``point`` holds 0-d knobs, ``state``
-    this device's rows (``init_sim_state(ids=...)``), and round t's
-    randomness is ``draws.round(t)``, addressed by global client id.
+    sharded control plane for a group of G cells: ``draws`` is the group's
+    ``draws.CellDraws`` (G = ``draws.cells``; round t's randomness is
+    ``draws.round(t)``, every draw [G, ...], addressed by global client
+    id), ``point`` holds [G] knobs and ``state`` this device's rows with a
+    leading [G] (``init_sim_state(cells=G, ids=..., draws=draws)``).
 
     ``data`` = (x, y, x_test, y_test) hold this device's n_rows = N/D
-    clients (all N without an ``axis``, a ``sharding.ClientAxis``). Exact-K
-    methods score their rows, select by the top-k tree
-    (``sharding.hierarchical_top_k``, fan-in ``topk_group_size``), assemble
-    the K winners' batches, channels and residual rows by ownership, and
-    run local SGD and eq. (10) on the [K] slots on every device (the
-    transport's kernel on the card); the ascent set is a second tree top-k
-    over per-id Gumbel scores, its losses and the descent losses taken at
-    the slots and scattered back to the owners' rows. GCA runs its [N,
-    model] probe on the local rows and gathers the O(N) norms, channels and
-    gates for its population-wide threshold (the one O(N) collective of
-    the round); on a mesh its eq. (10) is the local partial sum + psum of
-    ``*_psum_tree``. λ is projected by the psum bisection and the test
-    statistics are psums of local rows, so no other collective moves O(N)
-    values.
+    clients (all N without an ``axis``, a ``sharding.ClientAxis``), shared
+    by the cells. Exact-K methods score their rows, select by the top-k
+    tree (``sharding.hierarchical_top_k``, fan-in ``topk_group_size``),
+    assemble the K winners' batches, channels and residual rows by
+    ownership, and run local SGD and eq. (10) on the [G, K] slots on every
+    device (the transport's kernel on the card, once a cell); the ascent
+    set is a second tree top-k over per-id Gumbel scores, its losses and
+    the descent losses taken at the slots and scattered back to the
+    owners' rows. GCA runs its [N, model] probe on the local rows and
+    gathers the O(N) norms, channels and gates for its population-wide
+    threshold (the one O(N) collective of the round); on a mesh its
+    eq. (10) is the local partial sum + psum of ``*_psum_tree``. λ is
+    projected by the psum bisection and the test statistics are psums of
+    local rows, so no other collective moves O(N) values. Every
+    collective moves the whole group's [G, ...] at once.
     """
+    cells = draws.cells
     x, y, x_test, y_test = data
     n, kk = fl.num_clients, fl.clients_per_round
     shard, b = y.shape[1], fl.batch_size
@@ -474,22 +529,23 @@ def make_control_sharded_round_fn(model: SimModel, fl: FLConfig, data,
     f32 = dict(dtype=torch.float32, device=dev)
     off = 0 if axis is None else axis.rank * n_rows
     ids = off + torch.arange(n_rows, dtype=torch.int64, device=dev)
-    ones_k = torch.ones((kk,), **f32)
-    zeros_rows = torch.zeros((n_rows,), **f32)
-    n_0d = torch.full((), float(n), **f32)
-    inf_0d = torch.full((), float("inf"), **f32)
+    ones_k = torch.ones((cells, kk), **f32)
+    zeros_rows = torch.zeros((cells, n_rows), **f32)
+    n_g = torch.full((cells,), float(n), **f32)
+    inf_g = torch.full((cells,), float("inf"), **f32)
 
     def psum(v):
         return v if axis is None else axis.psum(v)
 
     def local_update(w, eta, xb, yb, g0=None):
-        """``local_steps`` SGD steps from the global model for a stack of
-        clients [C, B, ...]; ``g0``: the first step's gradients (GCA's
-        probe)."""
-        wc = {name: w[name].unsqueeze(0) for name in leaf_names(w)}
+        """``local_steps`` SGD steps from each cell's global model for its
+        stack of clients [G, C, B, ...]; ``g0``: the first step's
+        gradients (GCA's probe)."""
+        wc = _shared(w)
         for step in range(fl.local_steps):
             g = g0 if step == 0 and g0 is not None else model.grad(wc, xb, yb)
-            wc = {name: wc[name] - eta * g[name] for name in leaf_names(g)}
+            wc = {name: wc[name] - per_cell(eta, g[name]) * g[name]
+                  for name in leaf_names(g)}
         return wc
 
     def topk_idx(scores):
@@ -498,12 +554,15 @@ def make_control_sharded_round_fn(model: SimModel, fl: FLConfig, data,
         return hierarchical_top_k(scores, kk, axis, group_size=topk_group_size)
 
     def slot_vals(vals, idx):
-        """vals[idx] across the shards (by ownership on a mesh)."""
-        return vals[idx] if axis is None else assemble_rows(vals, idx, axis, n_rows)
+        """Each cell's vals[idx] across the shards (by ownership on a
+        mesh)."""
+        if axis is None:
+            return take_rows(vals, idx)
+        return assemble_rows(vals, idx, axis, n_rows)
 
     def slot_batches(arr, idx, bidx):
         if axis is None:
-            return arr[idx[:, None], bidx.long()]
+            return arr[idx[..., None], bidx.long()]
         return assemble_batch_rows(arr, idx, bidx, axis, n_rows)
 
     def owned_rows(idx):
@@ -511,10 +570,10 @@ def make_control_sharded_round_fn(model: SimModel, fl: FLConfig, data,
         return lidx, (idx >= off) & (idx < off + n_rows)
 
     def scatter_slots(idx, wvals):
-        """[K] slot values added into this device's [n_rows] (owned slots
-        only; the others add exact zeros)."""
+        """[G, K] slot values added into this device's [G, n_rows] (owned
+        slots only; the others add exact zeros)."""
         lidx, owned = owned_rows(idx)
-        return zeros_rows.index_add(0, lidx, torch.where(
+        return zeros_rows.scatter_add(-1, lidx, torch.where(
             owned, wvals, torch.zeros((), **f32)))
 
     def round_fn(point, state: SimState, t: int):
@@ -538,23 +597,25 @@ def make_control_sharded_round_fn(model: SimModel, fl: FLConfig, data,
             # the [N, model] probe on local rows; its batch is the descent
             # batch and its gradients SGD step 1
             xb, yb = _all_batches(x, y, _batch_indices_ids(d.batch, ids, shard, b))
-            grads0 = model.grad({name: state.w[name].unsqueeze(0)
-                                 for name in leaf_names(state.w)}, xb, yb)
+            grads0 = model.grad(_shared(state.w), xb, yb)
             gnorms = torch.sqrt(sum(
-                torch.sum(torch.square(grads0[name]).flatten(1), dim=-1)
+                torch.sum(torch.square(grads0[name]).flatten(2), dim=-1)
                 for name in leaf_names(grads0)))
             if axis is None:
                 gnorms_f, h_f, elig_f = gnorms, h, eligible
             else:
                 # the threshold's mean and median are population-wide: the
                 # round's one O(N) gather
-                gnorms_f, h_f = all_gather_axis(gnorms, axis), all_gather_axis(h, axis)
-                elig_f = all_gather_axis(eligible, axis) if temporal else None
+                gnorms_f = all_gather_axis(gnorms, axis, dim=-1)
+                h_f = all_gather_axis(h, axis, dim=-1)
+                elig_f = (all_gather_axis(eligible, axis, dim=-1)
+                          if temporal else None)
             mask_f = select_clients("gca", None, torch.zeros_like(h_f), h_f, kk,
                                     avail=elig_f, grad_norms=gnorms_f,
                                     gca=point.gca)
-            mask_l = mask_f if axis is None else local_slice(mask_f, axis, n_rows)
-            num_sched = torch.sum(mask_f)
+            mask_l = mask_f if axis is None else local_slice(mask_f, axis,
+                                                             n_rows, dim=-1)
+            num_sched = torch.sum(mask_f, dim=-1)
             k_denom = torch.clamp_min(num_sched, 1.0)
             w_stack = local_update(state.w, eta, xb, yb, g0=grads0)
             ef_new = state.ef_resid
@@ -595,7 +656,7 @@ def make_control_sharded_round_fn(model: SimModel, fl: FLConfig, data,
             sel_idx = topk_idx(scores)
             # a gated slot keeps its index and carries weight 0
             sel_w = slot_vals(eligible, sel_idx) if temporal else ones_k
-            num_sched = torch.sum(sel_w)
+            num_sched = torch.sum(sel_w, dim=-1)
             k_denom = torch.clamp_min(num_sched, 1.0)
             mask_l = scatter_slots(sel_idx, sel_w)
             bidx = _batch_indices_ids(d.batch, sel_idx, shard, b)
@@ -611,16 +672,18 @@ def make_control_sharded_round_fn(model: SimModel, fl: FLConfig, data,
                 # the winners' residual rows come by ownership, compress on
                 # every device, and go back to their owners' rows only (a
                 # clipped index of a row not owned adds an exact zero and
-                # no hit; owned top-k indices are unique)
+                # no hit; owned top-k indices are unique within a cell)
                 w_new, resid = sparse_aggregate_stack_tree(
                     state.w, w_sel, sel_w, z, noise_std, k_coords, k_denom,
                     slot_vals(state.ef_resid, sel_idx))
                 lidx, owned = owned_rows(sel_idx)
-                upd = torch.zeros_like(state.ef_resid).index_add(
-                    0, lidx, torch.where(owned[:, None], resid,
-                                         torch.zeros((), **f32)))
-                hit = zeros_rows.index_add(0, lidx, owned.to(torch.float32))
-                ef_new = torch.where(hit[:, None] > 0, upd, state.ef_resid)
+                cell = torch.arange(cells, device=dev)[:, None]
+                upd = torch.zeros_like(state.ef_resid).index_put_(
+                    (cell, lidx), torch.where(owned[..., None], resid,
+                                              torch.zeros((), **f32)),
+                    accumulate=True)
+                hit = zeros_rows.scatter_add(-1, lidx, owned.to(torch.float32))
+                ef_new = torch.where(hit[..., None] > 0, upd, state.ef_resid)
             else:
                 w_new = aircomp_aggregate_stack_tree(
                     w_sel, sel_w, z, 0.0 if scheme == "digital" else noise_std,
@@ -628,15 +691,17 @@ def make_control_sharded_round_fn(model: SimModel, fl: FLConfig, data,
             # the ledger as a [K]-slot sum: the same shape and order on a
             # mesh and on one device
             e_round = torch.sum(sel_w * uplink_energy(
-                scheme, point.transport, slot_vals(h, sel_idx), model_size, scen))
+                scheme, point.transport, slot_vals(h, sel_idx), model_size,
+                scen), dim=-1)
         if temporal or gca:
-            # an empty scheduled set sends nothing: keep the model
+            # an empty scheduled set sends nothing: the cell keeps its model
             sent = num_sched > 0
-            w_new = {name: torch.where(sent, w_new[name], state.w[name])
+            w_new = {name: torch.where(per_cell(sent, w_new[name]),
+                                       w_new[name], state.w[name])
                      for name in leaf_names(w_new)}
 
         # ---- downlink: every listening client pays the broadcast receive
-        recv_count = psum(torch.sum(pstep.recv)) if temporal else n_0d
+        recv_count = psum(torch.sum(pstep.recv, dim=-1)) if temporal else n_g
         e_dl = recv_count * downlink_energy(scheme, point.transport, model_size,
                                             scen, num_tx=kk)
         dl_energy = state.dl_energy + e_dl
@@ -645,54 +710,57 @@ def make_control_sharded_round_fn(model: SimModel, fl: FLConfig, data,
         # ---- temporal carry (local rows)
         if temporal:
             chan_state = commit_process(pstep, state.chan_state, mask_l)
-            avail_count = psum(torch.sum(eligible))
-            min_battery = torch.amin(chan_state.battery)
+            avail_count = psum(torch.sum(eligible, dim=-1))
+            min_battery = torch.amin(chan_state.battery, dim=-1)
             if axis is not None:
                 min_battery = axis.pmin(min_battery)
         else:
-            chan_state, avail_count, min_battery = state.chan_state, n_0d, inf_0d
+            chan_state, avail_count, min_battery = state.chan_state, n_g, inf_g
 
         # ---- ascent on λ: uniform K of the available clients, per-id
         # Gumbel scores, the top-k tree again
         ascores = zeros_rows + availability_logits(avail) + client_gumbel(d.asel, ids)
         asc_idx = topk_idx(ascores)
         a_gate = slot_vals(avail, asc_idx) if temporal else ones_k
+        w_cells = _shared(w_new)
         if gca:
             xab, yab = _all_batches(x, y, _batch_indices_ids(d.abatch, ids, shard, b))
-            losses = model.loss(w_new, xab, yab)
+            losses = model.loss(w_cells, xab, yab)
             asc_contrib = scatter_slots(asc_idx, a_gate) * losses
-            sel_loss = psum(torch.sum(mask_l * losses)) / k_denom
+            sel_loss = psum(torch.sum(mask_l * losses, dim=-1)) / k_denom
         else:
             # losses only where they are read: the ascent and descent slots
             bidx_a = _batch_indices_ids(d.abatch, asc_idx, shard, b)
-            asc_losses = model.loss(w_new, slot_batches(x, asc_idx, bidx_a),
+            asc_losses = model.loss(w_cells, slot_batches(x, asc_idx, bidx_a),
                                     slot_batches(y, asc_idx, bidx_a))
             asc_contrib = scatter_slots(asc_idx, a_gate * asc_losses)
             bidx_d = _batch_indices_ids(d.abatch, sel_idx, shard, b)
             sel_loss = torch.sum(sel_w * model.loss(
-                w_new, slot_batches(x, sel_idx, bidx_d),
-                slot_batches(y, sel_idx, bidx_d))) / k_denom
+                w_cells, slot_batches(x, sel_idx, bidx_d),
+                slot_batches(y, sel_idx, bidx_d)), dim=-1) / k_denom
         lam_new = project_simplex_sharded(
-            state.lam + point.ascent_lr * asc_contrib, axis=axis)
+            state.lam + per_cell(point.ascent_lr, state.lam) * asc_contrib,
+            axis=axis)
         lam_max, lam_entropy, lam_ess = lambda_summary(lam_new, axis=axis)
         lam_hist, lam_snaps = _record_lambda(fl, state, lam_new, t)
 
         # ---- metrics: the test statistics as sums of local rows
         if t % fl.eval_every == 0:
-            accs = model.accuracy(w_new, x_test, y_test)   # [n_rows]
+            accs = model.accuracy(w_cells, x_test, y_test)   # [G, n_rows]
             if axis is None:
-                stats = torch.stack([accs.mean(), accs.amin(),
-                                     accs.std(correction=0)])
+                stats = torch.stack([accs.mean(dim=-1), accs.amin(dim=-1),
+                                     accs.std(dim=-1, correction=0)], dim=-1)
             else:
-                mean = axis.psum(torch.sum(accs)) / n
-                var = axis.psum(torch.sum(torch.square(accs - mean))) / n
-                stats = torch.stack([mean, axis.pmin(torch.amin(accs)),
-                                     torch.sqrt(var)])
+                mean = axis.psum(torch.sum(accs, dim=-1)) / n
+                var = axis.psum(torch.sum(torch.square(accs - mean[:, None]),
+                                          dim=-1)) / n
+                stats = torch.stack([mean, axis.pmin(torch.amin(accs, dim=-1)),
+                                     torch.sqrt(var)], dim=-1)
         else:
             stats = state.eval_cache
         eval_cache = () if fl.eval_every == 1 else stats
         metrics = SimHistory(
-            avg_acc=stats[0], worst_acc=stats[1], std_acc=stats[2],
+            avg_acc=stats[:, 0], worst_acc=stats[:, 1], std_acc=stats[:, 2],
             energy=energy, loss=sel_loss, num_scheduled=num_sched,
             lam=lam_hist, avail_count=avail_count, min_battery=min_battery,
             lam_max=lam_max, lam_entropy=lam_entropy, lam_ess=lam_ess,
@@ -706,7 +774,7 @@ def make_control_sharded_round_fn(model: SimModel, fl: FLConfig, data,
 def init_sim_state(model: SimModel, fl: FLConfig, device=None,
                    cells: int = 1, process=None,
                    init: Optional[InitDraws] = None, ids=None,
-                   draws: Optional[IdDraws] = None) -> SimState:
+                   draws=None) -> SimState:
     """Initial state of ``cells`` cells: the model's init, uniform λ, zero
     energy (and zero error-feedback residuals for the sparse transport), on
     ``device`` (``None``: the card). Every field leads with [cells].
@@ -716,14 +784,14 @@ def init_sim_state(model: SimModel, fl: FLConfig, device=None,
     cells' ``ChannelProcess`` (its ``battery_init`` a [cells] vector or a
     scalar; default: ``fl``'s).
 
-    Under the sharded control plane the state is one cell's, with no cell
-    axis, and holds the rows of the global client ids ``ids`` (default:
-    all N): λ, the residuals and a temporal run's process, whose fading
-    normals come per id from ``draws.init()`` (``draws`` the run's
-    ``IdDraws``), so a shard's rows equal those rows of the whole state."""
+    Under the sharded control plane the state holds the rows of the global
+    client ids ``ids`` (default: all N): λ, the residuals and a temporal
+    run's process, whose fading normals come per id from ``draws.init()``
+    (``draws`` the cells' ``draws.CellDraws``), so a shard's rows equal
+    those rows of the whole state."""
     device = resolve_device(device)
     if fl.control_plane == "sharded":
-        return _init_rows(model, fl, device, process, ids, draws)
+        return _init_rows(model, fl, device, cells, process, ids, draws)
     if ids is not None:
         raise ValueError("ids is a control_plane='sharded' argument; the "
                          "replicated plane initializes all N rows")
@@ -754,32 +822,36 @@ def init_sim_state(model: SimModel, fl: FLConfig, device=None,
     )
 
 
-def _init_rows(model: SimModel, fl: FLConfig, device, process, ids,
-               draws: Optional[IdDraws]) -> SimState:
-    """The sharded control plane's initial state of the rows ``ids``."""
+def _init_rows(model: SimModel, fl: FLConfig, device, cells: int, process,
+               ids, draws) -> SimState:
+    """The sharded control plane's initial state of ``cells`` cells' rows
+    ``ids``; a temporal state draws from the group's ``draws.CellDraws``."""
     if ids is None:
         ids = torch.arange(fl.num_clients, dtype=torch.int64, device=device)
     n_rows = ids.shape[0]
     chan_state = ()
     if fl.temporal:
-        if draws is None:
-            raise ValueError("a temporal run's state needs its IdDraws")
+        if draws is None or getattr(draws, "cells", None) != cells:
+            raise ValueError(f"a temporal run's state needs the CellDraws of "
+                             f"its {cells} cells")
         if process is None:
             process = process_from_config(fl, device)
         chan_state = init_chan_state_ids(process, draws.init(), ids,
                                          fl.num_subcarriers, fl.flat_fading)
     e = fl.record_lambda_every
     f32 = dict(dtype=torch.float32, device=device)
-    w = model.init(device)
+    w0 = model.init(device)
     return SimState(
-        w=w,
-        lam=torch.full((n_rows,), 1.0 / fl.num_clients, **f32),
-        energy=torch.zeros((), **f32),
-        eval_cache=() if fl.eval_every == 1 else torch.zeros((3,), **f32),
+        w={name: leaf.expand(cells, *leaf.shape).clone()
+           for name, leaf in w0.items()},
+        lam=torch.full((cells, n_rows), 1.0 / fl.num_clients, **f32),
+        energy=torch.zeros((cells,), **f32),
+        eval_cache=() if fl.eval_every == 1 else torch.zeros((cells, 3), **f32),
         lam_snaps=(() if e in (0, 1)
-                   else torch.zeros(((fl.rounds + e - 1) // e, n_rows), **f32)),
-        dl_energy=torch.zeros((), **f32),
-        ef_resid=(torch.zeros((n_rows, tree_size(w)), **f32)
+                   else torch.zeros((cells, (fl.rounds + e - 1) // e, n_rows),
+                                    **f32)),
+        dl_energy=torch.zeros((cells,), **f32),
+        ef_resid=(torch.zeros((cells, n_rows, tree_size(w0)), **f32)
                   if fl.transport == "sparse" else ()),
         chan_state=chan_state,
     )
@@ -821,17 +893,20 @@ def run_simulation(model: SimModel, fl: FLConfig, data,
     ``draws.init_draws`` from the same seed. ``device=None`` is the CUDA
     card, and raises when there is none.
 
-    ``control_plane="sharded"`` runs the sharded control plane
-    (``sharding.run_simulation_control_sharded``): ``draws`` is then the
-    run's ``draws.IdDraws`` (default ``HashDraws(seed)``), which gives the
-    initial draws too, and ``mesh`` a ``sharding.ClientAxis`` of more than
-    one device shards the population (one device: ``ids = arange(N)``).
+    ``mesh`` (a ``sharding.ClientAxis`` of more than one rank; a mesh of
+    one is a no-op) shards the client population: every rank passes all
+    the data and the same arguments, and gets the same history. Under the
+    replicated plane that is ``sharding.run_simulation_sharded``, the
+    dense [N, model] program with eq. (10) as a psum. Under
+    ``control_plane="sharded"``
+    (``sharding.run_simulation_control_sharded``) ``draws`` is the run's
+    ``draws.IdDraws`` (default ``HashDraws(seed)``), which gives the
+    initial draws too, and each rank keeps only its rows.
     """
-    from repro_torch.core.sweep import stack_points, sweep_point_from_config
-
     dev = resolve_device(device)
-    check_supported(fl, mesh)
+    check_supported(fl)
     seed = fl.seed if seed is None else seed
+    axis = mesh if mesh_size(mesh) > 1 else None
     if fl.control_plane == "sharded":
         from repro_torch.core.sharding import run_simulation_control_sharded
         if dense:
@@ -844,21 +919,46 @@ def run_simulation(model: SimModel, fl: FLConfig, data,
         if draws is not None and not isinstance(draws, IdDraws):
             raise TypeError("control_plane='sharded' takes an IdDraws "
                             f"source as draws, got {type(draws).__name__}")
-        return run_simulation_control_sharded(
-            model, fl, data, mesh if mesh_size(mesh) > 1 else None,
-            seed=seed, draws=draws, device=dev)
-    data = tuple(torch.as_tensor(a).to(dev) for a in data)
+        return run_simulation_control_sharded(model, fl, data, axis, seed=seed,
+                                              draws=draws, device=dev)
+    if axis is not None:
+        from repro_torch.core.sharding import run_simulation_sharded
+        return run_simulation_sharded(model, fl, data, axis, seed=seed,
+                                      draws=draws, device=dev,
+                                      init_draws=init_draws)
+    return run_replicated(model, fl, data, seed, dense, draws, dev, init_draws)
+
+
+def run_replicated(model: SimModel, fl: FLConfig, data, seed: Optional[int],
+                   dense: bool, draws, device, init_draws: Optional[InitDraws],
+                   axis=None) -> SimHistory:
+    """:func:`run_simulation` of the replicated control plane, on one
+    device or, with ``axis``, population-sharded over its ranks (``dense``
+    then True): each rank slices its client rows of ``data`` and draws
+    the whole round's [N] draws."""
+    from repro_torch.core.sweep import stack_points, sweep_point_from_config
+
+    dev = resolve_device(device)
+    seed = fl.seed if seed is None else seed
+    n_local = fl.num_clients // (1 if axis is None else axis.size)
+    off = 0 if axis is None else axis.rank * n_local
+    shard_size = torch.as_tensor(data[1]).shape[1]
+    data = tuple(torch.as_tensor(a)[off:off + n_local].to(dev) for a in data)
     point = stack_points([sweep_point_from_config(fl, dev)])
     if init_draws is None:
         init_draws = seeded_init_draws(seed, fl, dev)
     state = init_sim_state(model, fl, dev, process=point.process,
                            init=stack_init_draws([init_draws.to(dev)]))
+    if axis is not None and fl.transport == "sparse":
+        # the residual rows live with their clients
+        state = state._replace(ef_resid=state.ef_resid[:, off:off + n_local])
     model_size = tree_size(state.w)   # one cell
     noise_free = fl.noise_std == 0
     round_fn = make_param_round_fn(model, fl, data, model_size, fl.method,
-                                   dense=dense, noise_free=noise_free)
+                                   dense=dense, noise_free=noise_free,
+                                   axis=axis)
     if draws is None:
-        draws = round_draws(seed, fl, model_size, data[1].shape[1], dev)
+        draws = round_draws(seed, fl, model_size, shard_size, dev)
     batched = (stack_draws([d.to(dev)], not noise_free, model_size)
                for d in draws)
     hist = run_rounds(round_fn, point, state, fl, batched)

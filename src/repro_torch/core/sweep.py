@@ -24,9 +24,15 @@ Cell (point p, seed s) draws what ``run_simulation(fl_p, seed=s)`` draws
 cells run one by one. Every knob of a point is an f32 device tensor, so the
 round never copies a knob from the host. A group of temporal cells carries
 each cell's process state on the cell axis, and a GCA group runs the
-[N, model] round; both are one batched run like any other group. Not
-ported yet: meshes (``devices``, ``client_devices``) and groups of the
-sharded control plane (ROADMAP Queue 1 item 9).
+[N, model] round; both are one batched run like any other group.
+
+A group of the sharded control plane (``control_plane="sharded"``) is one
+batched run of the sharded round over [G] cells, each with its own
+id-addressed source (``draws.CellDraws``). On a mesh of ``devices`` ranks
+(``torch.distributed``), each rank runs its share of every group's seed
+columns and the histories are all-gathered; sharded-plane groups may also
+split their client rows over a clients axis (the 2-D cells × clients
+mesh, ``sharding.cells_clients_axes``).
 """
 from __future__ import annotations
 
@@ -41,9 +47,11 @@ import torch
 from repro_torch.configs.base import FLConfig, GCAParams
 from repro_torch.core.channel import (SCENARIOS, ChannelScenario,
                                       scenario_from_config)
-from repro_torch.core.draws import (draw_signature, init_draws, round_draws,
-                                    stack_draws, stack_init_draws)
+from repro_torch.core.draws import (CellDraws, HashDraws, draw_signature,
+                                    init_draws, round_draws, stack_draws,
+                                    stack_init_draws)
 from repro_torch.core.dynamics import ChannelProcess, process_from_config
+from repro_torch.core.sharding import control_sharded_cell_run
 from repro_torch.core.simulator import (SimHistory, check_supported,
                                         init_sim_state, make_param_round_fn,
                                         run_rounds)
@@ -215,8 +223,8 @@ def _group_draws(fls, seeds, labels, draws, noise: bool, model_size: int,
 
 def _run_group(model, data, fls, labels, seeds, draws, device, model_size,
                init=None):
-    """One structural group's batched run: histories of its G = points ×
-    seeds cells, point-major, as numpy [G, T, ...] fields. Each cell's
+    """One structural group's batched run: the history of its G = points ×
+    seeds cells, point-major, as [G, T, ...] device tensors. Each cell's
     initial state comes from its point's process and its own
     ``init(label, fl, seed)`` (default ``draws.init_draws(seed, fl)``)."""
     fl0 = fls[0]
@@ -234,11 +242,53 @@ def _run_group(model, data, fls, labels, seeds, draws, device, model_size,
     round_fn = make_param_round_fn(model, fl0, data, model_size, fl0.method,
                                    noise_free=noise_free, cells=cells)
     _TRACE_LOG.append(fl0.method)
-    hist = run_rounds(round_fn, point, state, fl0,
+    return run_rounds(round_fn, point, state, fl0,
                       _group_draws(fls, seeds, labels, draws, not noise_free,
                                    model_size, data[1].shape[1], device))
-    return SimHistory(*(v if isinstance(v, tuple) else v.cpu().numpy()
-                        for v in hist))
+
+
+def _run_sharded_group(model, data, fls, labels, seeds, draws, device,
+                       model_size, axis=None):
+    """One group of the sharded control plane as one batched [G] run
+    (``sharding.control_sharded_cell_run``), G = points × seeds cells,
+    point-major, over this rank's client rows of ``data`` (``axis``: the
+    clients axis of a 2-D mesh; None: all N rows). Cell (p, s) draws from
+    ``draws(label, fl, seed)`` if given (an ``IdDraws``), else from
+    ``HashDraws(s)``, as ``run_simulation(fl_p, seed=s)`` does. Returns the
+    [G, T, ...] history, λ gathered over the clients axis."""
+    fl0 = fls[0]
+    n_local = fl0.num_clients // (1 if axis is None else axis.size)
+    off = 0 if axis is None else axis.rank * n_local
+    points = [sweep_point_from_config(fl, device) for fl in fls]
+    point = stack_points([p for p in points for _ in seeds])
+    noise_free = all(fl.noise_std == 0 for fl in fls)
+    sources = CellDraws([draws(lbl, fl, s) if draws is not None
+                         else HashDraws(s, device)
+                         for lbl, fl in zip(labels, fls) for s in seeds])
+    run = control_sharded_cell_run(model, fl0, fl0.method, axis, n_local,
+                                   model_size, noise_free=noise_free)
+    _TRACE_LOG.append(fl0.method)
+    hist = run(point, sources, *(a[off:off + n_local] for a in data))
+    if axis is not None and not isinstance(hist.lam, tuple):
+        hist = hist._replace(lam=axis.all_gather(hist.lam, dim=-1))
+    return hist
+
+
+def _split_cells(hist: SimHistory, points: int, num_seeds: int,
+                 cells_axis=None) -> list:
+    """A group's [G', T, ...] history (G' = points × this rank's seed
+    columns) as one numpy ``SimHistory`` a point with leaves [R, T, ...]:
+    the seed columns gathered over ``cells_axis`` in rank order and the
+    padding columns dropped."""
+    def split(v):
+        v = v.reshape(points, -1, *v.shape[1:])
+        if cells_axis is not None:
+            v = cells_axis.all_gather(v, dim=1)
+        return v[:, :num_seeds].cpu().numpy()
+
+    cols = [v if isinstance(v, tuple) else split(v) for v in hist]
+    return [SimHistory(*(v if isinstance(v, tuple) else v[p] for v in cols))
+            for p in range(points)]
 
 
 def _grid_fingerprint(specs, seeds) -> np.ndarray:
@@ -287,35 +337,62 @@ def run_sweep(
     Returns a :class:`SweepResult` whose per-label histories have a leading
     seed axis [R] on every leaf (numpy arrays).
 
-    ``device`` is where the runs go (``None``: the card). ``devices`` other
-    than None or 1 and any ``client_devices`` ask for a mesh, which is not
-    ported yet. ``draws``, if given, is ``(label, fl, seed) -> T
-    RoundDraws``, a cell's own draws (e.g. the reference's numbers in a
-    test); by default cell (p, s) draws what ``run_simulation(fl_p,
-    seed=s)`` does. ``init_draws``, likewise, is ``(label, fl, seed) ->
-    InitDraws``, a cell's initial draws (a temporal cell's initial fading
-    normals).
+    ``device`` is where the runs go (``None``: the card). ``draws``, if
+    given, is ``(label, fl, seed) -> T RoundDraws``, a cell's own draws
+    (e.g. the reference's numbers in a test), or for a group of
+    ``control_plane="sharded"`` the cell's ``draws.IdDraws``; by default
+    cell (p, s) draws what ``run_simulation(fl_p, seed=s)`` does.
+    ``init_draws``, likewise, is ``(label, fl, seed) -> InitDraws``, a
+    replicated cell's initial draws (a temporal cell's initial fading
+    normals). A sharded-plane group is one batched [G] run of the sharded
+    round.
+
+    ``devices`` (None or 1: one device) asks for a mesh of that many ranks
+    of an initialized ``torch.distributed`` process group ("auto": all of
+    them): every rank calls ``run_sweep`` with the same arguments and its
+    own ``device``, and every rank gets the one-device result. A group's
+    seeds are split over a cells axis, padded to a multiple of its ranks
+    (the padding columns are run and dropped): each rank runs its seed
+    columns of every point of the group as one batched group, and the
+    histories are all-gathered. ``client_devices`` (sharded-plane groups)
+    factors the ranks into the 2-D cells × clients mesh of
+    ``sharding.cells_clients_axes``: each group runs its cells' client
+    rows split over the clients axis and its seed columns over the cells
+    axis; None picks the largest divisor of ``devices`` that divides N
+    (``sharding.factor_client_devices``), and replicated-plane groups
+    always take a pure cells mesh. A world of more ranks than ``devices``
+    holds world / devices such meshes, each running the whole sweep.
 
     ``checkpoint_dir`` (opt-in resume): after each group completes, the
     per-label histories land in a ``repro_torch.checkpoint`` msgpack
     checkpoint (the reference's format and keys); a rerun with the same
     specs, seeds and directory restores the finished groups and runs only
     the rest. A changed grid fails ("shape mismatch" from the restore
-    template, or "different sweep grid" from the fingerprint).
+    template, or "different sweep grid" from the fingerprint). On a mesh
+    every rank restores, rank 0 of the world alone writes, and a barrier
+    follows each write.
     """
+    from repro_torch.core import sharding
+
     labels = [lbl for lbl, _ in specs]
     if len(set(labels)) != len(labels):
         raise ValueError(f"duplicate sweep labels: {labels}")
-    if devices not in (None, 1) or client_devices is not None:
-        raise NotImplementedError(
-            "sweep meshes (devices, client_devices) are not ported yet "
-            "(ROADMAP Queue 1 item 9)")
     for _, fl in specs:
         check_supported(fl)
-        if fl.control_plane == "sharded":
-            raise NotImplementedError(
-                "sweep groups of the sharded control plane are not ported "
-                "yet (ROADMAP Queue 1 item 9); run_simulation runs one")
+    n_dev = sharding.resolve_device_count(devices)
+    if client_devices is not None and (
+            isinstance(client_devices, bool)
+            or not isinstance(client_devices, (int, np.integer))
+            or client_devices < 1 or n_dev % client_devices):
+        raise ValueError(f"client_devices={client_devices!r} must be a "
+                         f"positive int dividing devices={n_dev}")
+    multi = n_dev > 1
+    if multi:
+        import torch.distributed as dist
+        if not (dist.is_available() and dist.is_initialized()):
+            raise ValueError(
+                f"devices={n_dev} needs an initialized torch.distributed "
+                "process group: one process a device, each calling run_sweep")
     dev = resolve_device(device)
     seeds = tuple(int(s) for s in seeds)
     num_seeds = len(seeds)
@@ -327,6 +404,7 @@ def run_sweep(
     # ---- checkpoint resume hook (opt-in) -------------------------------
     done = np.zeros((len(specs),), np.float32)
     histories: list[Optional[SimHistory]] = [None] * len(specs)
+    writer = not multi or dist.get_rank() == 0
     if checkpoint_dir is not None:
         from repro_torch.checkpoint.ckpt import (latest_step,
                                                  restore_checkpoint,
@@ -350,6 +428,8 @@ def run_sweep(
             for i, lbl in enumerate(labels):
                 if done[i]:
                     histories[i] = restored["hist"][lbl]
+        if multi:
+            dist.barrier()   # every rank has read before rank 0 writes
 
     data = tuple(torch.as_tensor(a).to(dev) for a in data)
     model_size = tree_size(model.init(dev))
@@ -357,21 +437,42 @@ def run_sweep(
     for idxs in groups.values():
         if all(done[i] for i in idxs):
             continue  # restored from the checkpoint
-        hist = _run_group(model, data, [specs[i][1] for i in idxs],
-                          [labels[i] for i in idxs], seeds, draws, dev,
-                          model_size, init=init_draws)
-        for p, i in enumerate(idxs):
-            sl = slice(p * num_seeds, (p + 1) * num_seeds)
-            histories[i] = SimHistory(*(v if isinstance(v, tuple) else v[sl]
-                                        for v in hist))
+        fls = [specs[i][1] for i in idxs]
+        lbls = [labels[i] for i in idxs]
+        fl0 = fls[0]
+        sharded = fl0.control_plane == "sharded"
+        c = (sharding.factor_client_devices(fl0.num_clients, n_dev,
+                                            client_devices)
+             if multi and sharded else 1)
+        cells_axis, clients_axis = (sharding.cells_clients_axes(n_dev, c)
+                                    if multi else (None, None))
+        # the seeds padded to a multiple of the cells axis, this rank's
+        # columns of them
+        rows = n_dev // c
+        run_seeds = sharding.pad_to_multiple(seeds, rows)
+        per = len(run_seeds) // rows
+        q = 0 if cells_axis is None else cells_axis.rank
+        mine = run_seeds[q * per:(q + 1) * per]
+        if sharded:
+            hist = _run_sharded_group(model, data, fls, lbls, mine, draws, dev,
+                                      model_size, axis=clients_axis)
+        else:
+            hist = _run_group(model, data, fls, lbls, mine, draws, dev,
+                              model_size, init=init_draws)
+        for i, h in zip(idxs, _split_cells(hist, len(idxs), num_seeds,
+                                           cells_axis)):
+            histories[i] = h
             done[i] = 1.0
         if checkpoint_dir is not None:
             groups_done += 1
-            tree = {"done": done, "grid": ckpt_template["grid"],
-                    "hist": {lbl: (histories[i] if done[i]
-                                   else ckpt_template["hist"][lbl])
-                             for i, lbl in enumerate(labels)}}
-            save_checkpoint(checkpoint_dir, groups_done, tree, keep=1)
+            if writer:
+                tree = {"done": done, "grid": ckpt_template["grid"],
+                        "hist": {lbl: (histories[i] if done[i]
+                                       else ckpt_template["hist"][lbl])
+                                 for i, lbl in enumerate(labels)}}
+                save_checkpoint(checkpoint_dir, groups_done, tree, keep=1)
+            if multi:
+                dist.barrier()
 
     return SweepResult(labels=labels, configs=[fl for _, fl in specs],
                        seeds=seeds, histories=histories)

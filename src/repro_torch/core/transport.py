@@ -260,13 +260,17 @@ def quantized_aggregate_psum_tree(w_base: dict, trees_local: dict,
     """Population-sharded quantized eq. (10): w̄ + (psum over ``axis`` of
     Σ_c w_c·Q(tree_c − w̄) + σz)/k over this shard's rows, ``u_local``
     [n_local, P] their rounding uniforms (drawn at their global ids, so
-    each row rounds as on one device)."""
-    base, delta = _flat_base_and_delta(w_base, trees_local, 0)
+    each row rounds as on one device). With ``weights_local`` [G, n_local]
+    every argument carries the cell axis, one psum for the group."""
+    cells = weights_local.dim() - 1
+    base, delta = _flat_base_and_delta(w_base, trees_local, cells)
     q = sround(delta, quant_step(delta, bits), u_local.to(base.dtype))
-    total = axis.psum(torch.einsum("cp,c->p", q, weights_local.to(base.dtype)))
+    total = axis.psum(torch.einsum("...cp,...c->...p", q,
+                                   weights_local.to(base.dtype)))
     if not is_static_zero(noise_std):
-        total = total + noise_std * z.to(base.dtype)
-    return unravel(trees_local, base + total / k, lead=1)
+        total = total + per_cell(noise_std, total) * z.to(base.dtype)
+    return unravel(trees_local, base + total / per_cell(k, total),
+                   lead=cells + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -366,13 +370,17 @@ def sparse_aggregate_psum_tree(w_base: dict, trees_local: dict, weights_local,
     new_resid_local)``. Each shard compresses its own rows v = Δ + r (a
     within-row threshold, so rows compress as on one device), sums them,
     and the partial sums meet in a ``psum`` over ``axis``; the residual
-    rows stay on their shard, kept where a row sent nothing."""
-    base, delta = _flat_base_and_delta(w_base, trees_local, 0)
+    rows stay on their shard, kept where a row sent nothing. With
+    ``weights_local`` [G, n_local] every argument carries the cell axis."""
+    cells = weights_local.dim() - 1
+    base, delta = _flat_base_and_delta(w_base, trees_local, cells)
     v = delta + resid_local.to(base.dtype)
     c, _ = sparse_compress_rows(v, k_coords)
-    total = axis.psum(torch.einsum("cp,c->p", c, weights_local.to(base.dtype)))
+    total = axis.psum(torch.einsum("...cp,...c->...p", c,
+                                   weights_local.to(base.dtype)))
     if not is_static_zero(noise_std):
-        total = total + noise_std * z.to(base.dtype)
+        total = total + per_cell(noise_std, total) * z.to(base.dtype)
     sent = (weights_local > 0)[..., None]
     new_resid = torch.where(sent, (v - c).to(resid_local.dtype), resid_local)
-    return unravel(trees_local, base + total / k, lead=1), new_resid
+    return unravel(trees_local, base + total / per_cell(k, total),
+                   lead=cells + 1), new_resid

@@ -32,8 +32,9 @@ of the source at step t, read as one ``RoundDraws`` by
 ``draws.client_rows``), and λ is projected by the simulator's bisection,
 so one step equals one round of the sharded simulator.
 
-Not ported yet, and raising ``NotImplementedError``: meshes of more than
-one device (ROADMAP Queue 1 item 9), and models without a
+Not ported yet, and raising ``NotImplementedError``: a parameter server
+on a mesh of more than one device (``ParameterServer(mesh=...)``, the last
+part of ROADMAP Queue 1 item 9), and models without a
 ``per_example_nll``, i.e. the model zoo (item 10(c)(ii)).
 """
 from __future__ import annotations
@@ -98,8 +99,10 @@ class ParameterServer:
                              "pick 'replicated' or 'sharded'")
         if mesh_size(mesh) > 1:
             raise NotImplementedError(
-                "a parameter server on a mesh of more than one device is "
-                "not ported yet (ROADMAP Queue 1 item 9)")
+                "a parameter server on a mesh of more than one device "
+                "(ParameterServer(mesh=...)) is not ported yet (ROADMAP "
+                "Queue 1 item 9); the simulator and the sweep engine run "
+                "on meshes")
         if not hasattr(model, "per_example_nll"):
             raise NotImplementedError(
                 "the port's parameter server runs models with a "

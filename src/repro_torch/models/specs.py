@@ -1,7 +1,7 @@
 """Vocabulary padding (port of the unsharded part of ``repro.models.specs``).
 
-``ShardingCtx`` waits for the multi-device slice (ROADMAP Queue 1 item 9);
-the port's dense model takes no sharding context.
+The reference's ``ShardingCtx`` (model-parallel placement over a mesh) is
+not ported: the port's dense model takes no sharding context.
 """
 from __future__ import annotations
 

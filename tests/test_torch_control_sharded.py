@@ -385,8 +385,10 @@ def test_server_step_equals_one_simulator_round():
     """One ``ParameterServer.step`` equals one sharded simulator round on
     the same id-addressed draws (the reference's
     ``test_sharded_discipline_cross_tier``, on the port alone)."""
+    from repro_torch.core.draws import CellDraws
     from repro_torch.core.simulator import (init_sim_state,
                                             make_control_sharded_round_fn)
+    from repro_torch.core.sweep import stack_points
     from repro_torch.federated.server import ParameterServer
     from repro_torch.models.logreg import logistic_regression_prod
     from repro_torch.optim import sgd
@@ -399,13 +401,16 @@ def test_server_step_equals_one_simulator_round():
         fl = FLConfig(num_clients=n, clients_per_round=3, rounds=1,
                       batch_size=per, local_steps=1, method=method, lr0=0.2,
                       ascent_lr=1e-2, energy_C=4.0, control_plane="sharded")
-        src = HashDraws(0, "cpu")
+        src = CellDraws([HashDraws(0, "cpu")])   # a group of one cell
         model = logistic_regression(dim, cls)
-        point = sweep_point_from_config(fl, "cpu")
+        point = stack_points([sweep_point_from_config(fl, "cpu")])
         state = init_sim_state(model, fl, "cpu", process=point.process, draws=src)
         round_fn = make_control_sharded_round_fn(model, fl, (xs, ys, xs, ys),
                                                  dim * cls + cls, method, src)
         new_state, hist = round_fn(point, state, 0)
+        new_state = new_state._replace(lam=new_state.lam[0],
+                                       w={k: v[0] for k, v in new_state.w.items()})
+        hist = type(hist)(*(v if isinstance(v, tuple) else v[0] for v in hist))
 
         ps = ParameterServer(logistic_regression_prod(dim, cls), sgd(fl.lr0), fl,
                              seed=0, device="cpu")
@@ -480,13 +485,28 @@ def test_server_matches_reference_server(method, transport, scenario):
 
 
 def test_sharded_sweep_groups_and_dense_still_raise(data):
-    """Sweep groups of the sharded plane wait for item 9; the sharded plane
-    has no dense program."""
+    """A sweep group of the sharded plane is one batched [G] run: each of
+    its cells equals its own ``run_simulation`` (a group of one) on the
+    same seed, discrete fields exactly and the rest within rtol 2e-5,
+    atol 2e-6 (a matrix product over [G] cells may block its sums unlike
+    one over a single cell). The sharded plane has no dense program, and
+    N % D ≠ 0 and the replicated plane still raise."""
     from repro_torch.core import sweep
     model = logistic_regression(DIM, 10)
-    fl = FLConfig(**_kw(rounds=1))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        sweep.run_sweep(model, data, [("a", fl)], device="cpu")
+    fl = FLConfig(**_kw(rounds=3))
+    specs = [("c2", replace(fl, energy_C=2.0)), ("c8", fl)]
+    res = sweep.run_sweep(model, data, specs, seeds=(0, 3), device="cpu")
+    for lbl, cfg in specs:
+        for r, seed in enumerate((0, 3)):
+            one = run_simulation(model, cfg, data, seed=seed, device="cpu")
+            got = res.history(lbl)
+            for f in one._fields:
+                a, b = getattr(got, f)[r], getattr(one, f).numpy()
+                if f in ("num_scheduled", "avail_count"):
+                    np.testing.assert_array_equal(a, b, err_msg=f)
+                else:
+                    np.testing.assert_allclose(a, b, rtol=2e-5, atol=2e-6,
+                                               err_msg=f)
     with pytest.raises(ValueError, match="dense"):
         run_simulation(model, fl, data, device="cpu", dense=True)
     with pytest.raises(ValueError, match="N % devices"):

@@ -153,9 +153,10 @@ def test_default_draws_run_is_seeded(data):
 
 def test_unported_paths_raise(data):
     """The sharded control plane runs on one device (``ids = arange(N)``):
-    its run is seeded and schedules K every round. Population sharding of
-    the replicated plane, a mesh of more than one device, still raises
-    naming item 9 (a mesh of one device is a no-op)."""
+    its run is seeded and schedules K every round. A mesh of one device is
+    a no-op; population sharding of the replicated plane over a mesh whose
+    size does not divide N raises before it touches the mesh (the mesh
+    runs themselves are ``tests/test_torch_multidevice.py``'s)."""
     class Mesh:
         def __init__(self, size):
             self.size = size
@@ -167,8 +168,8 @@ def test_unported_paths_raise(data):
     np.testing.assert_array_equal(a.num_scheduled.numpy(), np.full(3, K))
     np.testing.assert_array_equal(a.lam.numpy(), b.lam.numpy())
     np.testing.assert_allclose(a.lam.numpy().sum(axis=1), 1.0, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        run_simulation(model, FLConfig(**BASE), data, device="cpu", mesh=Mesh(2))
+    with pytest.raises(ValueError, match="N % devices"):
+        run_simulation(model, FLConfig(**BASE), data, device="cpu", mesh=Mesh(3))
     run_simulation(model, replace(FLConfig(**BASE), rounds=1), data,
                    device="cpu", mesh=Mesh(1))
     with pytest.raises(ValueError, match="control_plane"):

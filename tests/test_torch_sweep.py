@@ -388,11 +388,15 @@ def test_duplicate_labels_raise(data):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(devices=2), "item 9"), (dict(devices="auto"), "item 9"),
-    (dict(client_devices=2), "item 9"),
+    (dict(devices=2), "only 1 present"), (dict(devices=2.0), "an int"),
+    (dict(client_devices=2), "must be a positive int dividing devices=1"),
 ])
 def test_unported_paths_raise(data, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """A mesh larger than the devices present (no process group here), a
+    device count that is not an int and a clients axis that does not
+    divide the mesh raise before anything runs (the meshes themselves are
+    ``tests/test_torch_multidevice.py``'s)."""
+    with pytest.raises((ValueError, TypeError), match=item):
         sweep.run_sweep(MODEL, data, [("a", fl())], device="cpu", **kw)
 
 
