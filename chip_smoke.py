@@ -84,21 +84,39 @@ these phases and fails (non-zero exit, no result line) if any of them fails:
      samples a client, K = 32) at N = 10⁴, 10⁵ and 10⁶ on the card: rounds/s,
      aircomp 4 times in 4 rounds, and the peak bytes the run allocates
      above its inputs, which per client must stay within 1.6× of N = 10⁴'s;
+     the one-rank NCCL group also runs the ca_afl analog parameter server
+     (a mesh of one: no collective), bit-equal to the server phase's run;
+     then the multi-rank phases, 2 and 4 processes sharing the card
+     through gloo:
+     population sharding, the sweep's cells over 2 ranks, the parameter
+     server on 2 ranks (``ParameterServer(mesh=...)``, ca_afl × 4
+     transports and GCA analog: 30 steps each from the rank's one-device
+     server's state, held to it, then 30 timed steps launching no AirComp
+     kernel, their ``num_scheduled`` and energies the server phase's
+     before the first tie) and the sharded groups on the 2 × 2 mesh;
   4. the serve path at full width, f32 with TF32 off, through
      ``repro_torch.launch.serve``, random weights from a seed, run A (the
      launcher's defaults: batch 4, prompt 32, 32 tokens) and run B (a long
      prompt: batch 8, prompt 2048, 32 tokens), each with every launch count
-     set to 0 just before and read just after, for two models:
+     set to 0 just before and read just after, for five models, each dense
+     one's peak memory planned from its shapes before it loads:
      qwen2-0.5b (24 layers, d_model 896, 14 query / 2 KV heads, vocab
      151936 padded to 152064): rmsnorm exactly 49 × 32 = 1568 times (2L + 1
      a forward), flash_attention 24 times (one a prefill layer), the others
-     never; and xlstm-1.3b at full width and depth (48 layers in 6
+     never; qwen2-1.5b (28 layers, d_model 1536, 12 / 2 heads of 128) and
+     qwen2-7b (28 layers, 3584, 28 / 4), rmsnorm 57 × 32 = 1824 and flash 28
+     times, qwen2-1.5b also in run C (batch 1, prompt 8,320, beyond the
+     window of 8,192: a windowed prefill); granite-34b (6144, 48 query
+     heads over one KV head) cut in depth to 16 of its 88 layers to fit
+     the card in f32, rmsnorm 33 × 32 = 1056 and flash 16 times; and
+     xlstm-1.3b at full width and depth (48 layers in 6
      super-blocks of 7 mLSTM + 1 sLSTM blocks, d_model 2048, 4 heads, vocab
      50304 padded to 50688, 2.22 B parameters): slstm exactly 6 × 32 = 192
      times (one a super-block a forward), rmsnorm 97 × 32 = 3104 times, the
      others never;
   5. after all the timed runs of 3 and 4, a torch.profiler window over each
-     (device time, the device's busy share, device time by kernel), over
+     (the serves of qwen2-0.5b and xlstm-1.3b only; device time, the
+     device's busy share, device time by kernel), over
      one sweep group per transport (G = 20, 10 rounds), over 10 rounds
      of a temporal analog run and of a GCA quantized run, over 10
      server steps of ca_afl quantized and of GCA analog (launches a step,
@@ -107,8 +125,9 @@ these phases and fails (non-zero exit, no result line) if any of them fails:
      runs beside the replicated main path's windows;
   6. the card against the CPU: the simulator on the same ``RoundDraws`` at
      quickstart scale for analog, quantized and sparse; each serve path on
-     the same full-width weights (xlstm-1.3b cut to one super-block, 8
-     layers; batch 2, prompt 64, 8 tokens, the card fed the CPU's tokens),
+     the same full-width weights (qwen2-0.5b, qwen2-1.5b cut to 8 layers,
+     xlstm-1.3b cut to one super-block, 8 layers; batch 2, prompt 64, 8
+     tokens, the card fed the CPU's tokens),
      max |Δlogit| at the prefill and each step within 1e-3, and the greedy
      tokens equal wherever the CPU's top-2 margin exceeds 100× that step's
      Δ, at no fewer than half the positions; a sweep group at full
@@ -1279,10 +1298,10 @@ SERVER_RUNS = {("ca_afl", "analog"): None, ("ca_afl", "quantized"): "quant_airco
                ("gca", "analog"): "aircomp", ("gca", "quantized"): "quant_aircomp"}
 
 
-def server_setup(method, transport, device=None, seed=0):
+def server_setup(method, transport, device=None, seed=0, mesh=None):
     """The paper's §IV-A run on the production tier: the 784→10 logistic
     regression, N = 100, K = 40, σ = 1e-2, SGD at lr0, 50 examples a
-    client a step."""
+    client a step; on the client mesh ``mesh``, if given."""
     import warnings
 
     from repro_torch.configs import fmnist_logreg
@@ -1296,7 +1315,7 @@ def server_setup(method, transport, device=None, seed=0):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")   # quantized/sparse bypass the optimizer
         ps = ParameterServer(logistic_regression_prod(cfg.dim, cfg.num_classes),
-                             sgd(fl.lr0), fl, seed=seed, device=device)
+                             sgd(fl.lr0), fl, seed=seed, device=device, mesh=mesh)
     return fl, ps
 
 
@@ -1380,7 +1399,7 @@ def phase_server(torch, counters, data):
                  "worst_client_loss": state.history[-1]["worst_client_loss"],
                  "energy_J": state.energy_joules}
         emit({"server": entry})
-        out.append(entry)
+        out.append({**entry, "state": state})
     return out
 
 
@@ -1456,24 +1475,36 @@ def payload_ties(torch, fl, ps_c, ps_g, state, batch_c, batch_g, d, k):
     per row [N, P] for the residuals, the decisions that differ, the
     farthest of them from a tie); every one must lie within QUANT_TIE of a
     grid point / SPARSE_TIE of the threshold."""
-    from repro_torch.core.transport import (quant_step, sparse_k_coords,
-                                            sparse_thresholds)
-
     eta = torch.tensor(fl.lr0 * fl.lr_decay ** state.round, dtype=torch.float32)
     state_g = server_state_to(torch, state, "cuda")
     x_c = (-eta) * ps_c._delta_probe(state.params, batch_c)[2]
     x_g = ((-eta.cuda()) * ps_g._delta_probe(state_g.params, batch_g)[2]).cpu()
+    moved, differ, far = decisions_apart(torch, fl, x_c, x_g, d.quant_uniform,
+                                         state.ef_resid, "server card vs CPU")
+    return moved.sum(dim=0) / k, moved, differ, far
+
+
+def decisions_apart(torch, fl, x_c, x_g, u, resid, what):
+    """The payload decisions two sides take apart on delta rows ``x_c`` and
+    ``x_g`` [C, P] of the same clients (their uniforms ``u`` or residuals
+    ``resid`` [C, P]): ``x_c``'s side's floor(x/d + u) or kept sets against
+    ``x_g``'s. Returns (per row and coordinate the most each decision can
+    move the aggregate before the 1/k, the decisions that differ, the
+    farthest of them from a tie); raises unless every one lies within
+    QUANT_TIE of a grid point / SPARSE_TIE of the threshold."""
+    from repro_torch.core.transport import (quant_step, sparse_k_coords,
+                                            sparse_thresholds)
+
     if fl.transport == "quantized":
         step_c, step_g = quant_step(x_c, fl.quant_bits), quant_step(x_g, fl.quant_bits)
-        v_c = x_c / step_c[:, None] + d.quant_uniform
-        n_c, n_g = torch.floor(v_c), torch.floor(x_g / step_g[:, None] + d.quant_uniform)
+        v_c = x_c / step_c[:, None] + u
+        n_c, n_g = torch.floor(v_c), torch.floor(x_g / step_g[:, None] + u)
         differ = n_c != n_g
         moved = (n_c - n_g).abs() * step_c[:, None]
         dist = (v_c - torch.round(v_c)).abs()
         tie = QUANT_TIE
     else:
-        r = state.ef_resid
-        v_c, v_g = x_c + r, x_g + r
+        v_c, v_g = x_c + resid, x_g + resid
         kc = sparse_k_coords(fl.sparse_density, v_c.shape[1])
         thr_c, thr_g = sparse_thresholds(v_c, kc), sparse_thresholds(v_g, kc)
         differ = (v_c.abs() >= thr_c[:, None]) != (v_g.abs() >= thr_g[:, None])
@@ -1483,10 +1514,9 @@ def payload_ties(torch, fl, ps_c, ps_g, state, batch_c, batch_g, d, k):
         tie = SPARSE_TIE
     far = float(dist[differ].max()) if bool(differ.any()) else 0.0
     if far > tie:
-        raise AssertionError(f"server card vs CPU {fl.transport}: a payload decision "
+        raise AssertionError(f"{what} {fl.transport}: a payload decision "
                              f"differs {far} from a tie (limit {tie})")
-    moved = moved * differ
-    return moved.sum(dim=0) / k, moved, int(differ.sum()), far
+    return moved * differ, int(differ.sum()), far
 
 
 def phase_server_card_vs_cpu(torch, data, steps=5):
@@ -1648,7 +1678,7 @@ def phase_control_sharded(torch, counters, data, main_runs):
     return out, hists
 
 
-def phase_control_sharded_mesh(torch, counters, data, one_device, pop_ref):
+def phase_control_sharded_mesh(torch, counters, data, one_device, pop_ref, server_ref):
     """``run_simulation_control_sharded`` over a one-rank NCCL process
     group (a ``FileStore`` in a temporary directory, destroyed at the end)
     for CA-AFL under analog, quantized and sparse, with the flat top-k tree
@@ -1658,7 +1688,9 @@ def phase_control_sharded_mesh(torch, counters, data, one_device, pop_ref):
     ``run_simulation_sharded`` (population sharding of the replicated
     plane, CA-AFL analog) over the same group: the replicated fields equal
     to the one-device dense run ``pop_ref`` bit for bit, the rest to the
-    mesh gate, no kernel launched."""
+    mesh gate, no kernel launched; and the CA-AFL analog parameter server
+    on that one-rank mesh (a structural no-op, as in the reference): its
+    30 steps bit-equal to the server phase's run ``server_ref``."""
     import os
     import shutil
     import tempfile
@@ -1732,6 +1764,32 @@ def phase_control_sharded_mesh(torch, counters, data, one_device, pop_ref):
         emit({"control_sharded_mesh": entry})
         if bad:
             raise AssertionError(f"{what}: differs from the one-device dense run: {bad}")
+        out.append(entry)
+        what = "control_sharded_mesh server ca_afl analog"
+        fl, ps = server_setup("ca_afl", "analog", mesh=axis)
+        state = ps.init_state()
+        batches = server_batches(torch, data, SERVER_STEPS, "cuda")
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        for b in batches:
+            state = ps.step(state, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counters.items()}
+        check_launches(launches, {}, what)
+        equal = (state.history == server_ref.history and all(
+            torch.equal(state.params[n], server_ref.params[n]) for n in state.params)
+            and torch.equal(state.lam, server_ref.lam))
+        entry = {"transport": "analog", "run": "server ca_afl analog",
+                 "ranks": axis.size, "backend": dist.get_backend(),
+                 "steps": SERVER_STEPS, "steps_per_s": SERVER_STEPS / wall,
+                 "launches": launches, "mesh_is_plain": ps.axis is None,
+                 "bit_equal_to_one_device": equal}
+        emit({"control_sharded_mesh": entry})
+        if not equal:
+            raise AssertionError(f"{what}: differs from the server phase's run")
         out.append(entry)
     finally:
         if dist.is_initialized():
@@ -2021,8 +2079,141 @@ def rank_sweep_2d(torch, counters, data, axis, out_dir, rank):
             "peak_bytes": torch.cuda.max_memory_allocated()}
 
 
+SERVER_MESH_RUNS = (("ca_afl", "analog"), ("ca_afl", "quantized"), ("ca_afl", "sparse"),
+                    ("ca_afl", "digital"), ("gca", "analog"))
+SERVER_EXACT = ("round", "num_scheduled", "energy_j", "dl_energy_j")
+
+
+def server_own_draws(torch, fl, steps, seed=0):
+    """The ``RoundDraws`` a server seeded with ``seed`` draws itself on the
+    card (``draws=None``): its three streams, the temporal one opened by
+    the initial state's draws."""
+    from repro_torch.core.draws import draw_init, draw_round, seed_generators
+
+    gen, quant_gen, temporal_gen = seed_generators(seed, "cuda")
+    draw_init(temporal_gen, fl)
+    return [draw_round(gen, quant_gen, fl, 7850, 1, temporal_gen=temporal_gen)
+            for _ in range(steps)]
+
+
+def mesh_payload_ties(torch, fl, one, mesh, state, batch, d, k):
+    """:func:`payload_ties` for the one-device server ``one`` against the
+    mesh server ``mesh`` in a step from the same state: this rank's
+    clients' decisions, their allowances summed over the ranks (the
+    residual rows each from its owner). Every rank runs it, and every rank
+    raises if any rank found a decision away from a tie."""
+    from repro_torch.core.sharding import merge_owned_rows
+
+    axis = mesh.axis
+    eta = torch.tensor(fl.lr0 * fl.lr_decay ** state.round, dtype=torch.float32,
+                       device="cuda")
+    local, cids = mesh._batch(batch)
+    lids = mesh._local_ids(cids)
+    x_m = (-eta) * mesh._delta_probe(state.params, local)[2]
+    x_o = ((-eta) * one._delta_probe(state.params, one._batch(batch)[0])[2])[lids]
+    sparse = fl.transport == "sparse"
+    u = None if sparse else d.quant_uniform[lids]
+    r = state.ef_resid[lids] if sparse else None
+    err = None
+    try:
+        moved, n, far = decisions_apart(torch, fl, x_o, x_m, u, r, "server_mesh")
+    except AssertionError as e:   # raised below on every rank, after the psum
+        err, moved, n, far = e, torch.zeros_like(x_m), 0, 0.0
+    stats = axis.psum(torch.tensor([float(n), float(err is not None)], device="cuda"))
+    far = float(axis.pmax(torch.tensor([far], device="cuda")))
+    if float(stats[1]):
+        raise AssertionError(f"server_mesh {fl.transport}: a rank's payload decision "
+                             f"lies away from a tie ({err or 'on another rank'})")
+    allow = axis.psum(moved.sum(dim=0)) / k
+    allow_rows = (merge_owned_rows(torch.zeros_like(state.ef_resid).index_copy(
+        0, lids, moved), lids, axis) if sparse else 0.0)
+    return allow, allow_rows, int(stats[0]), far
+
+
+def rank_server_mesh(torch, counters, data, axis, out_dir, rank):
+    """The parameter server on this world's client mesh
+    (``ParameterServer(mesh=axis)``) at full width, on the server phase's
+    batches ([5000, 784], seed 0), each run of SERVER_MESH_RUNS twice:
+
+      - lockstep: 30 steps, each from this rank's one-device server's state
+        on the same draws: the replicated fields (``num_scheduled``, the
+        step's energy) bit for bit, λ, the loss and params (and residuals)
+        within FMA_TOL beside the payload decisions the two take apart at
+        ties (:func:`mesh_payload_ties`); the one-device history goes to
+        the parent, which holds it bit-equal to the server phase's run;
+      - timed: the mesh server alone for 30 steps on its own draws (the
+        same streams), every launch count 0 just before and read just
+        after (no AirComp kernel on a mesh); steps/s; its history goes to
+        the parent, with the first lockstep step that took a payload
+        decision apart at a tie."""
+    batches = server_batches(torch, data, SERVER_STEPS, "cuda")
+    rtol, atol = FMA_TOL["rtol"], FMA_TOL["atol"]
+    out = {}
+    for method, transport in SERVER_MESH_RUNS:
+        label = f"{method} {transport}"
+        fl, one = server_setup(method, transport)
+        _, mesh = server_setup(method, transport, mesh=axis)
+        state = one.init_state()
+        worst = {"params": 0.0, "lam": 0.0, "loss": 0.0}
+        ties, far, first_tie = 0, 0.0, None
+        for t, (b, d) in enumerate(zip(batches, server_own_draws(torch, fl, SERVER_STEPS))):
+            before = server_state_to(torch, state, "cuda")
+            new_m = mesh.step(server_state_to(torch, state, "cuda"), b, d)
+            allow = allow_rows = 0.0
+            if transport in ("quantized", "sparse"):
+                allow, allow_rows, n, f = mesh_payload_ties(
+                    torch, fl, one, mesh, before, b, d,
+                    max(new_m.history[-1]["num_scheduled"], 1))
+                ties, far = ties + n, max(far, f)
+                if n and first_tie is None:
+                    first_tie = t
+            state = one.step(state, b, d)
+            row_m, row_o = new_m.history[-1], state.history[-1]
+            bad = [f for f in SERVER_EXACT if row_m[f] != row_o[f]]
+            if bad:
+                raise AssertionError(f"server_mesh {label} step {t}: {bad} differ from "
+                                     f"the one-device server: {row_m} vs {row_o}")
+            checks = {"loss": abs(row_m["loss"] - row_o["loss"])
+                      / (atol + rtol * abs(row_o["loss"])),
+                      "lam": float(((new_m.lam - state.lam).abs()
+                                    / (atol + rtol * state.lam.abs())).max())}
+            got = torch.cat([new_m.params[n].reshape(-1) for n in sorted(state.params)])
+            want = torch.cat([state.params[n].reshape(-1) for n in sorted(state.params)])
+            checks["params"] = float(((got - want).abs()
+                                      / (atol + rtol * want.abs() + allow)).max())
+            if transport == "sparse":
+                rm, ro = new_m.ef_resid, state.ef_resid
+                checks["params"] = max(checks["params"], float(
+                    ((rm - ro).abs() / (atol + rtol * ro.abs() + allow_rows)).max()))
+            for f, v in checks.items():
+                worst[f] = max(worst[f], v)
+            if max(checks.values()) > 1:
+                raise AssertionError(f"server_mesh {label} step {t}: beyond FMA_TOL "
+                                     f"(value / limit): {checks}")
+        _, timed = server_setup(method, transport, mesh=axis)
+        st = timed.init_state()
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        for b in batches:
+            st = timed.step(st, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: c.launches for n, c in counters.items()}
+        check_server_history(torch, fl, st, f"server_mesh {label} rank {rank}")
+        out[label] = {"lockstep_worst_over_limit": worst,
+                      "payload_decisions_at_ties": ties, "farthest_from_tie": far,
+                      "first_tie_step": first_tie,
+                      "one_device_history": state.history,
+                      "timed_history": st.history, "wall_s": wall,
+                      "steps_per_s": fl.rounds / wall, "launches": launches}
+    return out
+
+
 RANK_JOBS = {"population_sharded": rank_population_sharded,
-             "sweep_cells": rank_sweep_cells, "sweep_2d": rank_sweep_2d}
+             "sweep_cells": rank_sweep_cells, "sweep_2d": rank_sweep_2d,
+             "server_mesh": rank_server_mesh}
 
 
 def rank_main(rank, world, store_path, out_dir, jobs):
@@ -2148,6 +2339,57 @@ def check_population_sharded(world, verdicts, out_dir, refs):
     return out
 
 
+def check_server_mesh(world, verdicts, server_runs):
+    """Each rank's server-mesh runs: its lockstep one-device history equal
+    to the server phase's run of the same configuration bit for bit (the
+    rank held the mesh server to it step by step), its timed run launching
+    no kernel, and the timed run's ``num_scheduled`` and energies equal to
+    the server phase's run bit for bit in every step before the first one
+    in which the lockstep took a payload decision apart at a tie (all 30
+    if none). The timed run's largest difference from the server phase's
+    run in the other fields is reported beside the mesh bound, as
+    information: a free run's params drift within it, and past a tie it
+    may diverge."""
+    phase = {f"{r['method']} {r['transport']}": r["state"].history for r in server_runs}
+    rtol, atol = FMA_TOL["rtol"], FMA_TOL["atol"]
+    out = []
+    for method, transport in SERVER_MESH_RUNS:
+        label = f"{method} {transport}"
+        rows = []
+        for r, v in enumerate(verdicts):
+            row = v["server_mesh"][label]
+            if row["one_device_history"] != phase[label]:
+                raise AssertionError(f"server_mesh {label} rank {r}: the rank's "
+                                     "one-device run is not the server phase's")
+            check_launches(row["launches"], {}, f"server_mesh {label} rank {r}")
+            exact_steps = (SERVER_STEPS if row["first_tie_step"] is None
+                           else row["first_tie_step"])
+            for t, (a, b) in enumerate(zip(row["timed_history"][:exact_steps],
+                                           phase[label], strict=True)):
+                bad = [f for f in SERVER_EXACT if a[f] != b[f]]
+                if bad:
+                    raise AssertionError(f"server_mesh {label} rank {r} timed step {t}: "
+                                         f"{bad} differ from the server phase's run "
+                                         f"before any decision taken apart: {a} vs {b}")
+            free = {f: max(abs(a[f] - b[f]) - (atol + rtol * abs(b[f]))
+                           for a, b in zip(row["timed_history"], phase[label]))
+                    for f in phase[label][0] if f != "round"}
+            rows.append({"rank": r, "steps_per_s": row["steps_per_s"],
+                         "wall_s": row["wall_s"], "launches": row["launches"],
+                         "lockstep_worst_over_limit": row["lockstep_worst_over_limit"],
+                         "payload_decisions_at_ties": row["payload_decisions_at_ties"],
+                         "farthest_from_tie": row["farthest_from_tie"],
+                         "timed_run_exact_steps": exact_steps,
+                         "timed_run_max_excess_over_mesh_bound": max(max(free.values()), 0.0)})
+        entry = {"run": label, "ranks": world, "backend": "gloo (processes sharing "
+                 "one card)", "N": 100, "K": 40, "P": 7850, "batch": 5000,
+                 "steps": SERVER_STEPS, "per_rank": rows,
+                 "steps_per_s_min": min(x["steps_per_s"] for x in rows)}
+        emit({"server_mesh": entry})
+        out.append(entry)
+    return out
+
+
 def check_sweep_groups(what, world, verdicts, out_dir, ref, prefix, kernels_want):
     """Each rank's sweep against the one-device ``SweepResult`` ``ref``,
     label for label: discrete fields exactly, the rest to the mesh gate;
@@ -2228,6 +2470,148 @@ class EvalLog:
         self.model = model._replace(accuracy=accuracy)
 
 
+class AggregateLog:
+    """The aggregates and selections of every round of a run on one
+    device, for the cells ``cells`` of its [G] group: each fused eq. (10)
+    pass's rows x [K, P] (the quantized transport's delta rows, with v =
+    x/d + u and the grid steps d [K]; the analog transport's client
+    models) and weights over k [K], and each exact-K selection's scores
+    [N]. It wraps ``fused_pass`` (as ``core.aircomp`` and
+    ``core.transport`` call it) and ``simulator.exact_k_scores`` until
+    :meth:`close`."""
+
+    def __init__(self, torch, cells):
+        from repro_torch.core import aircomp, simulator, transport
+
+        self.passes, self.scores, self._undo = [], [], []
+        inner_pass, inner_scores = aircomp.fused_pass, simulator.exact_k_scores
+
+        def logged_pass(name, rows, w, *row_args, z, noise_std, k):
+            kk = torch.as_tensor(k, dtype=rows.dtype, device=rows.device)
+            kk = kk.expand(w.shape[:-1])
+            recs = []
+            for g in cells:
+                rec = {"x": rows[g].clone(), "wk": w[g] / kk[g]}
+                if name == "quant_aircomp":
+                    step, u = row_args[0][g], row_args[1][g]
+                    safe = torch.where(step > 0, step, torch.ones_like(step))
+                    rec.update(step=step.clone(), v=rows[g] / safe[:, None] + u)
+                recs.append(rec)
+            self.passes.append(recs)
+            return inner_pass(name, rows, w, *row_args, z=z, noise_std=noise_std, k=k)
+
+        def logged_scores(method, gumbel, lam, h_eff, C=0.0, avail=None, ids=None):
+            out = inner_scores(method, gumbel, lam, h_eff, C, avail, ids)
+            self.scores.append([{"scores": out[g].clone()} for g in cells])
+            return out
+
+        for mod, name, f in ((aircomp, "fused_pass", logged_pass),
+                             (transport, "fused_pass", logged_pass),
+                             (simulator, "exact_k_scores", logged_scores)):
+            self._undo.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, f)
+
+    def close(self):
+        for mod, name, f in reversed(self._undo):
+            setattr(mod, name, f)
+
+    def rounds(self, slot, rounds):
+        """Cell ``slot``'s (pass, selection) records, one a round."""
+        if len(self.passes) != rounds or len(self.scores) != rounds:
+            raise AssertionError(f"AggregateLog: {len(self.passes)} passes and "
+                                 f"{len(self.scores)} selections for {rounds} rounds")
+        return [(p[slot], q[slot]) for p, q in zip(self.passes, self.scores)]
+
+
+def round_apart(torch, g, o):
+    """What two runs of one cell decide apart in a round (``g``, ``o``:
+    :meth:`AggregateLog.rounds` records). A client selected in one run
+    only is counted (:func:`gate_weights` fails on any). A rounding
+    decision taken apart, in a row both runs selected: ⌊v⌋ differs,
+    accepted where the two v lie within the products' bound of each other
+    (x agrees to the mesh bound, so x/d + u may move by 2·rtol·|x/d| +
+    atol/d); it may move the aggregate by |Δ⌊v⌋|·d·w/k. Returns (per
+    coordinate the most these decisions move the aggregate, and a record:
+    the counts, the largest distance of a decision from the integer
+    between the two v, the largest gap over its bound)."""
+    from repro_torch.core.sharding import top_k
+
+    rtol, atol = FMA_TOL["rtol"], FMA_TOL["atol"]
+    (gp, gs), (op, os_) = g, o
+    k = gp["x"].shape[0]
+    ig = top_k(gs["scores"][None], k)[1][0].tolist()
+    io = top_k(os_["scores"][None], k)[1][0].tolist()
+    rec = {"selections_apart": len(set(ig) ^ set(io)),
+           "decisions_apart": 0, "max_distance_to_integer": 0.0,
+           "max_gap_over_products_bound": 0.0}
+    moved = torch.zeros_like(gp["x"][0])
+    common = [c for c in ig if c in io]
+    if common and "v" in gp:
+        sg_, so_ = [ig.index(c) for c in common], [io.index(c) for c in common]
+        vg, vo = gp["v"][sg_], op["v"][so_]
+        dg, do = gp["step"][sg_], op["step"][so_]
+        both = ((dg > 0) & (do > 0))[:, None]
+        n_g, n_o = torch.floor(vg), torch.floor(vo)
+        differ = (n_g != n_o) & both
+        d = torch.where(both, do[:, None], torch.ones_like(vo))
+        bound = 2 * rtol * (op["x"][so_] / d).abs() + atol / d
+        gap = (vg - vo).abs()
+        step = torch.maximum(dg, do)[:, None]
+        moved = moved + ((n_g - n_o).abs() * step * op["wk"][so_].abs()[:, None]
+                         * differ).sum(dim=0)
+        n = int(differ.sum())
+        rec["decisions_apart"] = n
+        if n:
+            rec["max_distance_to_integer"] = float(
+                (vo - torch.maximum(n_g, n_o)).abs()[differ].max())
+            rec["max_gap_over_products_bound"] = float((gap / bound)[differ].max())
+    return moved, rec
+
+
+def gate_weights(torch, what, g_calls, o_calls, g_rounds, o_rounds, eval_every):
+    """The two runs' weights at every evaluation (``g_calls``/``o_calls``:
+    :class:`EvalLog` records of one cell) within the mesh bound beside the
+    moves of the rounding decisions the runs took apart up to that round
+    (``g_rounds``/``o_rounds``: :meth:`AggregateLog.rounds`), each decision
+    within its bound (:func:`round_apart`), and no selection taken apart.
+    Raises otherwise; returns the counts, the largest gap over its bound,
+    and the largest weight excess over the mesh bound."""
+    rtol, atol = FMA_TOL["rtol"], FMA_TOL["atol"]
+    rec = {"selections_apart": 0, "decisions_apart": 0, "max_distance_to_integer": 0.0,
+           "max_gap_over_products_bound": 0.0,
+           "weights_max_excess_over_mesh_bound": 0.0,
+           "weights_max_excess_over_mesh_bound_and_decisions": 0.0}
+    allow, t_done = 0.0, -1
+    for i, (g, o) in enumerate(zip(g_calls, o_calls, strict=True)):
+        r = i * eval_every
+        for t in range(t_done + 1, r + 1):
+            moved, one = round_apart(torch, g_rounds[t], o_rounds[t])
+            allow = allow + moved
+            for key in ("selections_apart", "decisions_apart"):
+                rec[key] += one[key]
+            for key in ("max_distance_to_integer", "max_gap_over_products_bound"):
+                rec[key] = max(rec[key], one[key])
+        t_done = r
+        for name, lo, hi in (("b", 0, g["b"].numel()), ("w", g["b"].numel(), None)):
+            a, b = g[name].reshape(-1), o[name].reshape(-1)
+            extra = allow if isinstance(allow, float) else allow[lo:hi]
+            excess = (a - b).abs() - (atol + rtol * b.abs())
+            rec["weights_max_excess_over_mesh_bound"] = max(
+                rec["weights_max_excess_over_mesh_bound"], float(excess.max()))
+            rec["weights_max_excess_over_mesh_bound_and_decisions"] = max(
+                rec["weights_max_excess_over_mesh_bound_and_decisions"],
+                float((excess - extra).max()))
+    if rec["selections_apart"]:
+        raise AssertionError(f"{what}: the runs select apart: {rec}")
+    if rec["max_gap_over_products_bound"] > 1:
+        raise AssertionError(f"{what}: a rounding decision taken apart lies beyond "
+                             f"its bound: {rec}")
+    if rec["weights_max_excess_over_mesh_bound_and_decisions"] > 0:
+        raise AssertionError(f"{what}: weights differ beyond the mesh bound and the "
+                             f"decisions taken apart: {rec}")
+    return rec
+
+
 def accuracy_flips(cell, single, g_call, s_call, eval_every):
     """The rounds in which an accuracy field of ``cell`` differs from
     ``single`` beyond the mesh bound, each explained by the test
@@ -2235,11 +2619,11 @@ def accuracy_flips(cell, single, g_call, s_call, eval_every):
     the two runs' ``EvalLog`` records of their i-th evaluation (one cell's:
     [N, S_t] and its weights). Returns one record a round: its flips,
     their largest logit gap and its bound in each run, and how far the two
-    runs' weights exceed the mesh bound (reported, not gated). Raises
-    unless there are flips, each one at a near-tie in both runs (its top
-    two logits closer than weights within the mesh bound can move them),
-    and they account for the round's whole difference in each accuracy
-    field (to the mesh bound)."""
+    runs' weights exceed the mesh bound (gated by :func:`gate_weights`).
+    Raises unless there are flips, each one at a near-tie in both runs (its
+    top two logits closer than weights within the mesh bound can move
+    them), and they account for the round's whole difference in each
+    accuracy field (to the mesh bound)."""
     import numpy as np
     rtol, atol = FMA_TOL["rtol"], FMA_TOL["atol"]
     host = lambda v: np.asarray(v.cpu() if hasattr(v, "cpu") else v, np.float64)  # noqa: E731
@@ -2344,57 +2728,81 @@ def phase_sweep_sharded_group(torch, counters, data):
 def explain_flips(torch, model, data, specs, labels, result, singles, bad):
     """The cells of ``bad`` (``{(label, seed): fields}``) differ from their
     own runs only in accuracy fields: run the group of ``labels`` and those
-    cells' own runs again with an ``EvalLog`` model, require each rerun's
-    history to equal the first run's bit for bit, and explain every round
-    beyond the mesh bound by :func:`accuracy_flips`. Returns ``{"label
-    seed s": [records]}``."""
+    cells' own runs again with an ``EvalLog`` model and an
+    :class:`AggregateLog`, require each rerun's history to equal the first
+    run's bit for bit, explain every round beyond the mesh bound by
+    :func:`accuracy_flips`, and hold the two runs' weights at every
+    evaluation to the mesh bound beside the selections and rounding
+    decisions they take apart (:func:`gate_weights`). Returns ``{"label
+    seed s": [records]}``; prints the decisions on a line of its own."""
     from repro_torch.core import sweep
     from repro_torch.core.simulator import run_simulation
 
     fls = dict(specs)
+    place = {(lbl, s): labels.index(lbl) * len(SWEEP_SEEDS) + SWEEP_SEEDS.index(s)
+             for lbl, s in bad}   # each cell's place in [G]
     g_log = EvalLog(torch, model)
-    again = sweep.run_sweep(g_log.model, data, [(lbl, fls[lbl]) for lbl in labels],
-                            seeds=SWEEP_SEEDS)
-    out = {}
+    g_agg = AggregateLog(torch, sorted(place.values()))
+    try:
+        again = sweep.run_sweep(g_log.model, data, [(lbl, fls[lbl]) for lbl in labels],
+                                seeds=SWEEP_SEEDS)
+    finally:
+        g_agg.close()
+    out, rounding = {}, {}
     for lbl, s in bad:
         first, h = result.history(lbl), again.history(lbl)
         if mesh_mismatch(h, first, exact=h._fields)[0]:
             raise AssertionError(f"sweep_sharded_group {lbl}: a rerun of the group "
                                  "differs from its first run")
         s_log = EvalLog(torch, model)
-        single = run_simulation(s_log.model, fls[lbl], data, seed=s)
+        s_agg = AggregateLog(torch, [0])
+        try:
+            single = run_simulation(s_log.model, fls[lbl], data, seed=s)
+        finally:
+            s_agg.close()
         if mesh_mismatch(single, singles[(lbl, s)], exact=single._fields)[0]:
             raise AssertionError(f"sweep_sharded_group {lbl} seed {s}: a rerun of "
                                  "its own run differs from the first")
         i = SWEEP_SEEDS.index(s)
         cell = type(h)(*(v if isinstance(v, tuple) else v[i] for v in h))
-        g = labels.index(lbl) * len(SWEEP_SEEDS) + i   # the cell's place in [G]
-        recs = accuracy_flips(cell, single,
-                              lambda k: {f: v[g] for f, v in g_log.calls[k].items()},
-                              lambda k: {f: v[0] for f, v in s_log.calls[k].items()},
-                              fls[lbl].eval_every)
+        g = place[(lbl, s)]
+        g_call = lambda k: {f: v[g] for f, v in g_log.calls[k].items()}  # noqa: E731
+        s_call = lambda k: {f: v[0] for f, v in s_log.calls[k].items()}  # noqa: E731
+        recs = accuracy_flips(cell, single, g_call, s_call, fls[lbl].eval_every)
         if not recs:
             raise AssertionError(f"sweep_sharded_group {lbl} seed {s}: no round of "
                                  "the reruns differs as the first runs did")
+        rounding[f"{lbl} seed {s}"] = gate_weights(
+            torch, f"sweep_sharded_group {lbl} seed {s}",
+            [g_call(k) for k in range(len(g_log.calls))],
+            [s_call(k) for k in range(len(s_log.calls))],
+            g_agg.rounds(sorted(place.values()).index(g), fls[lbl].rounds),
+            s_agg.rounds(0, fls[lbl].rounds), fls[lbl].eval_every)
         out[f"{lbl} seed {s}"] = recs
     emit({"sweep_sharded_group_accuracy_flips": out})
+    emit({"sweep_sharded_group_rounding": {
+        "cells": rounding,
+        **{key: sum(r[key] for r in rounding.values())
+           for key in ("selections_apart", "decisions_apart")},
+        **{key: max(r[key] for r in rounding.values())
+           for key in ("max_distance_to_integer", "max_gap_over_products_bound")}}})
     return out
 
 
-def phase_multi_rank(torch, pop_refs, sweep_result, sharded_result):
+def phase_multi_rank(torch, pop_refs, sweep_result, sharded_result, server_runs):
     """The multi-rank phases: 2 and then 4 processes on the one card, each
     in one gloo group (``FileStore`` in a temporary directory): population
     sharding on 2 and 4 ranks, PR 21's sweep with its cells over 2 ranks,
-    and the sharded plane's groups on the 2 × 2 cells × clients mesh.
-    Launches exact: none under population sharding, 12 × 30 = 360 of the
-    group's kernel on each rank of the other two (5 seeds padded to 6,
-    3 seed columns a rank). Every rank's result against the one-device
-    runs of this call."""
+    the parameter server on 2 ranks, and the sharded plane's groups on the
+    2 × 2 cells × clients mesh. Launches exact: none under population
+    sharding or on the server mesh, 12 × 30 = 360 of the group's kernel on
+    each rank of the cells' runs (5 seeds padded to 6, 3 seed columns a
+    rank). Every rank's result against the one-device runs of this call."""
     import shutil
     import tempfile
 
     out = {}
-    for world, jobs in ((2, ("population_sharded", "sweep_cells")),
+    for world, jobs in ((2, ("population_sharded", "sweep_cells", "server_mesh")),
                         (4, ("population_sharded", "sweep_2d"))):
         tmp = tempfile.mkdtemp(prefix=f"chip_smoke_ranks{world}_")
         try:
@@ -2405,6 +2813,8 @@ def phase_multi_rank(torch, pop_refs, sweep_result, sharded_result):
                                      "backend": "gloo, processes sharing one card"}})
             out[f"population_sharded_{world}"] = check_population_sharded(
                 world, verdicts, tmp, pop_refs)
+            if "server_mesh" in jobs:
+                out["server_mesh"] = check_server_mesh(world, verdicts, server_runs)
             if "sweep_cells" in jobs:
                 out["sweep_cells"] = check_sweep_groups(
                     "sweep_cells", world, verdicts, tmp, sweep_result,
@@ -2433,6 +2843,9 @@ RMSNORM_CASES = [   # (name, rows, D, x's offset into its storage, why this shap
      "xlstm-1.3b run B's prefill norms: 8 x 2048 tokens, 16 vectors a lane"),
     ("prefill_B_xlstm_inner", 16384, 4096, 0,
      "xlstm-1.3b run B's prefill mLSTM out-norms over d_inner 4096: 32 vectors a lane"),
+    ("prefill_B_qwen2_1_5b", 16384, 1536, 0, "qwen2-1.5b serve B's prefill norms"),
+    ("prefill_B_qwen2_7b", 16384, 3584, 0, "qwen2-7b serve B's prefill norms"),
+    ("prefill_B_granite", 16384, 6144, 0, "granite-34b serve B's prefill norms"),
     ("decode", 8, 896, 0, "run B's decode norms: one token a row"),
     ("decode_xlstm_inner", 8, 4096, 0,
      "xlstm-1.3b run B's decode mLSTM out-norms: 8 rows, one a block"),
@@ -2530,6 +2943,12 @@ FLASH_CASES = [   # (name, BHkv, G, Sq, T, d, causal, window, q's scale, why)
     ("q_x8", 4, 7, 300, 300, 64, True, None, 16.0, "q 8x larger: the running max moves far"),
     ("d128_B", 16, 6, 2048, 2048, 128, True, None, 2.0,
      "qwen2-1.5b's attention (12 q / 2 kv heads, d = 128) at batch 8, prompt 2048"),
+    ("d128_B_qwen2_7b", 32, 7, 2048, 2048, 128, True, None, 2.0,
+     "qwen2-7b serve B's prefill (28 q / 4 kv heads, d = 128): batch 8, prompt 2048"),
+    ("d128_B_granite", 8, 48, 2048, 2048, 128, True, None, 2.0,
+     "granite-34b serve B's prefill (48 q heads / 1 kv head, d = 128): batch 8, prompt 2048"),
+    ("d128_C_window", 2, 6, 8320, 8320, 128, True, 8192, 2.0,
+     "qwen2-1.5b serve C's prefill: batch 1, prompt 8320 beyond the window of 8192"),
 ]
 FLASH_TIMED = {"run_A": ("float32",), "run_B": ("float32", "bfloat16"),
                "d128_B": ("float32", "bfloat16")}
@@ -2800,8 +3219,17 @@ def phase_slstm(torch):
 # The serve path at full width
 # ---------------------------------------------------------------------------
 
-SERVE_ARCHS = ("qwen2-0.5b", "xlstm-1.3b")
-SERVE_RUNS = {"A": (4, 32, 32), "B": (8, 2048, 32)}   # batch, prompt, tokens
+SERVE_ARCHS = ("qwen2-0.5b", "qwen2-1.5b", "qwen2-7b", "granite-34b", "xlstm-1.3b")
+# batch, prompt, tokens; C's prompt is longer than the window of 8,192, so
+# its prefill attends through the window (its decode, as the reference's,
+# over the whole grown cache: the rolling cache starts at 131,072)
+SERVE_RUNS = {"A": (4, 32, 32), "B": (8, 2048, 32), "C": (1, 8320, 32)}
+SERVE_ARCH_RUNS = {"qwen2-1.5b": ("A", "B", "C")}   # the rest: A and B
+# granite-34b in f32 (~137 GB at 88 layers) does not fit one card: depth
+# cut to 16 layers, ~9.1 B parameters (~36 GB), at full width
+SERVE_CUTS = {"granite-34b": {"num_layers": 16}}
+# the archs with a profiler window over each serve run
+SERVE_TRACED = ("qwen2-0.5b", "xlstm-1.3b")
 # card vs CPU on the same f32 weights: the two sum in other orders (cuBLAS
 # and the kernels against the CPU's BLAS and the plain versions), which moved
 # the logits by 3.8e-5 to 1.0e-4 on an H100; 1e-3 is ten times that, far
@@ -2809,21 +3237,58 @@ SERVE_RUNS = {"A": (4, 32, 32), "B": (8, 2048, 32)}   # batch, prompt, tokens
 SERVE_DLOGIT_LIMIT = 1e-3
 
 
+def serve_plan_bytes(torch, cfg, runs):
+    """The bytes a dense serve of ``runs`` needs on the card at most, from
+    the config's shapes alone: the f32 parameters, the largest run's KV
+    cache at prompt + tokens, and its prefill's largest live activations
+    (the MLP's gate, up and product [B, S, F], the residual, the normed
+    input and q/k/v/o [B, S, D] each, ×1.25 for the allocator's slack)."""
+    from repro_torch.models.dense import param_shapes
+
+    def count(tree):
+        return sum(count(v) if isinstance(v, dict) else math.prod(v)
+                   for v in tree.values())
+
+    params = 4 * count(param_shapes(cfg))
+    worst = 0
+    for run in runs:
+        b, p, g = SERVE_RUNS[run]
+        cache = 2 * 4 * cfg.num_layers * b * (p + g) * cfg.num_kv_heads * cfg.resolved_head_dim
+        act = 1.25 * 4 * b * p * (3 * cfg.d_ff + 6 * cfg.d_model)
+        worst = max(worst, cache + act)
+    return params, int(params + worst)
+
+
 def serve_setup(torch, arch, **cut):
     """``arch`` at full width (depth cut by ``cut``, if given), f32, random
-    weights from seed 0 on the card."""
+    weights from seed 0 on the card. A dense config's peak bytes are
+    planned from its shapes first, and a plan beyond 90% of the card's
+    memory raises before anything is loaded."""
     from repro_torch.launch.serve import init_params, serve_config
     from repro_torch.models.api import build_model
 
-    cfg = serve_config(arch).with_(**cut)
+    full = serve_config(arch)
+    cfg = full.with_(**cut)
+    plan = None
+    if cfg.family == "dense":
+        params_b, plan = serve_plan_bytes(torch, cfg, SERVE_ARCH_RUNS.get(arch, ("A", "B")))
+        total = torch.cuda.get_device_properties(0).total_memory
+        if plan > 0.9 * total:
+            raise AssertionError(f"serve {arch}: {plan / 1e9:.1f} GB planned from the "
+                                 f"shapes, beyond 90% of the card's {total / 1e9:.1f} GB")
     model = build_model(cfg)
     params = init_params(model, 0, "cuda")
     n = sum(p.numel() for p in params.parameters())
     emit({"serve_model": {"arch": cfg.name, "family": cfg.family, "layers": cfg.num_layers,
+                          "layers_in_config": full.num_layers,
+                          "cut": dict(cut) or None,
                           "d_model": cfg.d_model, "heads": cfg.num_heads,
-                          "kv_heads": cfg.num_kv_heads, "d_ff": cfg.d_ff,
+                          "kv_heads": cfg.num_kv_heads, "head_dim": cfg.resolved_head_dim,
+                          "d_ff": cfg.d_ff, "window": cfg.window,
                           "slstm_group": cfg.slstm_group, "vocab": cfg.vocab_size,
-                          "params": n, "dtype": cfg.dtype}})
+                          "params": n, "dtype": cfg.dtype,
+                          "planned_peak_gb": None if plan is None else plan / 1e9,
+                          "loaded_gb": torch.cuda.memory_allocated() / 1e9}})
     return cfg, model, params
 
 
@@ -3006,18 +3471,22 @@ def main() -> int:
     mesh_runs = phase_control_sharded_mesh(
         torch, counters, data,
         {t: sharded_hists[f"ca_afl {t}"] for t in ("analog", "quantized", "sparse")},
-        pop_refs["ca_afl analog"])
+        pop_refs["ca_afl analog"],
+        next(r["state"] for r in server_runs if r["method"] == "ca_afl"
+             and r["transport"] == "analog"))
     popscale_rows = phase_popscale(torch, counters)
     sharded_groups, sharded_result = phase_sweep_sharded_group(torch, counters, data)
-    multi = phase_multi_rank(torch, pop_refs, sweep_result, sharded_result)
+    multi = phase_multi_rank(torch, pop_refs, sweep_result, sharded_result,
+                             server_runs)
     # one model on the card at a time, so each run's peak memory is its
     # own; a model is made again from its seed for its profiler windows
     serve_counts, serve_traces = {}, {}
     for arch in SERVE_ARCHS:
-        served = serve_setup(torch, arch)
-        for run in SERVE_RUNS:
+        served = serve_setup(torch, arch, **SERVE_CUTS.get(arch, {}))
+        for run in SERVE_ARCH_RUNS.get(arch, ("A", "B")):
             serve_counts[arch, run] = phase_serve(torch, counters, *served, run)
         del served
+        torch.cuda.empty_cache()
     for transport in TRANSPORT_KERNEL:
         traces.setdefault(TRANSPORT_KERNEL[transport],
                           phase_main_path_trace(torch, data, transport))
@@ -3026,11 +3495,12 @@ def main() -> int:
     phase_temporal_gca_trace(torch, data)
     phase_server_trace(torch, data)
     phase_control_sharded_trace(torch, data, traces)
-    for arch in SERVE_ARCHS:
+    for arch in SERVE_TRACED:
         served = serve_setup(torch, arch)
-        for run in SERVE_RUNS:
+        for run in ("A", "B"):
             serve_traces[arch, run] = profile_serve(torch, *served, run)
         del served
+        torch.cuda.empty_cache()
     for transport in ("analog", "quantized", "sparse"):
         phase_card_vs_cpu(torch, transport)
     phase_sweep_card_vs_cpu(torch, data)
@@ -3040,6 +3510,9 @@ def main() -> int:
     phase_card_vs_cpu(torch, "quantized", "gca_card_vs_cpu", rounds=20, method="gca")
     phase_server_card_vs_cpu(torch, data)
     phase_serve_card_vs_cpu(torch, *serve_setup(torch, "qwen2-0.5b"))
+    # qwen2-1.5b at full width (head dim 128, G = 6), its depth cut to 8 of
+    # 28 layers so that the CPU's side stays short
+    phase_serve_card_vs_cpu(torch, *serve_setup(torch, "qwen2-1.5b", num_layers=8))
     # xlstm-1.3b at full width, its depth cut to one super-block (8 layers)
     # so that the CPU's side stays short
     phase_serve_card_vs_cpu(torch, *serve_setup(torch, "xlstm-1.3b", num_layers=8))
@@ -3066,7 +3539,7 @@ def main() -> int:
                                 r["run"]: r["launches"][name] for r in sharded_runs
                                 if r["launches"][name]},
                             control_sharded_mesh_launches={
-                                f"{r['transport']} group_size={r['group_size']}":
+                                f"{r['transport']} group_size={r.get('group_size')}":
                                 r["launches"][name] for r in mesh_runs
                                 if r["launches"][name]},
                             popscale_launches={r["N"]: r["launches"][name]
@@ -3078,6 +3551,10 @@ def main() -> int:
                                 for key in ("population_sharded_2",
                                             "population_sharded_4")
                                 for e in multi[key]},
+                            server_mesh_launches={
+                                f"{e['ranks']} ranks {e['run']}":
+                                max(x["launches"][name] for x in e["per_rank"])
+                                for e in multi["server_mesh"]},
                             sweep_sharded_group_launches={
                                 g["transport"]: g["launches"] for g in sharded_groups
                                 if g["kernel"] == name},

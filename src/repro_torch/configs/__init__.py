@@ -13,6 +13,9 @@ from repro_torch.configs.base import INPUT_SHAPES, FLConfig, InputShape, ModelCo
 
 _MODULES = {
     "qwen2-0.5b": "qwen2_0_5b",
+    "qwen2-1.5b": "qwen2_1_5b",
+    "qwen2-7b": "qwen2_7b",
+    "granite-34b": "granite_34b",
     "xlstm-1.3b": "xlstm_1_3b",
     "fmnist-logreg": "fmnist_logreg",
 }
@@ -20,9 +23,8 @@ _MODULES = {
 # known to the JAX package, not ported yet: where the ROADMAP queues each
 _NOT_PORTED = {
     **{arch: "ROADMAP Queue 1 item 10(c): the other families and their configs"
-       for arch in ("granite-34b", "qwen3-moe-30b-a3b", "qwen2-7b", "zamba2-1.2b",
-                    "llama-3.2-vision-11b", "seamless-m4t-medium", "qwen2-1.5b",
-                    "qwen3-moe-235b-a22b")},
+       for arch in ("qwen3-moe-30b-a3b", "zamba2-1.2b", "llama-3.2-vision-11b",
+                    "seamless-m4t-medium", "qwen3-moe-235b-a22b")},
 }
 
 

@@ -71,6 +71,7 @@ __all__ = [
     "shard_candidates", "merge_candidates", "tree_top_k",
     "hierarchical_top_k", "distributed_top_k", "project_simplex_sharded",
     "global_client_ids", "assemble_rows", "assemble_batch_rows",
+    "merge_owned_rows", "check_divisible",
     "control_sharded_cell_run", "run_simulation_control_sharded",
     "run_simulation_sharded", "pad_to_multiple",
 ]
@@ -517,6 +518,18 @@ def assemble_rows(values_local: torch.Tensor, idx: torch.Tensor,
     return _psum_owned(take_rows(values_local, lidx), owned, axis)
 
 
+def merge_owned_rows(values: torch.Tensor, ids: torch.Tensor,
+                     axis: ClientAxis) -> torch.Tensor:
+    """``values`` [N, ...], held whole on every rank, with each row as its
+    owner holds it: this rank owns the rows ``ids``, contributes them and
+    exact zeros elsewhere, and a psum adds every rank's part. The ranks'
+    ``ids`` must partition [0, N); a row then equals its owner's bit for
+    bit."""
+    owned = torch.zeros(values.shape[0], dtype=torch.bool,
+                        device=values.device).index_fill_(0, ids.long(), True)
+    return _psum_owned(values, owned, axis)
+
+
 def assemble_batch_rows(shards_local: torch.Tensor, idx: torch.Tensor,
                         bidx: torch.Tensor, axis: ClientAxis,
                         n_local: int) -> torch.Tensor:
@@ -569,7 +582,7 @@ def control_sharded_cell_run(model, fl, method: str, axis: Optional[ClientAxis],
     return run
 
 
-def _check_divisible(num_clients: int, n_dev: int) -> None:
+def check_divisible(num_clients: int, n_dev: int) -> None:
     if num_clients % n_dev:
         raise ValueError(
             f"population sharding needs N % devices == 0, got "
@@ -614,7 +627,7 @@ def run_simulation_control_sharded(model, fl, data, axis: Optional[ClientAxis] =
             f"(got {fl.control_plane!r}); the replicated plane shards its "
             "population through run_simulation_sharded")
     n_dev = 1 if axis is None else axis.size
-    _check_divisible(fl.num_clients, n_dev)
+    check_divisible(fl.num_clients, n_dev)
     dev = resolve_device(device)
     seed = fl.seed if seed is None else seed
     n_local = fl.num_clients // n_dev
@@ -659,7 +672,7 @@ def run_simulation_sharded(model, fl, data, axis: Optional[ClientAxis],
         raise ValueError("population sharding runs the dense [N, model] "
                          "program (dense=True), as the reference does")
     n_dev = 1 if axis is None else axis.size
-    _check_divisible(fl.num_clients, n_dev)
+    check_divisible(fl.num_clients, n_dev)
     return run_replicated(model, fl, data, seed=seed, dense=True,
                           draws=draws, device=device, init_draws=init_draws,
                           axis=axis)

@@ -33,8 +33,9 @@ and launch their kernel once per cell (``core/aircomp.py::fused_pass``).
 The ``*_psum_tree`` variants aggregate clients sharded along a
 ``sharding.ClientAxis`` (GCA's [N, model] path on a mesh): a local partial
 sum of the rounded or compressed deltas, a ``psum``, then the replicated
-noise, the 1/k and w̄. They are plain PyTorch, as the reference's are
-plain jnp; a sparse shard keeps and updates only its own residual rows.
+noise, the 1/k and w̄. Their flat-row cores, ``*_psum_rows``, are the
+parameter server's on a mesh. They are plain PyTorch, as the reference's
+are plain jnp; a sparse shard keeps and updates only its own residual rows.
 """
 from __future__ import annotations
 
@@ -254,23 +255,32 @@ def quantized_aggregate_stack_tree(w_base: dict, trees: dict, weights, u, z,
     return unravel(trees, new, lead=cells + 1)
 
 
+def quantized_psum_rows(delta_rows, weights, u, z, noise_std, bits, k,
+                        axis) -> torch.Tensor:
+    """(psum over ``axis`` of Σ_c w_c·Q(Δ_c) + σz)/k over this shard's flat
+    delta rows [..., C, P], ``u`` [..., C, P] their rounding uniforms
+    (drawn at their global ids, so each row rounds as on one device). No
+    kernel: the partial sums meet in the psum."""
+    q = sround(delta_rows, quant_step(delta_rows, bits), u.to(delta_rows.dtype))
+    total = axis.psum(torch.einsum("...cp,...c->...p", q,
+                                   weights.to(delta_rows.dtype)))
+    if not is_static_zero(noise_std):
+        total = total + per_cell(noise_std, total) * z.to(delta_rows.dtype)
+    return total / per_cell(k, total)
+
+
 def quantized_aggregate_psum_tree(w_base: dict, trees_local: dict,
                                   weights_local, u_local, z, noise_std, bits,
                                   k, axis) -> dict:
     """Population-sharded quantized eq. (10): w̄ + (psum over ``axis`` of
-    Σ_c w_c·Q(tree_c − w̄) + σz)/k over this shard's rows, ``u_local``
-    [n_local, P] their rounding uniforms (drawn at their global ids, so
-    each row rounds as on one device). With ``weights_local`` [G, n_local]
+    Σ_c w_c·Q(tree_c − w̄) + σz)/k over this shard's rows
+    (:func:`quantized_psum_rows`). With ``weights_local`` [G, n_local]
     every argument carries the cell axis, one psum for the group."""
     cells = weights_local.dim() - 1
     base, delta = _flat_base_and_delta(w_base, trees_local, cells)
-    q = sround(delta, quant_step(delta, bits), u_local.to(base.dtype))
-    total = axis.psum(torch.einsum("...cp,...c->...p", q,
-                                   weights_local.to(base.dtype)))
-    if not is_static_zero(noise_std):
-        total = total + per_cell(noise_std, total) * z.to(base.dtype)
-    return unravel(trees_local, base + total / per_cell(k, total),
-                   lead=cells + 1)
+    agg = quantized_psum_rows(delta, weights_local, u_local, z, noise_std,
+                              bits, k, axis)
+    return unravel(trees_local, base + agg, lead=cells + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -363,24 +373,33 @@ def sparse_aggregate_stack_tree(w_base: dict, trees: dict, weights, z,
     return unravel(trees, new, lead=cells + 1), resid
 
 
+def sparse_psum_rows(delta_rows, resid_rows, weights, z, noise_std,
+                     k_coords: int, k, axis):
+    """``((psum over axis of Σ_c w_c·C(Δ_c + r_c) + σz)/k, r')`` over this
+    shard's flat delta rows and their carried residuals [..., C, P]. Each
+    shard compresses its own rows v = Δ + r (a within-row threshold, so
+    rows compress as on one device) and the partial sums meet in the
+    psum; r' = v − C(v) stays on the shard, kept where a row sent
+    nothing."""
+    v = delta_rows + resid_rows.to(delta_rows.dtype)
+    c, _ = sparse_compress_rows(v, k_coords)
+    total = axis.psum(torch.einsum("...cp,...c->...p", c,
+                                   weights.to(delta_rows.dtype)))
+    if not is_static_zero(noise_std):
+        total = total + per_cell(noise_std, total) * z.to(delta_rows.dtype)
+    sent = (weights > 0)[..., None]
+    new_resid = torch.where(sent, (v - c).to(resid_rows.dtype), resid_rows)
+    return total / per_cell(k, total), new_resid
+
+
 def sparse_aggregate_psum_tree(w_base: dict, trees_local: dict, weights_local,
                                z, noise_std, k_coords: int, k, resid_local,
                                axis):
-    """Population-sharded sparse eq. (10); returns ``(new_tree,
-    new_resid_local)``. Each shard compresses its own rows v = Δ + r (a
-    within-row threshold, so rows compress as on one device), sums them,
-    and the partial sums meet in a ``psum`` over ``axis``; the residual
-    rows stay on their shard, kept where a row sent nothing. With
-    ``weights_local`` [G, n_local] every argument carries the cell axis."""
+    """Population-sharded sparse eq. (10) (:func:`sparse_psum_rows`);
+    returns ``(new_tree, new_resid_local)``. With ``weights_local`` [G,
+    n_local] every argument carries the cell axis."""
     cells = weights_local.dim() - 1
     base, delta = _flat_base_and_delta(w_base, trees_local, cells)
-    v = delta + resid_local.to(base.dtype)
-    c, _ = sparse_compress_rows(v, k_coords)
-    total = axis.psum(torch.einsum("...cp,...c->...p", c,
-                                   weights_local.to(base.dtype)))
-    if not is_static_zero(noise_std):
-        total = total + per_cell(noise_std, total) * z.to(base.dtype)
-    sent = (weights_local > 0)[..., None]
-    new_resid = torch.where(sent, (v - c).to(resid_local.dtype), resid_local)
-    return unravel(trees_local, base + total / per_cell(k, total),
-                   lead=cells + 1), new_resid
+    agg, new_resid = sparse_psum_rows(delta, resid_local, weights_local, z,
+                                      noise_std, k_coords, k, axis)
+    return unravel(trees_local, base + agg, lead=cells + 1), new_resid

@@ -30,6 +30,16 @@ and a leaf with ``ndim >= 2`` and more than 4 rows one row at a time
 
 Selection, λ bookkeeping, channels and the energy ledger are host-side in
 ``server.py`` (O(N) scalars: the paper's control channel).
+
+On a client mesh (``axis``, a ``sharding.ClientAxis`` of D ranks) each
+rank is given its chunk of the batch, rows [r·B/D, (r+1)·B/D), and does
+that chunk's gradient work: the dense round differentiates the chunk's
+share of the weighted loss (the global 1/B kept), the gather round the
+selected blocks the chunk holds, the probe its N/D blocks. The gradients
+and the loss meet in one psum, the per-client sums of the loss probe in
+another, and the rest (the receiver noise, the optimizer) is replicated.
+The reference places its batch over the mesh and leaves the compiled
+round to XLA's partitioner; here the split is written out.
 """
 from __future__ import annotations
 
@@ -40,7 +50,8 @@ from torch.func import grad_and_value, vmap
 
 from repro_torch.federated.client import client_weights
 from repro_torch.optim import apply_updates
-from repro_torch.utils.tree import leaf_names, ravel_stack, tree_l2_norm, unravel
+from repro_torch.utils.tree import (leaf_names, ravel, ravel_stack, tree_l2_norm,
+                                    unravel)
 
 
 class FLRoundMetrics(NamedTuple):
@@ -49,9 +60,17 @@ class FLRoundMetrics(NamedTuple):
     grad_norm: torch.Tensor
 
 
+def _psum_grads(grads: dict, loss: torch.Tensor, axis):
+    """(grads, loss) summed over ``axis`` in one collective."""
+    flat = torch.cat([ravel(grads, torch.float32), loss.reshape(1).float()])
+    flat = axis.psum(flat)
+    return unravel(grads, flat[:-1], lead=0), flat[-1].to(loss.dtype)
+
+
 def make_fl_round(model, optimizer, num_clients: int, clients_per_round: int,
                   noise_std: float = 0.0, ctx=None, microbatches: int = 1,
-                  fused_probe: bool = False, gather_k: bool = False):
+                  fused_probe: bool = False, gather_k: bool = False,
+                  axis=None):
     """Returns round_fn(params, opt_state, batch, mask, z=None) -> (params,
     opt_state, FLRoundMetrics).
 
@@ -75,18 +94,25 @@ def make_fl_round(model, optimizer, num_clients: int, clients_per_round: int,
     ``fused_probe`` (beyond the paper): the per-client losses of the
     λ-ascent come from the descent forward at w^t instead of a second
     forward at w^{t+1}, one round stale.
+
+    ``axis`` (a client mesh): ``batch`` is this rank's chunk of the global
+    batch (see the module docstring), the mask, ``idx`` and ``z`` the
+    replicated ones; no microbatches or fused probe.
     """
     if not 1 <= clients_per_round <= num_clients:
         raise ValueError(
             f"clients_per_round={clients_per_round} must be in "
             f"[1, num_clients={num_clients}]")
+    if axis is not None and (microbatches != 1 or fused_probe):
+        raise ValueError("a round on a client mesh takes no microbatches or "
+                         "fused probe")
     if gather_k:
         if microbatches != 1 or fused_probe:
             raise ValueError(
                 "gather_k is exclusive with microbatches/fused_probe: the "
                 "gathered sub-batch covers only the selected clients")
         return _make_gather_round(model, optimizer, num_clients, noise_std,
-                                  ctx)
+                                  ctx, axis)
 
     def weighted_loss_and_perex(p, b, mask):
         # K is the actual scheduled count: the static clients_per_round for
@@ -107,9 +133,20 @@ def make_fl_round(model, optimizer, num_clients: int, clients_per_round: int,
             lambda p: weighted_loss_and_perex(p, b, mask), has_aux=True)(params)
         return grads, loss, per_ex
 
+    def chunk_loss(p, b, mask):
+        # this rank's share of the global weighted mean: Σ_chunk w·nll / B
+        k_sched = torch.clamp_min(torch.sum(mask), 1.0)
+        w = client_weights(mask, b["client_ids"], k_sched)
+        return (torch.sum(_per_example_nll(model, p, b, ctx) * w)
+                / (b["client_ids"].shape[0] * axis.size))
+
     def round_fn(params, opt_state, batch, mask, z=None):
         cids = batch["client_ids"]
-        if microbatches == 1:
+        if axis is not None:
+            grads, loss = grad_and_value(
+                lambda p: chunk_loss(p, batch, mask))(params)
+            grads, loss = _psum_grads(grads, loss, axis)
+        elif microbatches == 1:
             grads, loss, per_ex = loss_and_grads(params, batch, mask)
         else:
             bsz = cids.shape[0]
@@ -149,7 +186,8 @@ def make_fl_round(model, optimizer, num_clients: int, clients_per_round: int,
             # Alg. 1 line 12: a second forward on the NEW model
             client_losses = per_client_losses(model, params, batch,
                                               num_clients, ctx,
-                                              microbatches=microbatches)
+                                              microbatches=microbatches,
+                                              axis=axis)
         return params, opt_state, FLRoundMetrics(
             loss=loss, client_losses=client_losses,
             grad_norm=tree_l2_norm(grads))
@@ -157,22 +195,33 @@ def make_fl_round(model, optimizer, num_clients: int, clients_per_round: int,
     return round_fn
 
 
-def _make_gather_round(model, optimizer, num_clients: int, noise_std, ctx):
+def _make_gather_round(model, optimizer, num_clients: int, noise_std, ctx,
+                       axis=None):
     """The selected-K production round (``make_fl_round(gather_k=True)``).
 
     The dense round's weighted mean over all B examples is
     ``(1/B)·Σ_b mask[cid_b]·(N/K)·nll_b``: every unselected example adds an
     exact 0 yet pays its forward and backward. Here the K selected blocks
     are gathered first and the same sum runs over K·(B/N) examples with the
-    same ``/B``. The λ-ascent probe stays full-population.
+    same ``/B``. The λ-ascent probe stays full-population. On a mesh each
+    rank gathers the selected blocks of its chunk (clients [r·N/D,
+    (r+1)·N/D) in the canonical layout), possibly none, and the partial
+    gradients meet in a psum that every rank joins.
     """
+    ranks = 1 if axis is None else axis.size
+    blocks = num_clients // ranks   # client blocks in a rank's chunk
 
     def round_fn(params, opt_state, batch, mask, idx, z=None):
-        bsz = batch["client_ids"].shape[0]
+        bsz = batch["client_ids"].shape[0] * ranks   # the global batch
         m = bsz // num_clients  # examples per client block
         k_sched = torch.clamp_min(torch.sum(mask), 1.0)
         idx = idx.long()
-        rows = (idx[:, None] * m
+        lidx = idx
+        if axis is not None:
+            off = axis.rank * blocks
+            idx = idx[(idx >= off) & (idx < off + blocks)]
+            lidx = idx - off
+        rows = (lidx[:, None] * m
                 + torch.arange(m, device=idx.device)[None, :]).reshape(-1)
         sub = {name: v[rows] for name, v in batch.items()}
         # the gathered rows' weights: the dense round's mask[cid]·N/K, with
@@ -184,12 +233,14 @@ def _make_gather_round(model, optimizer, num_clients: int, noise_std, ctx):
             return torch.sum(per_ex * w) / bsz
 
         grads, loss = grad_and_value(loss_fn)(params)
+        if axis is not None:
+            grads, loss = _psum_grads(grads, loss, axis)
         if noise_std:
             grads = add_awgn(grads, z, noise_std / k_sched)
         updates, opt_state = optimizer.update(grads, opt_state, params)
         params = apply_updates(params, updates)
         client_losses = per_client_losses(model, params, batch, num_clients,
-                                          ctx)
+                                          ctx, axis=axis)
         return params, opt_state, FLRoundMetrics(
             loss=loss, client_losses=client_losses,
             grad_norm=tree_l2_norm(grads))
@@ -218,24 +269,28 @@ def _per_example_nll(model, params, batch, ctx):
 
 
 def _segment_mean(per_ex: torch.Tensor, cids: torch.Tensor,
-                  num_clients: int) -> torch.Tensor:
+                  num_clients: int, axis=None) -> torch.Tensor:
     """[N] mean of ``per_ex`` over each client's examples (0 for a client
-    with none)."""
-    cids = cids.long()
-    sums = torch.zeros((num_clients,), dtype=per_ex.dtype,
-                       device=per_ex.device).index_add_(0, cids, per_ex)
-    cnts = torch.zeros((num_clients,), dtype=per_ex.dtype,
-                       device=per_ex.device).index_add_(0, cids,
-                                                        torch.ones_like(per_ex))
-    return sums / torch.clamp_min(cnts, 1.0)
+    with none): each client's row of an [N, B] membership mask picks its
+    examples, and the rows are summed in one fixed order, so a run repeats
+    bit for bit on the card (``index_add_``'s atomics do not). On a mesh
+    the sums and counts of every rank's chunk meet in one psum."""
+    member = (cids.long()[None, :]
+              == torch.arange(num_clients, device=cids.device)[:, None])
+    sums = torch.stack([torch.where(member, per_ex[None, :], 0).sum(dim=1),
+                        member.sum(dim=1).to(per_ex.dtype)])
+    if axis is not None:
+        sums = axis.psum(sums)
+    return sums[0] / torch.clamp_min(sums[1], 1.0)
 
 
 def per_client_losses(model, params, batch, num_clients: int, ctx=None,
-                      microbatches: int = 1) -> torch.Tensor:
+                      microbatches: int = 1, axis=None) -> torch.Tensor:
     """[N] mean loss per client: forward only, per-example NLL, segment
     mean. Alg. 1's ascent-side f_i(w̄^{t+1}; ξ̃) for all clients at once
     (the server masks it down to the ascent set), microbatched with the
-    descent pass's slicing."""
+    descent pass's slicing; on a mesh (``axis``) over this rank's chunk
+    ``batch``, the segments summed over the ranks."""
     cids = batch["client_ids"]
     if microbatches == 1:
         per_ex = _per_example_nll(model, params, batch, ctx)
@@ -246,11 +301,11 @@ def per_client_losses(model, params, batch, num_clients: int, ctx=None,
         per_ex = torch.cat([
             _per_example_nll(model, params, {k: v[i] for k, v in mb.items()}, ctx)
             for i in range(microbatches)])
-    return _segment_mean(per_ex, cids, num_clients)
+    return _segment_mean(per_ex, cids, num_clients, axis)
 
 
 def make_grad_norm_probe(model, num_clients: int, ctx=None,
-                         with_grads: bool = False):
+                         with_grads: bool = False, axis=None):
     """GCA's control-channel probe: [N] per-client gradient norms at w^t.
 
     GCA needs ‖∇f_i(w^t)‖ before the round's mask exists, so each client's
@@ -265,7 +320,13 @@ def make_grad_norm_probe(model, num_clients: int, ctx=None,
     order) and its mean loss at w^t: the server reuses them as the round's
     update. Every output is scattered by each block's observed client id,
     so permuted blocks still land on the right client.
+
+    On a mesh (``axis``) ``batch`` is this rank's chunk, N/D blocks: their
+    norms and losses are scattered into [N] by client id and summed over
+    the ranks (each entry is its owner's, exactly), and the gradients are
+    this rank's rows [N/D, P], in the chunk's block order.
     """
+    blocks = num_clients if axis is None else num_clients // axis.size
 
     def client_loss(params, cbatch):
         return torch.mean(_per_example_nll(model, params, cbatch, ctx))
@@ -274,24 +335,29 @@ def make_grad_norm_probe(model, num_clients: int, ctx=None,
 
     def probe(params, batch):
         bsz = batch["client_ids"].shape[0]
-        if bsz % num_clients:
+        if bsz % blocks:
             raise ValueError("the probe needs equal per-client batches")
-        mb = {k: v.reshape((num_clients, bsz // num_clients) + v.shape[1:])
+        mb = {k: v.reshape((blocks, bsz // blocks) + v.shape[1:])
               for k, v in batch.items()}
         grads, losses = per_client(params, mb)
         obs = mb["client_ids"][:, 0].long()
 
-        def scatter(v):
-            return torch.zeros_like(v).index_copy_(0, obs, v)
+        def scatter(*vs):
+            out = torch.zeros((len(vs), num_clients) + vs[0].shape[1:],
+                              dtype=vs[0].dtype, device=vs[0].device)
+            for row, v in zip(out, vs):
+                row.index_copy_(0, obs, v)
+            return out if axis is None else axis.psum(out)
 
         if not with_grads:
             norms = torch.sqrt(sum(
                 torch.sum(torch.square(grads[name].to(torch.float32)).flatten(1),
                           dim=-1)
                 for name in leaf_names(grads)))
-            return scatter(norms)
+            return scatter(norms)[0]
         flats = ravel_stack(grads, torch.float32, lead=1)
         norms = torch.sqrt(torch.sum(torch.square(flats), dim=-1))
-        return scatter(norms), scatter(losses), scatter(flats)
+        norms, losses = scatter(norms, losses.to(torch.float32))
+        return norms, losses, (scatter(flats)[0] if axis is None else flats)
 
     return probe

@@ -32,10 +32,26 @@ of the source at step t, read as one ``RoundDraws`` by
 ``draws.client_rows``), and λ is projected by the simulator's bisection,
 so one step equals one round of the sharded simulator.
 
-Not ported yet, and raising ``NotImplementedError``: a parameter server
-on a mesh of more than one device (``ParameterServer(mesh=...)``, the last
-part of ROADMAP Queue 1 item 9), and models without a
-``per_example_nll``, i.e. the model zoo (item 10(c)(ii)).
+On a client mesh (``mesh``, a ``sharding.ClientAxis`` of D ranks, each a
+process that calls :meth:`ParameterServer.step` with the same global
+batch and draws) every rank does its chunk of the gradient work, rows
+[r·B/D, (r+1)·B/D) of the batch (N/D client blocks in whatever client
+order the batch holds them), and the rest is replicated, bit for bit
+across the ranks: channels, selection, the GCA threshold, λ and its
+projection, the energy ledger, the temporal state and the history. The
+rounds (``rounds.py``) psum their gradients; the GCA apply sums each
+rank's probe rows with ``aircomp_psum_tree``, the quantized and sparse
+applies with ``transport.quantized_psum_rows`` / ``sparse_psum_rows`` (no
+AirComp kernel on a mesh: the reference's psum trees are plain sums), and
+the sparse error-feedback residual [N, P] stays whole on every rank, each
+rank writing its clients' rows (``sharding.merge_owned_rows``), so a batch
+that moves clients between ranks from step to step still gives the
+one-device result. The reference's mesh is placement only (it
+``shard_batch``es the batch and leaves the round to XLA); a mesh of one
+is the plain server.
+
+Not ported yet, and raising ``NotImplementedError``: models without a
+``per_example_nll``, i.e. the model zoo (ROADMAP Queue 1 item 10(c)(ii)).
 """
 from __future__ import annotations
 
@@ -48,6 +64,7 @@ import torch
 
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import transport as transport_mod
+from repro_torch.core.aircomp import aircomp_psum_tree
 from repro_torch.core.channel import (draw_channels_scenario, effective_channel,
                                       scenario_from_config)
 from repro_torch.core.draws import (HashDraws, InitDraws, RoundDraws,
@@ -59,6 +76,7 @@ from repro_torch.core.dynamics import (commit_process, init_chan_state,
 from repro_torch.core.selection import (EXACT_K_METHODS, availability_logits,
                                         gumbel_topk, select_clients,
                                         select_clients_sparse)
+from repro_torch.core.sharding import check_divisible, merge_owned_rows
 from repro_torch.core.simulator import mesh_size
 from repro_torch.federated.rounds import (FLRoundMetrics, add_awgn,
                                           make_fl_round, make_grad_norm_probe,
@@ -89,7 +107,9 @@ class ServerState:
 
 class ParameterServer:
     """CA-AFL parameter server for the production tier. ``device=None`` is
-    the CUDA card, and raises when there is none."""
+    the CUDA card, and raises when there is none. ``mesh``: a client axis
+    (``sharding.ClientAxis``) whose ranks each run this server on the same
+    batches; None or a mesh of one is one device."""
 
     def __init__(self, model, optimizer, fl: FLConfig, *, ctx=None,
                  seed: int = 0, reuse_probe_grads: bool = True, mesh=None,
@@ -97,12 +117,9 @@ class ParameterServer:
         if fl.control_plane not in ("replicated", "sharded"):
             raise ValueError(f"unknown control_plane {fl.control_plane!r}; "
                              "pick 'replicated' or 'sharded'")
-        if mesh_size(mesh) > 1:
-            raise NotImplementedError(
-                "a parameter server on a mesh of more than one device "
-                "(ParameterServer(mesh=...)) is not ported yet (ROADMAP "
-                "Queue 1 item 9); the simulator and the sweep engine run "
-                "on meshes")
+        self.axis = mesh if mesh_size(mesh) > 1 else None
+        if self.axis is not None:
+            check_divisible(fl.num_clients, self.axis.size)
         if not hasattr(model, "per_example_nll"):
             raise NotImplementedError(
                 "the port's parameter server runs models with a "
@@ -124,16 +141,18 @@ class ParameterServer:
         # quantized/sparse always apply the fused compressed-delta aggregate
         # (no dense round, and no dense fallback: the delta probe needs the
         # one-block-per-client layout)
+        axis = self.axis
         self.round_fn = self._gather_round = None
         if not (quantized or sparse):
             self.round_fn = make_fl_round(model, optimizer, n, k,
-                                          noise_std=self._round_noise, ctx=ctx)
+                                          noise_std=self._round_noise, ctx=ctx,
+                                          axis=axis)
             if fl.method in EXACT_K_METHODS:
                 # the selected-K gather round, whenever the batch has the
                 # canonical block layout (checked on the host each step)
                 self._gather_round = make_fl_round(
                     model, optimizer, n, k, noise_std=self._round_noise,
-                    ctx=ctx, gather_k=True)
+                    ctx=ctx, gather_k=True, axis=axis)
         self.scenario = scenario_from_config(fl, self.device)
         self.process = process_from_config(fl, self.device)
         self._model_size = None   # from the params at init_state / step
@@ -147,7 +166,7 @@ class ParameterServer:
         if fl.method == "gca":
             self._grad_probe = make_grad_norm_probe(
                 model, n, ctx=ctx,
-                with_grads=reuse_probe_grads or quantized or sparse)
+                with_grads=reuse_probe_grads or quantized or sparse, axis=axis)
         # quantized/sparse: every client's payload is its SGD delta -η·g_i,
         # so the server needs per-client gradients under any method
         self._delta_probe = None
@@ -159,10 +178,11 @@ class ParameterServer:
                 "tier); the passed optimizer's update rule is NOT used and "
                 "its state passes through untouched", stacklevel=2)
             self._delta_probe = self._grad_probe or make_grad_norm_probe(
-                model, n, ctx=ctx, with_grads=True)
+                model, n, ctx=ctx, with_grads=True, axis=axis)
         # the control channel's loss probe for rounds where nobody
         # transmits: the λ-ascent still needs f_i(w̄)
-        self._loss_probe = lambda p, b: per_client_losses(model, p, b, n, ctx)
+        self._loss_probe = lambda p, b: per_client_losses(model, p, b, n, ctx,
+                                                          axis=axis)
         self._gen, self._quant_gen, self._temporal_gen = seed_generators(
             seed, self.device)
         # the temporal stream opens with the initial state's draws, as a
@@ -179,14 +199,20 @@ class ParameterServer:
     # the three aggregate applies
     # ------------------------------------------------------------------
 
-    def _gca_apply(self, params, opt_state, gflat, probe_losses, mask, z):
+    def _gca_apply(self, params, opt_state, gflat, probe_losses, mask, z,
+                   lids=None):
         """The probe-reuse descent: the masked flat aggregate of the probe's
-        per-client gradients (``aircomp`` with σ = 0), the receiver noise
-        σ/K added per leaf after the unravel as the dense round adds it,
-        then the server optimizer."""
+        per-client gradients (``aircomp`` with σ = 0; on a mesh this rank's
+        rows, clients ``lids``, through ``aircomp_psum_tree``), the receiver
+        noise σ/K added per leaf after the unravel as the dense round adds
+        it, then the server optimizer."""
         k_sched = torch.clamp_min(torch.sum(mask), 1.0)
-        agg = aircomp_aggregate_flat(gflat, mask, torch.zeros_like(gflat[0]),
-                                     noise_std=0.0, k=k_sched)
+        if self.axis is None:
+            agg = aircomp_aggregate_flat(gflat, mask, torch.zeros_like(gflat[0]),
+                                         noise_std=0.0, k=k_sched)
+        else:
+            agg = aircomp_psum_tree({"g": gflat}, mask[lids], self.axis,
+                                    k=k_sched)["g"]
         grads = unravel(params, agg, lead=0)
         if self._round_noise:
             grads = add_awgn(grads, z, self._round_noise / k_sched)
@@ -198,31 +224,49 @@ class ParameterServer:
         loss = torch.sum(mask * probe_losses) / k_sched
         return params, opt_state, loss, gnorm
 
-    def _delta_apply(self, params, gflat, probe_losses, mask, d, eta, resid):
+    def _delta_apply(self, params, gflat, probe_losses, mask, d, eta, resid,
+                     lids=None):
         """The quantized or sparse round: each client's payload is its SGD
         delta -η·g_i from the probe (same batch, same params), rounded with
         its row of the round's uniforms or top-k compressed with its
         carried residual, and the fused masked aggregate of eq. (10) is
         added to the params directly: one simulator round at
-        local_steps = 1. The optimizer is bypassed. Returns ``(params,
-        loss, gnorm, resid)``."""
+        local_steps = 1. The optimizer is bypassed. On a mesh ``gflat`` is
+        this rank's rows, clients ``lids``: their uniforms and residuals are
+        read by client id and the partial sums meet in a psum. Returns
+        ``(params, loss, gnorm, resid)``."""
         k_sched = torch.clamp_min(torch.sum(mask), 1.0)
         flat = ravel(params, torch.float32)
         deltas = (-eta) * gflat
         noise_std = self._round_noise
         z = d.noise if noise_std else None
+        axis = self.axis
         if self.fl.transport == "quantized":
             if d.quant_uniform is None:
                 raise ValueError("the quantized transport needs the round's "
                                  "RoundDraws.quant_uniform")
-            new_flat = transport_mod.quantized_aggregate_flat_rows(
-                flat, deltas, mask, d.quant_uniform, noise_std,
-                self.transport.bits, k_sched, z=z)
+            if axis is None:
+                new_flat = transport_mod.quantized_aggregate_flat_rows(
+                    flat, deltas, mask, d.quant_uniform, noise_std,
+                    self.transport.bits, k_sched, z=z)
+            else:
+                new_flat = flat + transport_mod.quantized_psum_rows(
+                    deltas, mask[lids], d.quant_uniform[lids], z, noise_std,
+                    self.transport.bits, k_sched, axis)
         else:
             k_coords = transport_mod.sparse_k_coords(self.fl.sparse_density,
                                                      flat.shape[0])
-            new_flat, resid = transport_mod.sparse_aggregate_flat_rows(
-                flat, deltas, resid, mask, noise_std, k_coords, k_sched, z=z)
+            if axis is None:
+                new_flat, resid = transport_mod.sparse_aggregate_flat_rows(
+                    flat, deltas, resid, mask, noise_std, k_coords, k_sched,
+                    z=z)
+            else:
+                agg, rows = transport_mod.sparse_psum_rows(
+                    deltas, resid[lids], mask[lids], z, noise_std, k_coords,
+                    k_sched, axis)
+                new_flat = flat + agg
+                resid = merge_owned_rows(resid.index_copy(0, lids, rows),
+                                         lids, axis)
         gnorm = torch.sqrt(torch.sum(torch.square(new_flat - flat))) / eta
         loss = torch.sum(mask * probe_losses) / k_sched
         return unravel(params, new_flat, lead=0), loss, gnorm, resid
@@ -281,12 +325,28 @@ class ParameterServer:
         )
 
     def _batch(self, batch: Dict):
-        """(the batch on the server's device, its client ids on the host)."""
+        """(the batch on the server's device, its client ids on the host):
+        on a mesh this rank's chunk of the batch and the global ids."""
         cids = batch["client_ids"]
         cids = (cids.cpu().numpy() if isinstance(cids, torch.Tensor)
                 else np.asarray(cids))
+        if self.axis is not None:
+            chunk, rem = divmod(cids.shape[0], self.axis.size)
+            if rem:
+                raise ValueError(f"a batch of {cids.shape[0]} examples does "
+                                 f"not split over {self.axis.size} ranks")
+            lo = self.axis.rank * chunk
+            batch = {name: v[lo:lo + chunk] for name, v in batch.items()}
         return ({name: torch.as_tensor(v).to(self.device)
                  for name, v in batch.items()}, cids)
+
+    def _local_ids(self, cids: np.ndarray) -> torch.Tensor:
+        """The client ids of this rank's blocks, in the batch's order (a
+        layout the probe checks accepted)."""
+        n = self.fl.num_clients
+        lo = self.axis.rank * (n // self.axis.size)
+        ids = cids.reshape(n, -1)[lo:lo + n // self.axis.size, 0]
+        return torch.as_tensor(ids.astype(np.int64), device=self.device)
 
     def step(self, state: ServerState, batch: Dict,
              draws: Optional[RoundDraws] = None) -> ServerState:
@@ -324,7 +384,7 @@ class ParameterServer:
             avail = eligible = None
 
         # --- selection ----------------------------------------------------
-        idx = probe_losses = gflat = None
+        idx = probe_losses = gflat = lids = None
         if gca:
             self._check_probe_layout(cids)
             if self._reuse_probe_grads or self._delta_probe is not None:
@@ -350,6 +410,8 @@ class ParameterServer:
                         f"its per-client delta probe (no dense fallback): {e}"
                     ) from e
                 _, probe_losses, gflat = self._delta_probe(state.params, batch)
+        if gflat is not None and self.axis is not None:
+            lids = self._local_ids(cids)
 
         # --- the round ------------------------------------------------------
         ef_resid = state.ef_resid
@@ -378,14 +440,15 @@ class ParameterServer:
             eta = torch.full((), fl.lr0 * fl.lr_decay ** state.round,
                              dtype=torch.float32, device=self.device)
             params, loss, gnorm, ef_resid = self._delta_apply(
-                state.params, gflat, probe_losses, mask, d, eta, ef_resid)
+                state.params, gflat, probe_losses, mask, d, eta, ef_resid, lids)
             opt_state = state.opt_state
             metrics = FLRoundMetrics(
                 loss=loss, client_losses=self._loss_probe(params, batch),
                 grad_norm=gnorm)
         elif gflat is not None:
             params, opt_state, loss, gnorm = self._gca_apply(
-                state.params, state.opt_state, gflat, probe_losses, mask, z)
+                state.params, state.opt_state, gflat, probe_losses, mask, z,
+                lids)
             metrics = FLRoundMetrics(
                 loss=loss, client_losses=self._loss_probe(params, batch),
                 grad_norm=gnorm)

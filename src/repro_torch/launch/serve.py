@@ -5,8 +5,8 @@ A static batch of random prompts of one length is prefilled once, the KV
 cache grown to prompt + gen (an xLSTM state cache passes through), and
 decoded greedily one step at a time, with random weights from ``--seed``.
 Every RMSNorm runs through the fused kernel; for the dense family
-(qwen2-0.5b) every prefill self-attention runs through the flash-attention
-kernel, for the xLSTM family (xlstm-1.3b) every sLSTM time scan, prefill
+(qwen2-0.5b, qwen2-1.5b, qwen2-7b, granite-34b) every prefill
+self-attention runs through the flash-attention kernel, for the xLSTM family (xlstm-1.3b) every sLSTM time scan, prefill
 and decode, through the sLSTM kernel.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \

@@ -1,4 +1,5 @@
-"""Llama-style dense decoder (qwen2-0.5b; port of ``repro.models.dense``).
+"""Llama-style dense decoder (qwen2-0.5b, qwen2-1.5b, qwen2-7b, granite-34b;
+port of ``repro.models.dense``).
 
 ``DenseDecoder`` is an ``nn.Module`` whose parameters keep the JAX
 package's pytree layout leaf for leaf: every per-layer leaf is stacked on a

@@ -28,21 +28,33 @@ runs; then every rank runs every case, in the same order:
     ``*_fanin2*`` cases run the group's [G] round
     (``sharding.control_sharded_cell_run``) on the 1 × 4 mesh's clients
     axis with a top-k tree of fan-in 2;
+  - ``srv_*``: ``ParameterServer(mesh=axis)`` on the two-rank axes and on
+    the world, 3 steps on injected ``RoundDraws``, against the one-device
+    server on the same draws and batches: ``num_scheduled``, the energy
+    ledger, ``avail_count`` and ``min_battery`` bit for bit, the rest
+    (params, λ, the sparse residual, losses) within ``SUM_ORDER_TOL``;
+    every rank's final state hashed (``digest``) so the test can hold the
+    ranks bit-equal to each other. ``srv_reference`` runs the mesh server
+    on the reference server's draws (OUT/pop_draws.npz) and writes its
+    history to OUT/rank<RANK>_srv.npz for the test to hold against
+    ``repro.federated.server.ParameterServer(mesh=...)``;
   - ``mesh_cache_after_reinit``: after ``destroy_process_group`` and a new
     group, ``cells_clients_axes`` makes new axes, whose collectives run.
 
-The sweep cases run first; the population cases wait for OUT/pop_draws.npz,
-which the test writes while the ranks start.
+The sweep cases run first; the population and server cases wait for
+OUT/pop_draws.npz, which the test writes while the ranks start.
 
 Each rank writes its verdicts to OUT/rank<RANK>.json. It imports only
 torch, numpy and ``repro_torch``.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import sys
 import time
 import traceback
+import warnings
 from dataclasses import replace
 from datetime import timedelta
 from pathlib import Path
@@ -54,12 +66,15 @@ import torch.distributed as dist
 from repro_torch.configs.base import FLConfig
 from repro_torch.core import sharding, sweep
 from repro_torch.core.channel import SCENARIOS
-from repro_torch.core.draws import CellDraws, HashDraws, InitDraws, RoundDraws
+from repro_torch.core.draws import (CellDraws, HashDraws, InitDraws, RoundDraws,
+                                    client_rows, draw_round, seed_generators)
 from repro_torch.core.simulator import run_simulation
 from repro_torch.core.sweep import stack_points, sweep_point_from_config
 from repro_torch.data.synthetic import make_fmnist_like
 from repro_torch.federated.partition import sorted_label_shards
-from repro_torch.models.logreg import logistic_regression
+from repro_torch.federated.server import ParameterServer
+from repro_torch.models.logreg import logistic_regression, logistic_regression_prod
+from repro_torch.optim import sgd
 from repro_torch.utils.tree import tree_size
 
 N, DIM, WORLD = 16, 32, 4
@@ -115,6 +130,40 @@ MESH2D_CASES = (
 FANIN_CASES = (("2d_1x4_fanin2", "analog"), ("2d_1x4_fanin2_sparse", "sparse"))
 MESH2D_SEEDS = (0, 1, 2)
 
+# the parameter server on a mesh: PER examples a client a step, 3 steps
+PER, SRV_STEPS, SRV_P = 8, 3, 10 * DIM + 10
+# bit-equal to the one-device server: every [N] decision is replicated
+SRV_EXACT = ("round", "num_scheduled", "energy_j", "dl_energy_j", "avail_count",
+             "min_battery")
+
+
+def srv_fl(method="ca_afl", **kw):
+    return FLConfig(**{**dict(num_clients=N, clients_per_round=5, rounds=SRV_STEPS,
+                              batch_size=PER, method=method, lr0=0.3,
+                              lr_decay=0.995, ascent_lr=2e-2, noise_std=1e-2,
+                              quant_bits=6.0, sparse_density=0.2), **kw})
+
+
+# (name, FLConfig, batch layout, mesh sizes)
+SERVER_CASES = (
+    [(f"srv_ca_afl_{tr}", srv_fl(transport=tr), "blocks",
+      (2, 4) if tr in ("analog", "sparse") else (2,)) for tr in TRANSPORTS]
+    + [("srv_gca_analog", srv_fl("gca"), "blocks", (2,)),
+       ("srv_gca_quantized", srv_fl("gca", transport="quantized"), "blocks", (2, 4)),
+       ("srv_ca_afl_battery",
+        srv_fl(**{**SCENARIOS["battery_constrained"], "battery_init": 0.05}),
+        "blocks", (2,)),
+       ("srv_ca_afl_sharded", srv_fl(control_plane="sharded"), "blocks", (2,)),
+       # blocks in a new client order each step: the residual rows move
+       # between ranks
+       ("srv_gca_sparse_permuted", srv_fl("gca", transport="sparse"), "permuted",
+        (2, 4)),
+       # examples interleaved across clients: the exact-K dense round
+       ("srv_ca_afl_interleaved", srv_fl(), "interleaved", (2, 4))])
+SERVER_NAMES = [f"{name}_d{d}" for name, _, _, ds in SERVER_CASES for d in ds]
+# the case held against the reference's mesh server
+SRV_REF_FL = srv_fl()
+
 
 def data():
     x, y, xt, yt = make_fmnist_like(num_train=640, num_test=320, dim=DIM, seed=0)
@@ -134,6 +183,18 @@ def load_draws(npz, name, fl):
     return rounds, init
 
 
+def field_deviation(a, b, exact: bool) -> float:
+    """The count of unequal entries (``exact``), else the largest excess of
+    |a − b| over rtol/atol (0: within); inf on a shape mismatch."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.shape != b.shape:
+        return float("inf")
+    if exact:
+        return float(np.sum(~((a == b) | (np.isnan(a) & np.isnan(b)))))
+    excess = np.where(a == b, 0.0, np.abs(a - b) - (ATOL + RTOL * np.abs(b)))
+    return float(np.clip(excess, 0, None).max()) if excess.size else 0.0
+
+
 def deviation(got, want, exact) -> dict:
     """Per field: the count of unequal entries of an ``exact`` field, else
     the largest excess over rtol/atol (0: within)."""
@@ -143,14 +204,7 @@ def deviation(got, want, exact) -> dict:
         if isinstance(b, tuple):
             out[f] = 0.0 if isinstance(a, tuple) else float("inf")
             continue
-        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-        if a.shape != b.shape:
-            out[f] = float("inf")
-        elif f in exact:
-            out[f] = float(np.sum(~((a == b) | (np.isnan(a) & np.isnan(b)))))
-        else:
-            excess = np.where(a == b, 0.0, np.abs(a - b) - (ATOL + RTOL * np.abs(b)))
-            out[f] = float(np.clip(excess, 0, None).max()) if excess.size else 0.0
+        out[f] = field_deviation(a, b, f in exact)
     return out
 
 
@@ -168,8 +222,7 @@ def wait_for(path: Path, timeout: float = 240.0) -> Path:
     return path
 
 
-def pop_cases(rank, axes, model, ds, out_dir, verdicts):
-    npz = np.load(wait_for(Path(out_dir, "pop_draws.npz")))
+def pop_cases(rank, axes, model, ds, npz, out_dir, verdicts):
     hists = {}
     for name, fl in POP_CASES:
         rounds, init = load_draws(npz, name, fl)
@@ -313,6 +366,125 @@ def fanin_deviation(model, ds, transport, one) -> dict:
     return dev
 
 
+def srv_batches(ds, layout: str, steps: int = SRV_STEPS, fixed: bool = False):
+    """``steps`` batches of PER examples a client (new ones each step unless
+    ``fixed``): client blocks in id order (``blocks``), in a new random
+    client order each step (``permuted``) or every client's examples
+    interleaved (``interleaved``)."""
+    x, y = np.asarray(ds[0]), np.asarray(ds[1])
+    cids = np.repeat(np.arange(N), PER).astype(np.int64)
+    rng = np.random.default_rng(5)
+    out = []
+    for t in range(steps):
+        cols = slice(0, PER) if fixed else slice(t * PER, (t + 1) * PER)
+        xb, yb = x[:, cols].reshape(N * PER, DIM), y[:, cols].reshape(N * PER)
+        order = np.arange(N * PER)
+        if layout == "permuted":
+            order = (rng.permutation(N)[:, None] * PER + np.arange(PER)).reshape(-1)
+        elif layout == "interleaved":
+            order = order.reshape(N, PER).T.reshape(-1)
+        out.append({"x": xb[order], "labels": yb[order], "client_ids": cids[order]})
+    return out
+
+
+def srv_draws(fl, steps: int = SRV_STEPS):
+    """``steps`` rounds' draws to inject: the sharded plane's id-addressed
+    rows, else the seeded streams of ``draws.draw_round``."""
+    if fl.control_plane == "sharded":
+        src, ids = HashDraws(3, "cpu"), torch.arange(N)
+        return [client_rows(src.round(t), fl, ids, SRV_P, 1) for t in range(steps)]
+    gen, quant_gen, temporal_gen = seed_generators(3, "cpu")
+    return [draw_round(gen, quant_gen, fl, SRV_P, 1, temporal_gen=temporal_gen)
+            for _ in range(steps)]
+
+
+def srv_run(fl, axis, batches, draws):
+    """The server (``axis=None``: one device) over ``batches`` and ``draws``."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # the quantized/sparse optimizer bypass
+        ps = ParameterServer(logistic_regression_prod(DIM, 10), sgd(fl.lr0), fl,
+                             seed=0, mesh=axis, device="cpu")
+    st = ps.init_state()
+    for b, d in zip(batches, draws):
+        st = ps.step(st, b, d)
+    return st
+
+
+def srv_arrays(st) -> dict:
+    """A server state's history columns and final tensors, as numpy."""
+    out = {f"hist.{f}": np.array([h[f] for h in st.history], np.float64)
+           for f in st.history[0]}
+    out.update({f"params.{n}": st.params[n].numpy() for n in sorted(st.params)})
+    out["lam"] = st.lam.numpy()
+    if not isinstance(st.ef_resid, tuple):
+        out["ef_resid"] = st.ef_resid.numpy()
+    return out
+
+
+def srv_deviation(got, want) -> dict:
+    a, b = srv_arrays(got), srv_arrays(want)
+    if a.keys() != b.keys():
+        return {"keys": float("inf")}
+    return {k: field_deviation(a[k], b[k], k.removeprefix("hist.") in SRV_EXACT)
+            for k in b}
+
+
+def srv_digest(st) -> str:
+    h = hashlib.sha256()
+    for k, v in sorted(srv_arrays(st).items()):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(v).tobytes())
+    return h.hexdigest()
+
+
+def server_cases(rank, axes, ds, npz, out_dir, verdicts):
+    for name, fl, layout, sizes in SERVER_CASES:
+        batches, draws = srv_batches(ds, layout), srv_draws(fl)
+        one = srv_run(fl, None, batches, draws)
+        for d in sizes:
+            case = f"{name}_d{d}"
+            try:
+                got = srv_run(fl, axes[d], batches, draws)
+                verdicts[case] = verdict(
+                    srv_deviation(got, one), digest=srv_digest(got),
+                    num_scheduled=[h["num_scheduled"] for h in got.history],
+                    min_battery=[h.get("min_battery") for h in got.history])
+            except Exception:   # noqa: BLE001
+                verdicts[case] = {"ok": False, "error": traceback.format_exc()}
+    # a mesh of one is the plain server, bit for bit
+    name, fl, layout, _ = SERVER_CASES[5]   # GCA quantized
+    batches, draws = srv_batches(ds, layout), srv_draws(fl)
+    plain, m1 = (srv_run(fl, a, batches, draws) for a in (None, axes[1]))
+    verdicts["srv_mesh_of_one"] = verdict(
+        {k: field_deviation(v, srv_arrays(plain)[k], True)
+         for k, v in srv_arrays(m1).items()})
+    # N % D != 0 and a batch that does not split over the ranks raise,
+    # before any collective
+    for case, bad_fl, bad_batch in (
+            ("srv_indivisible_raises", srv_fl(num_clients=N + 2), None),
+            ("srv_batch_indivisible_raises", srv_fl(),
+             {k: v[:-2] for k, v in srv_batches(ds, "interleaved", 1)[0].items()})):
+        try:
+            if bad_batch is None:
+                srv_run(bad_fl, axes[4], [], [])
+            else:
+                srv_run(bad_fl, axes[4], [bad_batch], srv_draws(bad_fl, 1))
+            verdicts[case] = {"ok": False, "error": "no raise"}
+        except ValueError as e:
+            verdicts[case] = {"ok": "devices" in str(e) or "ranks" in str(e),
+                              "deviation": {}, "message": str(e)}
+    # the reference server's draws, for the test to hold against its own
+    # mesh server
+    try:
+        rounds, _ = load_draws(npz, "srv_reference", SRV_REF_FL)
+        st = srv_run(SRV_REF_FL, axes[2], srv_batches(ds, "blocks", fixed=True),
+                     rounds)
+        np.savez(Path(out_dir, f"rank{rank}_srv.npz"), **srv_arrays(st))
+        verdicts["srv_reference"] = {"ok": True, "deviation": {}}
+    except Exception:   # noqa: BLE001
+        verdicts["srv_reference"] = {"ok": False, "error": traceback.format_exc()}
+
+
 def reinit_case(rank, world, store_path, verdicts) -> None:
     """Destroy the process group, start a new one, and run a psum on each
     axis of ``cells_clients_axes(4, 2)`` made in the new group."""
@@ -350,7 +522,9 @@ def main(rank: int, world: int, store_path: str, out_dir: str) -> None:
         ds = data()
         verdicts = {}
         sweep_cases(model, ds, out_dir, verdicts)
-        pop_cases(rank, axes, model, ds, out_dir, verdicts)
+        npz = np.load(wait_for(Path(out_dir, "pop_draws.npz")))
+        pop_cases(rank, axes, model, ds, npz, out_dir, verdicts)
+        server_cases(rank, axes, ds, npz, out_dir, verdicts)
         reinit_case(rank, world, store_path, verdicts)
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps(verdicts))
     finally:

@@ -4,7 +4,12 @@ The reduced qwen2-0.5b (2 layers, d_model 256, 4 heads over 2 KV heads,
 head_dim 64, vocab 512, window 64), and a vocab-500 variant whose 12 padded
 logit columns are masked, in f32: JAX's parameters (``repro.models.dense.
 init``) are carried into the port by ``params_from_jax`` and both packages
-run the same numpy-made tokens.
+run the same numpy-made tokens. The other dense configs' reduced forms go
+through the forward, prefill and decode tests too: qwen2-1.5b and qwen2-7b
+(the same shapes; 7b unties its embeddings) and granite-34b (one KV head,
+so G = 4, no QKV bias, RoPE θ 1e4); qwen2-1.5b also serves a prompt of 80,
+longer than its reduced window of 64, so the prefill attends through the
+window and the decode over the whole grown cache, as the reference's.
 
 Tolerances. Logits: rtol 1e-4, atol 1e-4 — the two frameworks sum the f32
 matrix products in another order, and the reference's init (fan-in = L for
@@ -58,17 +63,25 @@ def one_torch_thread():
     torch.set_num_threads(prev)
 
 
-def configs(vocab=None, **kw):
-    jcfg = jax_get_reduced("qwen2-0.5b").with_(dtype="float32", remat=False, **kw)
-    tcfg = get_reduced("qwen2-0.5b").with_(dtype="float32", remat=False, **kw)
+DENSE_ARCHS = ("qwen2-0.5b", "qwen2-1.5b", "qwen2-7b", "granite-34b")
+# (vocab, arch) cases: qwen2-0.5b with the padded-vocab variant, the other
+# dense configs as they are (their old ids kept)
+VOCAB_ARCH = [pytest.param(None, "qwen2-0.5b", id="None"),
+              pytest.param(500, "qwen2-0.5b", id="500"),
+              *(pytest.param(None, a, id=a) for a in DENSE_ARCHS[1:])]
+
+
+def configs(vocab=None, arch="qwen2-0.5b", **kw):
+    jcfg = jax_get_reduced(arch).with_(dtype="float32", remat=False, **kw)
+    tcfg = get_reduced(arch).with_(dtype="float32", remat=False, **kw)
     if vocab is not None:
         jcfg, tcfg = jcfg.with_(vocab_size=vocab), tcfg.with_(vocab_size=vocab)
     return jcfg, tcfg
 
 
-def pair(vocab=None, **kw):
+def pair(vocab=None, arch="qwen2-0.5b", **kw):
     """(JAX cfg, JAX params, port cfg, port model) with the same weights."""
-    jcfg, tcfg = configs(vocab, **kw)
+    jcfg, tcfg = configs(vocab, arch, **kw)
     jparams = jdense.init(jcfg, jax.random.PRNGKey(0))
     np_params = jax.tree_util.tree_map(np.asarray, jparams)
     return jcfg, jparams, tcfg, dense.params_from_jax(tcfg, np_params, "cpu")
@@ -94,8 +107,9 @@ def assert_greedy(ours, ref_logits):
 
 
 def test_configs_are_field_for_field_copies():
-    for jcfg, tcfg in ((jax_get_config("qwen2-0.5b"), get_config("qwen2-0.5b")),
-                       (jax_get_reduced("qwen2-0.5b"), get_reduced("qwen2-0.5b"))):
+    pairs = [(f(a), g(a)) for a in DENSE_ARCHS
+             for f, g in ((jax_get_config, get_config), (jax_get_reduced, get_reduced))]
+    for jcfg, tcfg in pairs:
         assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
         assert jcfg.resolved_head_dim == tcfg.resolved_head_dim
         assert jcfg.has_attention == tcfg.has_attention
@@ -108,7 +122,7 @@ def test_unported_and_unknown_archs():
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         get_config("zamba2-1.2b")
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        get_reduced("granite-34b")
+        get_reduced("qwen3-moe-30b-a3b")
     with pytest.raises(KeyError):
         get_config("not-an-arch")
     with pytest.raises(NotImplementedError):
@@ -174,9 +188,9 @@ def test_rope_and_swiglu(theta):
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("vocab", [None, 500])
-def test_forward_and_loss(vocab):
-    jcfg, jparams, tcfg, model = pair(vocab)
+@pytest.mark.parametrize("vocab,arch", VOCAB_ARCH)
+def test_forward_and_loss(vocab, arch):
+    jcfg, jparams, tcfg, model = pair(vocab, arch)
     toks = tokens(2, 24, tcfg.vocab_size)
     ours = model(torch.from_numpy(toks))
     ref = jax.jit(lambda p, t: jdense.forward(jcfg, p, t))(jparams, jnp.asarray(toks))
@@ -191,9 +205,9 @@ def test_forward_and_loss(vocab):
     np.testing.assert_allclose(float(ours), float(ref), rtol=1e-5)
 
 
-@pytest.mark.parametrize("vocab", [None, 500])
-def test_prefill_logits_and_cache(vocab):
-    jcfg, jparams, tcfg, model = pair(vocab)
+@pytest.mark.parametrize("vocab,arch", VOCAB_ARCH)
+def test_prefill_logits_and_cache(vocab, arch):
+    jcfg, jparams, tcfg, model = pair(vocab, arch)
     toks = tokens(2, 16, tcfg.vocab_size, seed=2)
     logits, cache = model.prefill(torch.from_numpy(toks))
     ref_logits, ref_cache = jax.jit(lambda p, t: jdense.prefill(jcfg, p, t))(
@@ -205,10 +219,11 @@ def test_prefill_logits_and_cache(vocab):
                                    **CACHE)
 
 
-def test_full_cache_decode_steps():
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
+def test_full_cache_decode_steps(arch):
     """prefill 16 -> grow to 24 -> decode 8 steps, each step's logits and
     the cache after the last step."""
-    jcfg, jparams, tcfg, model = pair()
+    jcfg, jparams, tcfg, model = pair(arch=arch)
     toks = tokens(2, 16, tcfg.vocab_size, seed=3)
     feed = tokens(2, 8, tcfg.vocab_size, seed=4)
     jmodel, tmodel = japi.build_model(jcfg), api.build_model(tcfg)
@@ -249,14 +264,20 @@ def test_rolling_cache_decode():
                                **CACHE)
 
 
-@pytest.mark.parametrize("vocab", [None, 500])
-def test_whole_serve_matches_the_reference_launcher(vocab):
+@pytest.mark.parametrize("vocab,arch,prompt", [
+    pytest.param(None, "qwen2-0.5b", 16, id="None"),
+    pytest.param(500, "qwen2-0.5b", 16, id="500"),
+    pytest.param(None, "qwen2-1.5b", 80, id="qwen2-1.5b-beyond-window")])
+def test_whole_serve_matches_the_reference_launcher(vocab, arch, prompt):
     """The JAX launcher's path (prefill -> grow -> greedy steps) against the
     port's ``launch.serve.generate``, teacher-fed with JAX's tokens: 8
-    tokens for a batch of 2 prompts of 16."""
-    jcfg, jparams, tcfg, model = pair(vocab)
-    assert serve_config("qwen2-0.5b", reduced=True) == configs()[1]
-    b, prompt, gen = 2, 16, 8
+    tokens for a batch of 2 prompts of 16, or of 80, beyond the reduced
+    window of 64 (a windowed prefill, then decode over the full cache)."""
+    jcfg, jparams, tcfg, model = pair(vocab, arch)
+    assert serve_config(arch, reduced=True) == configs(arch=arch)[1]
+    if prompt > tcfg.window:
+        assert dense.cache_len(tcfg, prompt + 8) == prompt + 8
+    b, gen = 2, 8
     toks = tokens(b, prompt, tcfg.vocab_size, seed=5)
     jmodel = japi.build_model(jcfg)
     prefill = jax.jit(japi.make_prefill(jmodel, chunk=prompt))

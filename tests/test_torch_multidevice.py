@@ -19,6 +19,11 @@ the job:
     reference's one-device ``repro.core.sweep.run_sweep`` of the same
     specs, label for label, with the same gates, for each transport, GCA
     and a temporal scenario;
+  - the parameter server on a mesh: every rank of a case with the same
+    final state, bit for bit, and the two-rank mesh server on the
+    reference server's draws against ``repro.federated.server.
+    ParameterServer(mesh=...)`` on two XLA host devices, 3 steps, to the
+    reference's own mesh-vs-plain bounds;
   - the mesh layout as pure functions: ``factor_client_devices`` against
     the reference's, the rank layout of ``mesh_layout`` against the
     reference's ``cells_clients_mesh`` reshape, and the order in which
@@ -40,10 +45,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _torch_multidevice_worker import (CELL_CASES, DIM, FANIN_CASES,  # noqa: E402
-                                       MESH2D_CASES, N, POP_CASES, WORLD,
-                                       data as worker_data)
+                                       MESH2D_CASES, N, POP_CASES, SERVER_NAMES,
+                                       SRV_REF_FL, SRV_STEPS, WORLD,
+                                       data as worker_data, srv_batches)
 from _torch_reference import (ReferenceIdDraws, assert_history_close,  # noqa: E402
                               reference_draws, reference_init_draws)
+from _torch_server_draws import server_draws  # noqa: E402
 from repro.configs.base import FLConfig as JFLConfig  # noqa: E402
 from repro.core import sharding as jsharding  # noqa: E402
 from repro.core import sweep as jsweep  # noqa: E402
@@ -87,6 +94,12 @@ def _write_pop_draws(path):
         init = reference_init_draws(fl, 0)
         if init.fast_normal is not None:
             arrays[f"{name}/init"] = init.fast_normal.numpy()
+    # the reference server's (its gather round's noise drawn row by row)
+    for t, d in enumerate(server_draws(SRV_REF_FL, 0, SRV_STEPS, row_noise=True,
+                                       leaf_shapes=LEAVES)):
+        for f, v in zip(d._fields, d):
+            if v is not None:
+                arrays[f"srv_reference/{t}/{f}"] = v.numpy()
     part = path.with_name("part_" + path.name)
     np.savez(part, **arrays)
     os.replace(part, path)
@@ -132,14 +145,34 @@ def _reference_group_sweep(group):
             for lbl, h in zip(res.labels, res.histories)}
 
 
+def _reference_mesh_server():
+    """The reference's ``ParameterServer(mesh=client_mesh(2))``, 3 steps of
+    ``SRV_REF_FL`` on the fixed block batch, seed 0: its history rows and
+    final params as numpy."""
+    import jax
+    from repro.federated.server import ParameterServer as JServer
+    from repro.models.logreg import logistic_regression_prod as jax_prod
+    from repro.optim import sgd as jsgd
+
+    assert jax.device_count() >= 2, "the mesh server needs two host devices"
+    fl = JFLConfig(**dataclasses.asdict(SRV_REF_FL))
+    ps = JServer(jax_prod(DIM, 10), jsgd(fl.lr0), fl, seed=0,
+                 mesh=jsharding.client_mesh(2))
+    st = ps.init_state(jax.random.PRNGKey(0))
+    for b in srv_batches(worker_data(), "blocks", fixed=True):
+        st = ps.step(st, {k: jax.numpy.asarray(v) for k, v in b.items()})
+    return st.history, {k: np.asarray(v) for k, v in st.params.items()}
+
+
 @contextlib.contextmanager
 def _reference_env():
     """``os.environ`` for the reference's processes started inside: XLA's
     backend optimization level 0 compiles the same programs in a third of
     the CPU time (the reference's tracing and compiling, not its runs, take
-    the time at N = 16)."""
+    the time at N = 16), and two host devices for the mesh server."""
     old = os.environ.get("XLA_FLAGS")
-    os.environ["XLA_FLAGS"] = f"{old or ''} --xla_backend_optimization_level=0"
+    os.environ["XLA_FLAGS"] = (f"{old or ''} --xla_backend_optimization_level=0"
+                               " --xla_force_host_platform_device_count=2")
     try:
         yield
     finally:
@@ -157,7 +190,10 @@ def job(tmp_path_factory):
     tracing holds the GIL): the draws of the population cases, which the
     ranks wait for, the dense run of each population case, and the
     one-device sweep of each sharded-plane group of
-    :func:`test_sharded_group_matches_reference_sweep`."""
+    :func:`test_sharded_group_matches_reference_sweep`, and the reference's
+    mesh server. The processes see two XLA host devices, which the mesh
+    server needs; the other runs place everything on the first, as with
+    one."""
     work = tmp_path_factory.mktemp("multidevice")
     with _reference_env():   # the pool starts its processes on submit
         pool = ProcessPoolExecutor(max_workers=3,
@@ -167,6 +203,7 @@ def job(tmp_path_factory):
                   for g in SHARDED_GROUPS}
         refs = {name: pool.submit(_reference_dense, name)
                 for name, _ in POP_CASES}
+        mesh_server = pool.submit(_reference_mesh_server)
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join([str(ROOT / "src"),
                                            os.environ.get("PYTHONPATH", "")]))
@@ -182,6 +219,7 @@ def job(tmp_path_factory):
             draws.result()
             groups = {k: f.result() for k, f in groups.items()}
             refs = {k: f.result() for k, f in refs.items()}
+            mesh_server = mesh_server.result()
             logs = [f.result()[0] for f in logs]
     finally:
         pool.shutdown(cancel_futures=True)
@@ -189,13 +227,15 @@ def job(tmp_path_factory):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    verdicts, hists = {}, {}
+    verdicts, hists, srv = {}, {}, {}
     for r in range(WORLD):
         f = work / f"rank{r}.json"
         assert f.exists(), f"rank {r} wrote no verdicts:\n{logs[r][-4000:]}"
         verdicts[r] = json.loads(f.read_text())
         hists[r] = dict(np.load(work / f"rank{r}_pop.npz"))
-    return verdicts, hists, refs, groups
+        if (work / f"rank{r}_srv.npz").exists():
+            srv[r] = dict(np.load(work / f"rank{r}_srv.npz"))
+    return verdicts, hists, refs, groups, srv, mesh_server
 
 
 def _check(verdicts, case):
@@ -210,6 +250,8 @@ POP_NAMES = [f"pop_d{d}_{name}" for name, _ in POP_CASES for d in (2, 4)]
 JOB_CASES = (POP_NAMES + ["pop_mesh_of_one", "pop_indivisible_raises"]
              + [c[0] for c in CELL_CASES] + ["cells2_checkpoint_resume"]
              + [c[0] for c in MESH2D_CASES] + [c[0] for c in FANIN_CASES]
+             + SERVER_NAMES + ["srv_mesh_of_one", "srv_indivisible_raises",
+                               "srv_batch_indivisible_raises", "srv_reference"]
              + ["mesh_cache_after_reinit"])
 
 
@@ -222,9 +264,42 @@ def test_mesh_case_on_every_rank(job, case):
     transport, a checkpoint resume): every rank's ``SweepResult`` bit-equal
     to the one-device sweep. The 2-D mesh (2 × 2, 1 × 4, 4 × 1, fan-in 2 on
     the 1 × 4 clients axis, the strided λ recorder, a battery): every rank
-    equal to the one-device sharded group, discrete fields exactly. A new
-    process group after ``destroy_process_group`` gets new mesh axes."""
+    equal to the one-device sharded group, discrete fields exactly. The
+    parameter server on 2 and 4 ranks: the replicated fields bit-equal to
+    the one-device server, the rest within rtol 2e-5, atol 2e-6; a mesh of
+    one bit-equal to the plain server; N % D ≠ 0 and an indivisible batch
+    raising. A new process group after ``destroy_process_group`` gets new
+    mesh axes."""
     _check(job[0], case)
+
+
+@pytest.mark.parametrize("case", SERVER_NAMES)
+def test_server_mesh_ranks_are_replicas(job, case):
+    """Every rank of a mesh server ends in the same state, bit for bit:
+    params, λ, the residual and the history (their ``digest``)."""
+    digests = {r: v[case].get("digest") for r, v in job[0].items()}
+    assert None not in digests.values() and len(set(digests.values())) == 1, digests
+
+
+def test_server_mesh_matches_reference_mesh_server(job):
+    """The port's two-rank mesh server against the reference's
+    ``ParameterServer(mesh=client_mesh(2))``, 3 steps on the reference's
+    draws, with ``tests/test_sharding.py``'s bounds: ``num_scheduled``
+    exact, the loss rtol 1e-5, the energy rtol 1e-6, params rtol 2e-5 /
+    atol 2e-6."""
+    hist, params = job[5]
+    assert len(hist) == SRV_STEPS
+    for rank, got in job[4].items():
+        np.testing.assert_array_equal(got["hist.num_scheduled"],
+                                      [h["num_scheduled"] for h in hist])
+        np.testing.assert_allclose(got["hist.loss"], [h["loss"] for h in hist],
+                                   rtol=1e-5)
+        np.testing.assert_allclose(got["hist.energy_j"],
+                                   [h["energy_j"] for h in hist], rtol=1e-6)
+        for name, want in params.items():
+            np.testing.assert_allclose(got[f"params.{name}"], want, rtol=2e-5,
+                                       atol=2e-6, err_msg=f"rank {rank} {name}")
+    assert sorted(job[4]) == list(range(WORLD))
 
 
 @pytest.mark.parametrize("name", [n for n, _ in POP_CASES])
@@ -232,7 +307,7 @@ def test_population_sharded_matches_reference(job, data, name):
     """Each rank's population-sharded run (two and four ranks) against the
     reference's dense run of the same config and seed, with the simulator's
     gates."""
-    _, hists, refs, _ = job
+    _, hists, refs = job[:3]
     fl = dict(POP_CASES)[name]
     ref = refs[name]
     for rank, h in hists.items():
@@ -244,12 +319,14 @@ def test_population_sharded_matches_reference(job, data, name):
 
 
 def test_gated_cases_are_not_vacuous(job):
-    """The battery cases spend their budgets: under population sharding the
-    batteries drain below their 0.05 J start, and the 2-D group's battery
-    leaves fewer than K schedulable in some round."""
+    """The battery cases spend their budgets: under population sharding and
+    on the server mesh the batteries drain below their 0.05 J start, and
+    the 2-D group's battery leaves fewer than K schedulable in some
+    round."""
     h = job[1][0]
     assert h["pop_d4_afl_battery_constrained/min_battery"].min() < 0.05
     assert job[0][0]["2d_2x2_battery"]["num_scheduled"] < 5
+    assert min(job[0][0]["srv_ca_afl_battery_d2"]["min_battery"]) < 0.05
 
 
 # ---------------------------------------------------------------------------

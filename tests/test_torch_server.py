@@ -135,6 +135,24 @@ def test_per_client_losses_match_reference(batch, params, microbatches, permuted
     _close(got.numpy(), want, atol=0)
 
 
+def test_segment_mean_fixed_order_with_uneven_and_missing_clients():
+    """``per_client_losses``' segment mean (an [N, B] membership mask's
+    rows summed) on clients of 0 to 7 examples in a shuffled
+    batch: each client's mean in float64 to an ulp-level tolerance, 0 for a
+    client with none, and the same bits on a second call."""
+    rng = np.random.default_rng(4)
+    cids = np.repeat(np.arange(N), [7, 0, 3, 1, 5, 2])
+    rng.shuffle(cids)
+    per_ex = rng.normal(size=cids.shape[0]).astype(np.float32) + 2
+    got = rounds._segment_mean(torch.from_numpy(per_ex), torch.from_numpy(cids), N)
+    want = [per_ex[cids == c].astype(np.float64).mean() if (cids == c).any() else 0.0
+            for c in range(N)]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+    assert got[1] == 0
+    again = rounds._segment_mean(torch.from_numpy(per_ex), torch.from_numpy(cids), N)
+    assert torch.equal(got, again)
+
+
 def test_add_awgn_is_the_reference_on_its_noise_and_has_its_statistics():
     """On the reference's own noise (``row_awgn``) ``add_awgn`` equals the
     reference's to an ulp of σ·z; on fresh normals its added noise has mean
@@ -423,9 +441,10 @@ def test_layout_checks_raise_on_interleaved_client_ids(batch, method, transport)
 
 def test_sharded_control_plane_and_meshes_raise_naming_item_9(batch):
     """The sharded control plane's server runs on one device and steps on
-    its id-addressed draws; a parameter server on a mesh of more than one
-    device, the one part of item 9 not ported, still raises naming it,
-    under either plane."""
+    its id-addressed draws. A mesh of one is the plain server, bit for bit
+    over 3 steps, under either plane (as in the reference); a mesh whose
+    size does not divide N raises before any collective, under either
+    plane. (Meshes of 2 and 4 ranks run in tests/test_torch_multidevice.py.)"""
     class Mesh:
         def __init__(self, size):
             self.size = size
@@ -435,10 +454,18 @@ def test_sharded_control_plane_and_meshes_raise_naming_item_9(batch):
     assert st.history[-1]["num_scheduled"] == K
     np.testing.assert_allclose(float(st.lam.sum()), 1.0, rtol=1e-5)
     for plane in ("replicated", "sharded"):
-        with pytest.raises(NotImplementedError,
-                           match=r"ParameterServer\(mesh=\.\.\.\)\) is not ported yet \(ROADMAP Queue 1 item 9"):
-            _server(_fl("ca_afl", control_plane=plane), mesh=Mesh(2))
-    _server(_fl("ca_afl"), mesh=Mesh(1))   # one device: a no-op, as in the reference
+        with pytest.raises(ValueError, match=r"N % devices == 0, got N=6, devices=4"):
+            _server(_fl("ca_afl", control_plane=plane), mesh=Mesh(4))
+        fl = _fl("gca", control_plane=plane, transport="quantized", noise_std=0.05)
+        plain, one = _server(fl, seed=3), _server(fl, seed=3, mesh=Mesh(1))
+        assert one.axis is None
+        sp, so = plain.init_state(), one.init_state()
+        for _ in range(3):
+            sp, so = plain.step(sp, batch), one.step(so, batch)
+        assert sp.history == so.history
+        for name in sp.params:
+            torch.testing.assert_close(so.params[name], sp.params[name], rtol=0, atol=0)
+        torch.testing.assert_close(so.lam, sp.lam, rtol=0, atol=0)
     with pytest.raises(ValueError, match="control_plane"):
         _server(_fl("ca_afl", control_plane="ring"))
 
