@@ -1,6 +1,6 @@
-"""Offline synthetic Fashion-MNIST stand-in (numpy; a copy of
-``repro.data.synthetic.make_fmnist_like`` — the same seed gives identical
-arrays).
+"""Offline synthetic Fashion-MNIST stand-in and LM corpus (numpy; copies
+of ``repro.data.synthetic.make_fmnist_like`` and ``make_lm_tokens`` — the
+same seed gives identical arrays).
 
 10 classes, 784-dim inputs, 60k train / 10k test, overlapping class
 prototypes with asymmetric per-class noise so logistic regression saturates
@@ -42,3 +42,29 @@ def make_fmnist_like(
     x_tr, y_tr = _draw(num_train, 1)
     x_te, y_te = _draw(num_test, 2)
     return x_tr, y_tr, x_te, y_te
+
+
+def make_lm_tokens(
+    num_clients: int,
+    tokens_per_client: int,
+    vocab_size: int,
+    heterogeneity: float = 0.9,
+    seed: int = 0,
+) -> np.ndarray:
+    """Synthetic LM corpus: [num_clients, tokens_per_client] int32.
+
+    Each client samples from a client-specific Zipf-permuted unigram mixture;
+    `heterogeneity` in [0,1] interpolates uniform-shared -> fully client-local
+    token distributions (the LM analogue of sorted-label sharding).
+    """
+    rng = np.random.default_rng(seed)
+    base = 1.0 / np.arange(1, vocab_size + 1) ** 1.1  # zipf
+    base /= base.sum()
+    out = np.empty((num_clients, tokens_per_client), dtype=np.int32)
+    for c in range(num_clients):
+        perm = np.random.default_rng(seed + 1000 + c).permutation(vocab_size)
+        local = base[perm]
+        mix = (1 - heterogeneity) * base + heterogeneity * local
+        mix /= mix.sum()
+        out[c] = rng.choice(vocab_size, size=tokens_per_client, p=mix).astype(np.int32)
+    return out

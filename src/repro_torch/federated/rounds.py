@@ -15,12 +15,14 @@ One round:
      control-channel scalars).
 
 Gradients come from ``torch.func`` on the model's ``loss_fn``, so the tier
-is generic over models with a ``per_example_nll``; the model zoo's
-families need backward passes through the port's models and raise
-(ROADMAP Queue 1 item 10(c)(ii)). The reference jits each round and scans
-over microbatches and over the probe's clients; here a round is eager
-PyTorch, microbatches are a Python loop and the probe is one
-``torch.func.vmap`` over the N client blocks.
+is generic over models with a ``per_example_nll`` and over the model zoo's
+dense and ssm (xLSTM) families, whose parameters are flat dicts run
+through the family's module (``models.api.Model``; their kernels carry
+backward kernels). The reference jits each round and scans over
+microbatches and over the probe's clients; here a round is eager PyTorch,
+microbatches are a Python loop and the probe is one ``torch.func.vmap``
+over the N client blocks (which the zoo's kernels have no ``vmap`` rule
+for: the server refuses the probe paths on zoo models).
 
 Randomness is an input, as everywhere in the port: a round takes the
 receiver noise z as a flat [P] vector in sorted-leaf order (the round's
@@ -49,6 +51,7 @@ import torch
 from torch.func import grad_and_value, vmap
 
 from repro_torch.federated.client import client_weights
+from repro_torch.models.dense import per_token_nll
 from repro_torch.optim import apply_updates
 from repro_torch.utils.tree import (leaf_names, ravel, ravel_stack, tree_l2_norm,
                                     unravel)
@@ -257,15 +260,13 @@ def add_awgn(grads: dict, z: torch.Tensor, std) -> dict:
 
 
 def _per_example_nll(model, params, batch, ctx):
-    """[B] per-example NLL of a model with a ``per_example_nll`` (e.g.
-    ``models.logreg.logistic_regression_prod``)."""
+    """[B] per-example NLL: a model's own ``per_example_nll`` (e.g.
+    ``models.logreg.logistic_regression_prod``), else a zoo model's
+    teacher-forced forward and the mean next-token NLL over positions."""
     if hasattr(model, "per_example_nll"):
         return model.per_example_nll(params, batch)
-    raise NotImplementedError(
-        "the production tier runs models with a per_example_nll (e.g. "
-        "models.logreg.logistic_regression_prod); training the model zoo's "
-        "families needs backward passes through the port's models, not "
-        "ported yet (ROADMAP Queue 1 item 10(c)(ii))")
+    logits = model.forward(params, batch["tokens"])
+    return torch.mean(per_token_nll(logits[:, :-1], batch["labels"][:, 1:]), dim=-1)
 
 
 def _segment_mean(per_ex: torch.Tensor, cids: torch.Tensor,

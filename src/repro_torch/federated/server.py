@@ -50,8 +50,15 @@ one-device result. The reference's mesh is placement only (it
 ``shard_batch``es the batch and leaves the round to XLA); a mesh of one
 is the plain server.
 
-Not ported yet, and raising ``NotImplementedError``: models without a
-``per_example_nll``, i.e. the model zoo (ROADMAP Queue 1 item 10(c)(ii)).
+Models: the logistic regression (``per_example_nll``) on every path, and
+the model zoo's dense and ssm (xLSTM) families (``models.api.Model``,
+parameters a flat dict made by ``init_state`` from a ``torch.Generator``
+on the device seeded with ``seed``; batches of ``tokens``, ``labels`` and
+``client_ids``) under the exact-K methods with the analog and digital
+transports. On a zoo model GCA, the quantized and sparse transports (whose
+per-client probe is a ``torch.func.vmap`` through the kernels'
+autograd.Functions, which have no ``vmap`` rule) and a client mesh raise
+``NotImplementedError`` (ROADMAP Queue 1 item 10(d)).
 """
 from __future__ import annotations
 
@@ -105,6 +112,24 @@ class ServerState:
     dl_energy_joules: float = 0.0
 
 
+def _check_zoo(fl: FLConfig, axis) -> None:
+    """A zoo model runs the exact-K rounds under analog and digital on one
+    device; the rest raises (ROADMAP Queue 1 item 10(d))."""
+    why = None
+    if fl.method == "gca":
+        why = "GCA's per-client gradient probe"
+    elif fl.transport in ("quantized", "sparse"):
+        why = f"the {fl.transport} transport's per-client delta probe"
+    if why is not None:
+        raise NotImplementedError(
+            f"{why} is a torch.func.vmap through the zoo model's kernels, whose "
+            "autograd.Functions have no vmap rule yet (ROADMAP Queue 1 item 10(d))")
+    if axis is not None:
+        raise NotImplementedError(
+            "the parameter server on a client mesh runs the logistic regression; "
+            "zoo models on a mesh are not checked yet (ROADMAP Queue 1 item 10(d))")
+
+
 class ParameterServer:
     """CA-AFL parameter server for the production tier. ``device=None`` is
     the CUDA card, and raises when there is none. ``mesh``: a client axis
@@ -120,17 +145,15 @@ class ParameterServer:
         self.axis = mesh if mesh_size(mesh) > 1 else None
         if self.axis is not None:
             check_divisible(fl.num_clients, self.axis.size)
-        if not hasattr(model, "per_example_nll"):
-            raise NotImplementedError(
-                "the port's parameter server runs models with a "
-                "per_example_nll (models.logreg.logistic_regression_prod); "
-                "the model zoo's training path is not ported yet (ROADMAP "
-                "Queue 1 item 10(c)(ii))")
+        self._zoo = not hasattr(model, "per_example_nll")
+        if self._zoo:
+            _check_zoo(fl, self.axis)
         transport_mod.require_ported(fl.transport)
         if fl.method not in EXACT_K_METHODS + ("gca",):
             raise ValueError(f"unknown selection method {fl.method!r}")
         self.device = resolve_device(device)
         self.model, self.fl, self.optimizer = model, fl, optimizer
+        self._seed = seed
         n, k = fl.num_clients, fl.clients_per_round
         # the digital scheme decodes each payload orthogonally: no
         # superposition, so no receiver noise on the aggregate
@@ -301,12 +324,18 @@ class ParameterServer:
     # ------------------------------------------------------------------
 
     def init_state(self, init_draws: Optional[InitDraws] = None) -> ServerState:
-        """The model's init, uniform λ, zero ledgers; a temporal run's
+        """The model's init (a zoo model's from a generator on the device
+        seeded with ``seed``), uniform λ, zero ledgers; a temporal run's
         process state from ``init_draws`` (default: the server's own, the
         first numbers of its temporal stream), and zero error-feedback
         residuals under the sparse transport."""
         fl = self.fl
-        params = self.model.init(self.device)
+        if self._zoo:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self._seed)
+            params = self.model.init_params(gen)
+        else:
+            params = self.model.init(self.device)
         self._model_size = tree_size(params)
         chan_state = ()
         if fl.temporal:

@@ -85,6 +85,23 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The training variant (-DFLASH_ATTENTION_LSE, kernel.py's LSE_BUILD) also
+// writes each row's natural log-sum-exp of the scaled scores,
+// lse [BHq, Sq] f32 = (m + log2(max(l, 1e-30))) / log2(e),
+// which flash_attention_bwd.cu reads to recompute P; the serve build has
+// neither the argument nor the store.
+#ifdef FLASH_ATTENTION_LSE
+#define LSE_PARAM , float* __restrict__ lse
+#define LSE_ARG , lse
+#define LSE_C_PARAM , void* lse
+#define LSE_C_ARG , static_cast<float*>(lse)
+#else
+#define LSE_PARAM
+#define LSE_ARG
+#define LSE_C_PARAM
+#define LSE_C_ARG
+#endif
+
 namespace {
 
 constexpr int kWarps = 4;
@@ -547,7 +564,7 @@ __global__ void __launch_bounds__(kThreads, Layout<D, T>::kMinBlocks)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int64_t bhq,
                        int64_t group, int64_t sq, int64_t t, int causal,
-                       int64_t window, float scale) {
+                       int64_t window, float scale LSE_PARAM) {
   using L = Layout<D, T>;
   constexpr int kM = L::kM;
   constexpr int kKv = L::kKv;
@@ -667,6 +684,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         continue;
       }
       const float denom = sum < 1e-30f ? 1e-30f : sum;   // max(l, 1e-30), NaN kept
+#ifdef FLASH_ATTENTION_LSE
+      if (tq == 0) {
+        lse[bh * sq + row] = (m[mi][r] + log2f(denom)) * (1.0f / kLog2e);
+      }
+#endif
       T* orow = o + (bh * sq + row) * D;
       const float(&a)[D / 8][4] = acc[mi];
       if constexpr (sizeof(T) == 4) {   // a[4c + i]: d = 32c + 8tq + i and + 4 (accumulate)
@@ -694,7 +716,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <int D, typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int64_t bhq,
            int64_t group, int64_t sq, int64_t t, int causal, int64_t window,
-           float scale, cudaStream_t stream) {
+           float scale LSE_PARAM, cudaStream_t stream) {
   constexpr int kBq = Layout<D, T>::kBq;
   const int64_t blocks = bhq * ((sq + kBq - 1) / kBq);
   if (blocks > 2147483647LL) {
@@ -709,7 +731,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t bhq,
   }
   flash_attention_kernel<D, T><<<static_cast<unsigned int>(blocks), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), bhq, group, sq, t, causal, window, scale);
+      static_cast<T*>(o), bhq, group, sq, t, causal, window, scale LSE_ARG);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -721,19 +743,19 @@ extern "C" {
 // synchronise. window <= 0 means no window.
 int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
                            int is_bf16, int d, int64_t bhq, int64_t group, int64_t sq,
-                           int64_t t, int causal, int64_t window, float scale,
-                           void* stream) {
+                           int64_t t, int causal, int64_t window, float scale
+                           LSE_C_PARAM, void* stream) {
   if (bhq <= 0 || group <= 0 || bhq % group != 0 || sq <= 0 || t <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64) {
-    return is_bf16 ? launch<64, __nv_bfloat16>(q, k, v, o, bhq, group, sq, t, causal, window, scale, s)
-                   : launch<64, float>(q, k, v, o, bhq, group, sq, t, causal, window, scale, s);
+    return is_bf16 ? launch<64, __nv_bfloat16>(q, k, v, o, bhq, group, sq, t, causal, window, scale LSE_C_ARG, s)
+                   : launch<64, float>(q, k, v, o, bhq, group, sq, t, causal, window, scale LSE_C_ARG, s);
   }
   if (d == 128) {
-    return is_bf16 ? launch<128, __nv_bfloat16>(q, k, v, o, bhq, group, sq, t, causal, window, scale, s)
-                   : launch<128, float>(q, k, v, o, bhq, group, sq, t, causal, window, scale, s);
+    return is_bf16 ? launch<128, __nv_bfloat16>(q, k, v, o, bhq, group, sq, t, causal, window, scale LSE_C_ARG, s)
+                   : launch<128, float>(q, k, v, o, bhq, group, sq, t, causal, window, scale LSE_C_ARG, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -21,12 +21,22 @@ ring; no repeated K/V for GQA; kv tiles wholly above the diagonal or
 outside the window skipped; the longest causal rows launched first.
 ``csrc/flash_attention.cu`` has the details.
 
-The source is built and loaded by ``repro_torch.kernels.build``; nothing is
+Training uses a build of the same source with ``-DFLASH_ATTENTION_LSE``
+(``LSE_BUILD``), which also writes each row's log-sum-exp, and the backward
+``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd_cuda``): dq, dk, dv
+for causal / windowed GQA, P recomputed from q, k and the log-sum-exp, dk
+and dv summed over each kv head's G q heads inside the block that owns the
+kv tile (no atomics). It replaces no TPU kernel (the JAX package
+differentiates its pure-JAX attention); bound by operations; a first
+SIMT f32 design (``csrc/flash_attention_bwd.cu`` has the details).
+
+The sources are built and loaded by ``repro_torch.kernels.build``; nothing is
 built when this module is imported.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -38,18 +48,88 @@ DTYPES = (torch.float32, torch.bfloat16)
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 ARGTYPES = (_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _I64, _I64, _I64, _I64,
             ctypes.c_int, _I64, ctypes.c_float)
+# the training build: (source, extra nvcc flags), for ``build.build(extra)``
+LSE_BUILD = (build.SOURCES["flash_attention"], ("-DFLASH_ATTENTION_LSE",))
+
+
+@functools.cache
+def _lse_library():
+    """The training build's library, built at first use."""
+    build.build([LSE_BUILD])
+    return build.variant_path(*LSE_BUILD)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          group: int, causal: bool = True,
-                         window: Optional[int] = None) -> torch.Tensor:
+                         window: Optional[int] = None, with_lse: bool = False):
     """q [BHq, Sq, d]; k, v [BHkv, T, d] with BHq = BHkv·group, one dtype
     (f32 or bf16), d in {64, 128}, contiguous, on one CUDA device ->
-    [BHq, Sq, d] in q's dtype. ``window`` is None or >= 1. Launches on the
-    current stream, does not synchronise; ``flash_attention_cuda.launches``
-    counts the launches."""
+    [BHq, Sq, d] in q's dtype. ``window`` is None or >= 1. ``with_lse``
+    launches the training build (``LSE_BUILD``), the same kernel
+    that also writes each row's log-sum-exp, and returns (o, lse [BHq, Sq]
+    f32). Launches on the current stream, does not synchronise;
+    ``flash_attention_cuda.launches`` counts the launches of both builds."""
+    _check(q, k, v, group, window, "flash_attention_cuda")
+    bhq, sq, d = q.shape
+    o = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            int(q.dtype == torch.bfloat16), d, bhq, group, sq, k.shape[1], int(causal),
+            0 if window is None else window, 1.0 / (d ** 0.5))
+    if with_lse:
+        lse = torch.empty((bhq, sq), dtype=torch.float32, device=q.device)
+        build.launch("flash_attention", (*ARGTYPES, _P), q.device, *args, lse.data_ptr(),
+                     library=_lse_library())
+    else:
+        build.launch("flash_attention", ARGTYPES, q.device, *args)
+    flash_attention_cuda.launches += 1
+    return (o, lse) if with_lse else o
+
+
+flash_attention_cuda.launches = 0
+
+BWD_ARGTYPES = (*(_P,) * 10, ctypes.c_int, ctypes.c_int, _I64, _I64, _I64, _I64,
+                ctypes.c_int, _I64, ctypes.c_float)
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, group: int, causal: bool = True,
+                             window: Optional[int] = None):
+    """The backward of ``flash_attention_cuda`` (``csrc/flash_attention_bwd.cu``):
+    q, o, do [BHq, Sq, d] and k, v [BHkv, T, d] in one dtype (f32 or bf16),
+    lse [BHq, Sq] f32 from ``flash_attention_cuda(..., with_lse=True)``,
+    contiguous, on one CUDA device -> (dq, dk, dv) in q's dtype, dk and dv
+    summed over each kv head's ``group`` q heads in a fixed order (no
+    atomics). Launches on the current stream, does not synchronise;
+    ``flash_attention_bwd_cuda.launches`` counts the launches."""
+    _check(q, k, v, group, window, "flash_attention_bwd_cuda")
+    bhq, sq, d = q.shape
+    for name, x in (("o", o), ("do", do)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device \
+                or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {tuple(q.shape)} {q.dtype} on "
+                             f"{q.device}, got {tuple(x.shape)} {x.dtype} on {x.device}")
+    if tuple(lse.shape) != (bhq, sq) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous [{bhq}, {sq}] f32 on {q.device}")
+    if bhq > 65535:
+        raise ValueError(f"the backward takes at most 65535 q heads, got {bhq}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    scratch = torch.empty((bhq, sq), dtype=torch.float32, device=q.device)
+    build.launch("flash_attention_bwd", BWD_ARGTYPES, q.device, q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
+                 int(q.dtype == torch.bfloat16), d, bhq, group, sq, k.shape[1],
+                 int(causal), 0 if window is None else window, 1.0 / (d ** 0.5))
+    flash_attention_bwd_cuda.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_cuda.launches = 0
+
+
+def _check(q, k, v, group, window, what):
+    """The shapes, dtypes and layouts both kernels take; raises otherwise."""
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_cuda takes CUDA tensors, got {q.device}")
+        raise ValueError(f"{what} takes CUDA tensors, got {q.device}")
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
         raise ValueError(f"q must be [BHq, Sq, d] and k, v one [BHkv, T, d] shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -69,13 +149,3 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"one of {DTYPES} on one device ({q.device})")
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-    o = torch.empty_like(q)
-    build.launch("flash_attention", ARGTYPES, q.device, q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), o.data_ptr(), int(q.dtype == torch.bfloat16), d, bhq,
-                 group, sq, t, int(causal), 0 if window is None else window,
-                 1.0 / (d ** 0.5))
-    flash_attention_cuda.launches += 1
-    return o
-
-
-flash_attention_cuda.launches = 0

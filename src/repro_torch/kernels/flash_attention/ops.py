@@ -7,6 +7,15 @@ head = q head // G. A tensor on the CPU takes the plain version
 (``ref.attention_ref``); a CUDA tensor launches the hand-written kernel
 (``kernel.flash_attention_cuda``) or raises. There is no fallback from the
 card to the plain version.
+
+Under autograd (``torch.autograd`` or ``torch.func.grad``) the attention
+is a ``torch.autograd.Function`` over the flattened heads: its forward is
+the kernel's training build, which also writes each row's log-sum-exp
+(``ref.attention_lse_ref`` on the CPU), and its backward
+``kernel.flash_attention_bwd_cuda`` (``ref.attention_bwd_ref`` on the
+CPU), run as the forward of a second Function so that it sees plain
+tensors under ``torch.func`` (see ``kernels.rmsnorm.ops``). No double
+backward and no ``vmap`` rule.
 """
 from __future__ import annotations
 
@@ -14,9 +23,64 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_cuda,
+                                                        flash_attention_cuda)
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_lse_ref, attention_ref)
 from repro_torch.utils.device import on_cpu
+
+
+def _grouped(qh, kh, group):
+    """[BHq, Sq, d], [BHkv, T, d] as the plain versions' [BHkv, G, Sq, d],
+    [BHkv, 1, T, d]."""
+    return (qh.reshape(kh.shape[0], group, *qh.shape[1:]), kh[:, None])
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(qh, kh, vh, group, causal, window):
+        if on_cpu(qh, "flash_attention"):
+            q4, k4 = _grouped(qh, kh, group)
+            o, lse = attention_lse_ref(q4, k4, vh[:, None], causal=causal, window=window)
+            return o.reshape(qh.shape), lse.reshape(qh.shape[:2])
+        return flash_attention_cuda(qh.contiguous(), kh.contiguous(), vh.contiguous(),
+                                    group=group, causal=causal, window=window,
+                                    with_lse=True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        qh, kh, vh, group, causal, window = inputs
+        o, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(qh, kh, vh, o, lse)
+        ctx.opts = (group, causal, window)
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        return (*_FlashAttentionBackward.apply(*ctx.saved_tensors, do, *ctx.opts),
+                None, None, None)
+
+
+class _FlashAttentionBackward(torch.autograd.Function):
+    @staticmethod
+    def forward(qh, kh, vh, o, lse, do, group, causal, window):
+        if on_cpu(qh, "flash_attention"):
+            q4, k4 = _grouped(qh, kh, group)
+            dq, dk, dv = attention_bwd_ref(
+                q4, k4, vh[:, None], o.reshape(q4.shape), lse.reshape(q4.shape[:3]),
+                do.reshape(q4.shape), causal=causal, window=window)
+            return dq.reshape(qh.shape), dk[:, 0], dv[:, 0]
+        return flash_attention_bwd_cuda(
+            *(x.contiguous() for x in (qh, kh, vh, o, lse, do)), group=group,
+            causal=causal, window=window)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("flash_attention has no double backward")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -27,7 +91,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     qh = q.permute(0, 2, 3, 1, 4).reshape(b * hkv * g, sq, d)
     kh = k.permute(0, 2, 1, 3).reshape(b * hkv, t, d)
     vh = v.permute(0, 2, 1, 3).reshape(b * hkv, t, d)
-    if on_cpu(q, "flash_attention"):
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        o, _ = _FlashAttention.apply(qh, kh, vh, g, causal, window)
+    elif on_cpu(q, "flash_attention"):
         o = attention_ref(qh.reshape(b, hkv * g, sq, d), kh.reshape(b, hkv, t, d),
                           vh.reshape(b, hkv, t, d), causal=causal, window=window)
     else:

@@ -14,7 +14,13 @@ the sum of squares (reduced by warp shuffles) and the scaling, the scaled row wr
 one element a vector where D or a pointer does not allow 16 bytes.
 ``csrc/rmsnorm.cu`` has the details and the tolerance.
 
-The source is built and loaded by ``repro_torch.kernels.build``; nothing is
+Its backward, ``csrc/rmsnorm_bwd.cu`` (``rmsnorm_bwd_cuda``), gives dx and
+dscale for training (the JAX package differentiates its pure-JAX norm, so
+it replaces no TPU kernel): bound by memory too; one warp a row for dx,
+then dscale as per-chunk column partials summed in a fixed order (no
+atomics, so a seeded run repeats bit for bit).
+
+The sources are built and loaded by ``repro_torch.kernels.build``; nothing is
 built when this module is imported.
 """
 from __future__ import annotations
@@ -62,3 +68,46 @@ def rmsnorm_cuda(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tens
 
 
 rmsnorm_cuda.launches = 0
+
+
+BWD_ARGTYPES = (_P, _P, ctypes.c_int, _P, ctypes.c_int, _P, _P, _P, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_float)
+BWD_MAX_CHUNKS = 128   # row chunks of the dscale partials (csrc/rmsnorm_bwd.cu)
+
+
+def rmsnorm_bwd_cuda(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, eps: float):
+    """The backward of ``rmsnorm_cuda`` (``csrc/rmsnorm_bwd.cu``): x and dy
+    [R, D] in one dtype (f32/bf16), scale [D] f32 or x's dtype, contiguous,
+    on one CUDA device -> (dx [R, D] in x's dtype, dscale [D] in scale's
+    dtype), dscale summed in a fixed order (no atomics). Launches on the
+    current stream, does not synchronise; ``rmsnorm_bwd_cuda.launches``
+    counts the launches."""
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm_bwd_cuda takes CUDA tensors, got {x.device}")
+    if x.dim() != 2 or not 1 <= x.shape[1] <= MAX_D or x.shape[0] < 1:
+        raise ValueError(f"x must be [R, D] with R >= 1 and 1 <= D <= {MAX_D}, "
+                         f"got shape {tuple(x.shape)}")
+    if x.dtype not in DTYPES or dy.dtype != x.dtype or dy.shape != x.shape:
+        raise ValueError(f"x and dy must be one shape and one of {DTYPES}, got "
+                         f"{x.dtype} {tuple(x.shape)} and {dy.dtype} {tuple(dy.shape)}")
+    if tuple(scale.shape) != (x.shape[1],) or scale.dtype not in (torch.float32, x.dtype):
+        raise ValueError(f"scale must be [{x.shape[1]}] in f32 or x's {x.dtype}, got "
+                         f"{tuple(scale.shape)} {scale.dtype}")
+    if dy.device != x.device or scale.device != x.device:
+        raise ValueError(f"x, dy and scale must be on one device ({x.device})")
+    if not (x.is_contiguous() and dy.is_contiguous() and scale.is_contiguous()):
+        raise ValueError("x, dy and scale must be contiguous")
+    rows, d = x.shape
+    chunks = max(1, min(-(-rows // 64), BWD_MAX_CHUNKS))
+    dx = torch.empty_like(x)
+    dscale = torch.empty_like(scale)
+    scratch = torch.empty((rows + chunks * d,), dtype=torch.float32, device=x.device)
+    build.launch("rmsnorm_bwd", BWD_ARGTYPES, x.device, x.data_ptr(), dy.data_ptr(),
+                 int(x.dtype == torch.bfloat16), scale.data_ptr(),
+                 int(scale.dtype == torch.bfloat16), dx.data_ptr(), dscale.data_ptr(),
+                 scratch.data_ptr(), rows, d, chunks, float(eps))
+    rmsnorm_bwd_cuda.launches += 1
+    return dx, dscale
+
+
+rmsnorm_bwd_cuda.launches = 0

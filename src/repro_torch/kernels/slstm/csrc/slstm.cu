@@ -97,6 +97,19 @@
 #define SLSTM_STAGES 4
 #endif
 
+// The training variant (-DSLSTM_TRAIN, kernel.py's TRAIN_BUILD)
+// also stores, each step, what the backward (slstm_bwd.cu) reads: c', n', i',
+// f', tanh(z) and sigmoid(o) of every cell, as saved [6, S, B, H, d] f32
+// (the f32 h before step t is h0, or hs[t - 1] when hs is f32). The serve
+// build has neither the argument nor the stores.
+#ifdef SLSTM_TRAIN
+#define SAVED_C_PARAM , void* saved
+#define SAVED_C_ARG , static_cast<float*>(saved)
+#else
+#define SAVED_C_PARAM
+#define SAVED_C_ARG
+#endif
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -123,6 +136,9 @@ struct Args {
   int cw, log_cw;      // channels of one head a block owns (a power of two)
   int ks;              // ways the length-d sum is split (over groups of 4 k)
   int r_async;         // R's rows of cw values are whole 16-byte chunks
+#ifdef SLSTM_TRAIN
+  float* saved;        // [6, S, B, H, d]: c, n, i, f, tanh(z), sigmoid(o)
+#endif
 };
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -353,7 +369,8 @@ __global__ void __launch_bounds__(kThreads, 1) slstm_kernel(const Args a) {
         const float m_new = fmaxf(fm, pre[0]);
         const float i = expf(__fadd_rn(pre[0], -m_new));
         const float f = expf(__fadd_rn(fm, -m_new));
-        const float c_new = __fadd_rn(__fmul_rn(f, c_s[sc]), __fmul_rn(i, tanhf(pre[2])));
+        const float tz = tanhf(pre[2]);
+        const float c_new = __fadd_rn(__fmul_rn(f, c_s[sc]), __fmul_rn(i, tz));
         const float n_new = __fadd_rn(__fmul_rn(f, n_s[sc]), i);
         const float o_gate = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-pre[3])));
         const float h_new = __fdiv_rn(__fmul_rn(o_gate, c_new), fmaxf(n_new, 1e-6f));
@@ -363,6 +380,18 @@ __global__ void __launch_bounds__(kThreads, 1) slstm_kernel(const Args a) {
         // 4. h out
         __stcg(h_next + si, h_new);
         store(hs + size_t(t) * B * hd + si, h_new);
+#ifdef SLSTM_TRAIN
+        {
+          const size_t plane = size_t(a.S) * B * hd;
+          float* sv = a.saved + size_t(t) * B * hd + si;
+          sv[0] = c_new;
+          sv[plane] = n_new;
+          sv[2 * plane] = i;
+          sv[3 * plane] = f;
+          sv[4 * plane] = tz;
+          sv[5 * plane] = o_gate;
+        }
+#endif
         if (t == a.S - 1) {
           a.hT[si] = h_new;
           a.cT[si] = c_new;
@@ -461,7 +490,8 @@ extern "C" {
 int slstm_launch(const void* gx, int gx_is_bf16, const void* r, int r_is_bf16,
                  const void* bias, const void* h0, const void* c0, const void* n0,
                  const void* m0, void* hs, void* hT, void* cT, void* nT, void* mT,
-                 void* hbuf, int64_t S, int64_t B, int64_t H, int64_t d, void* stream) {
+                 void* hbuf, int64_t S, int64_t B, int64_t H, int64_t d SAVED_C_PARAM,
+                 void* stream) {
   if (S < 1 || B < 1 || H < 1 || d < 4 || d % 4 != 0 || S > 2147483647LL ||
       B > 2147483647LL || H * d > 2147483647LL || 2 * B * H * d > 2147483647LL ||
       reinterpret_cast<uintptr_t>(h0) % 16 != 0 || reinterpret_cast<uintptr_t>(hbuf) % 16 != 0) {
@@ -473,7 +503,8 @@ int slstm_launch(const void* gx, int gx_is_bf16, const void* r, int r_is_bf16,
          static_cast<const float*>(m0), hs, static_cast<float*>(hT),
          static_cast<float*>(cT), static_cast<float*>(nT), static_cast<float*>(mT),
          hb, reinterpret_cast<int*>(hb + 2 * B * H * d), static_cast<int>(S),
-         static_cast<int>(B), static_cast<int>(H), static_cast<int>(d), 0, 0, 0, 0};
+         static_cast<int>(B), static_cast<int>(H), static_cast<int>(d), 0, 0, 0, 0
+         SAVED_C_ARG};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (!gx_is_bf16 && !r_is_bf16) {

@@ -18,6 +18,14 @@ products register-tiled (4 gate-channels × 8 rows a thread: 128 FMAs for
 with one barrier a step among the blocks of a head only, the next step's
 gx loaded while waiting at it. ``csrc/slstm.cu`` has the details.
 
+Training uses a build of the same source with ``-DSLSTM_TRAIN``
+(``TRAIN_BUILD``), which also stores each step's c, n, i, f, tanh z and sigmoid o,
+and the backward ``csrc/slstm_bwd.cu`` (``slstm_bwd_cuda``): the
+reverse-time scan of the model's hand-written BPTT
+(``src/repro/models/xlstm.py::_slstm_core_bwd``), one block a (batch row,
+head), f32 only. It replaces no TPU kernel (``slstm_pallas`` has no
+backward).
+
 The launch raises when the grid cannot be resident at once (no block count
 of at most one an SM fits, or the occupancy calculator refuses it) and when
 the slice of R and the state exceed shared memory; there is no fallback.
@@ -27,6 +35,7 @@ built when this module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -35,15 +44,27 @@ from repro_torch.kernels import build
 DTYPES = (torch.float32, torch.bfloat16)
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 ARGTYPES = (_P, ctypes.c_int, _P, ctypes.c_int, *(_P,) * 11, _I64, _I64, _I64, _I64)
+# the training build: (source, extra nvcc flags), for ``build.build(extra)``
+TRAIN_BUILD = (build.SOURCES["slstm"], ("-DSLSTM_TRAIN",))
+
+
+@functools.cache
+def _train_library():
+    """The training build's library, built at first use."""
+    build.build([TRAIN_BUILD])
+    return build.variant_path(*TRAIN_BUILD)
 
 
 def slstm_cuda(gx: torch.Tensor, r: torch.Tensor, b: torch.Tensor, h0: torch.Tensor,
-               c0: torch.Tensor, n0: torch.Tensor, m0: torch.Tensor):
+               c0: torch.Tensor, n0: torch.Tensor, m0: torch.Tensor, *,
+               saved: torch.Tensor | None = None):
     """gx [S, B, 4, H, d] f32/bf16; r [H, d, 4, d] f32/bf16; b [4, H, d] f32;
     h0, c0, n0, m0 [B, H, d] f32; d % 4 == 0; all contiguous on one CUDA
     device -> (hs [S, B, H, d] in gx's dtype, (h, c, n, m) [B, H, d] f32).
+    ``saved`` (a contiguous f32 [6, S, B, H, d]) launches the training
+    build (``TRAIN_BUILD``), which also fills it (``slstm_train_cuda``).
     Launches on the current stream, does not synchronise;
-    ``slstm_cuda.launches`` counts the launches."""
+    ``slstm_cuda.launches`` counts the launches of both builds."""
     if gx.device.type != "cuda":
         raise ValueError(f"slstm_cuda takes CUDA tensors, got {gx.device}")
     if gx.dim() != 5 or gx.shape[2] != 4 or min(gx.shape) < 1:
@@ -75,14 +96,80 @@ def slstm_cuda(gx: torch.Tensor, r: torch.Tensor, b: torch.Tensor, h0: torch.Ten
     # the h exchange [2, B, H, d] f32, then H int32 arrival counters
     hbuf = torch.empty((2 * bsz * heads * dim + heads,), dtype=torch.float32,
                        device=gx.device)
-    build.launch("slstm", ARGTYPES, gx.device, gx.data_ptr(),
-                 int(gx.dtype == torch.bfloat16), r.data_ptr(),
-                 int(r.dtype == torch.bfloat16), b.data_ptr(),
-                 *(x.data_ptr() for x in states), hs.data_ptr(),
-                 *(x.data_ptr() for x in finals), hbuf.data_ptr(),
-                 s, bsz, heads, dim)
+    args = (gx.data_ptr(), int(gx.dtype == torch.bfloat16), r.data_ptr(),
+            int(r.dtype == torch.bfloat16), b.data_ptr(),
+            *(x.data_ptr() for x in states), hs.data_ptr(),
+            *(x.data_ptr() for x in finals), hbuf.data_ptr(), s, bsz, heads, dim)
+    if saved is None:
+        build.launch("slstm", ARGTYPES, gx.device, *args)
+    else:
+        if (tuple(saved.shape) != (6, s, bsz, heads, dim) or saved.dtype != torch.float32
+                or saved.device != gx.device or not saved.is_contiguous()):
+            raise ValueError(f"saved must be contiguous f32 [6, {s}, {bsz}, {heads}, "
+                             f"{dim}] on {gx.device}")
+        build.launch("slstm", TRAIN_ARGTYPES, gx.device, *args, saved.data_ptr(),
+                     library=_train_library())
     slstm_cuda.launches += 1
     return hs, tuple(finals.unbind(0))
 
 
 slstm_cuda.launches = 0
+
+
+TRAIN_ARGTYPES = (*ARGTYPES, _P)
+BWD_ARGTYPES = (*(_P,) * 12, _I64, _I64, _I64, _I64)
+BWD_MAX_D = 2048
+
+
+def slstm_train_cuda(gx, r, b, h0, c0, n0, m0):
+    """``slstm_cuda`` through the kernel's training build (``TRAIN_BUILD``):
+    f32 gx and r only; returns (hs, (h, c, n, m), saved [6, S, B, H, d] f32:
+    c, n, i, f, tanh z, sigmoid o of every step, which ``slstm_bwd_cuda``
+    reads). Counted in ``slstm_cuda.launches``."""
+    if gx.dtype != torch.float32 or r.dtype != torch.float32:
+        raise ValueError(f"the sLSTM training kernels take f32 gx and r, got {gx.dtype} "
+                         f"and {r.dtype} (bf16 training is not ported)")
+    saved = torch.empty((6, gx.shape[0], gx.shape[1], *gx.shape[3:]),
+                        dtype=torch.float32, device=gx.device)
+    hs, finals = slstm_cuda(gx, r, b, h0, c0, n0, m0, saved=saved)
+    return hs, finals, saved
+
+
+def slstm_bwd_cuda(d_hs, d_hT, d_cT, d_nT, saved, c0, n0, r):
+    """The reverse-time scan of the sLSTM backward (``csrc/slstm_bwd.cu``,
+    the model's ``_slstm_core_bwd``): d_hs [S, B, H, d], the final state's
+    cotangents d_hT, d_cT, d_nT and c0, n0 [B, H, d], saved [6, S, B, H,
+    d] from ``slstm_train_cuda``, r [H, d, 4, d]; all f32, contiguous, on
+    one CUDA device, d % 4 == 0 and d <= 2048 -> (dpre [S, B, 4, H, d],
+    dh0, dc0, dn0). dR and db are left to the caller (one product and one
+    sum over time and batch). Launches on the current stream, does not
+    synchronise; ``slstm_bwd_cuda.launches`` counts the launches."""
+    if d_hs.device.type != "cuda":
+        raise ValueError(f"slstm_bwd_cuda takes CUDA tensors, got {d_hs.device}")
+    if d_hs.dim() != 4:
+        raise ValueError(f"d_hs must be [S, B, H, d], got {tuple(d_hs.shape)}")
+    s, bsz, heads, dim = d_hs.shape
+    state = (bsz, heads, dim)
+    want = {"d_hT": (d_hT, state), "d_cT": (d_cT, state), "d_nT": (d_nT, state),
+            "c0": (c0, state), "n0": (n0, state), "saved": (saved, (6, s, *state)),
+            "r": (r, (heads, dim, 4, dim)), "d_hs": (d_hs, (s, *state))}
+    for name, (x, shape) in want.items():
+        if tuple(x.shape) != shape or x.dtype != torch.float32 or x.device != d_hs.device \
+                or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous f32 {shape} on {d_hs.device}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    if dim % 4 or dim > BWD_MAX_D:
+        raise ValueError(f"d must be a multiple of 4 and at most {BWD_MAX_D}, got {dim}")
+    if r.data_ptr() % 16:
+        r = r.clone()
+    dpre = torch.empty((s, bsz, 4, heads, dim), dtype=torch.float32, device=d_hs.device)
+    dstate = torch.empty((3, *state), dtype=torch.float32, device=d_hs.device)
+    build.launch("slstm_bwd", BWD_ARGTYPES, d_hs.device, d_hs.data_ptr(), d_hT.data_ptr(),
+                 d_cT.data_ptr(), d_nT.data_ptr(), saved.data_ptr(), c0.data_ptr(),
+                 n0.data_ptr(), r.data_ptr(), dpre.data_ptr(),
+                 *(x.data_ptr() for x in dstate), s, bsz, heads, dim)
+    slstm_bwd_cuda.launches += 1
+    return dpre, *dstate.unbind(0)
+
+
+slstm_bwd_cuda.launches = 0

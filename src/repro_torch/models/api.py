@@ -10,20 +10,34 @@ where the reference's parameter pytree is the family's ``nn.Module``:
     decode_step(params, cache, token, pos) -> (logits, cache)
     init_cache(batch, seq_len, device) / grow_cache(cache, cur_len, new_len)
 
+Training takes the parameters as a flat dict ``{name: tensor}`` keyed as
+``named_parameters()`` names them ("embed", "layers.wq", ...), whose
+sorted order is the reference tree's ``jax.tree_util`` flattening order
+(``train_params(module)``, ``init_params(generator)``). ``forward`` and
+``loss_fn`` take either form: a dict runs through the family's module on
+the meta device with ``torch.func.functional_call``, so ``torch.func``
+transforms and the dict optimizers (``repro_torch.optim``) take it as
+they take the logistic regression's.
+
 The other families (moe, hybrid, vlm, audio) raise ``NotImplementedError``
 until their slices land (ROADMAP Queue 1 item 10(c)).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch import nn
+from torch.func import functional_call
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import dense, xlstm
+from repro_torch.optim import apply_updates
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.tree import tree_l2_norm
 
 _FAMILY = {"dense": dense, "ssm": xlstm}
 _NOT_PORTED = ("moe", "hybrid", "vlm", "audio")
@@ -40,10 +54,30 @@ class Model:
         """Random parameters on ``generator``'s device."""
         return self.mod.init(self.cfg, generator)
 
-    # --- train (forward only) -----------------------------------------------
+    @staticmethod
+    def train_params(module: nn.Module) -> dict:
+        """The module's parameters as the flat training dict (detached)."""
+        return {name: p.detach() for name, p in sorted(module.named_parameters())}
 
-    def loss_fn(self, params, batch):
-        return params.loss_fn(batch)
+    def init_params(self, generator: torch.Generator) -> dict:
+        """``init``'s random parameters as the flat training dict."""
+        return self.train_params(self.init(generator))
+
+    # --- train ---------------------------------------------------------------
+
+    def forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        """The teacher-forced forward, tokens [B, S] -> f32 logits [B, S,
+        Vp], of a module or of a flat parameter dict."""
+        if isinstance(params, nn.Module):
+            return params(tokens)
+        return functional_call(_skeleton(self.cfg), params, (tokens,))
+
+    def loss_fn(self, params, batch, ctx=None):
+        """Mean next-token cross-entropy (per-example ``weights`` if the
+        batch has them); ``ctx`` is the reference's sharding context, unused."""
+        logits = self.forward(params, batch["tokens"])
+        return dense.token_xent(logits[:, :-1], batch["labels"][:, 1:],
+                                batch.get("weights"))
 
     # --- serve -------------------------------------------------------------
 
@@ -67,6 +101,11 @@ class Model:
         return {name: F.pad(c, (0, 0, 0, 0, 0, extra)) for name, c in cache.items()}
 
 
+@functools.lru_cache(maxsize=None)
+def _skeleton(cfg: ModelConfig) -> nn.Module:
+    return _FAMILY[cfg.family].skeleton(cfg)
+
+
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family in _FAMILY:
         return Model(cfg=cfg, mod=_FAMILY[cfg.family])
@@ -79,6 +118,19 @@ def build_model(cfg: ModelConfig) -> Model:
 # ---------------------------------------------------------------------------
 # Step factories (shared by the launcher and the tests)
 # ---------------------------------------------------------------------------
+
+
+def make_train_step(model: Model, optimizer):
+    """(params, opt_state, batch) -> (params, opt_state, metrics): value and
+    gradient of ``loss_fn``, the optimizer's update, and the f32 gradient
+    norm, as the reference's ``make_train_step``."""
+    def train_step(params, opt_state, batch):
+        grads, loss = torch.func.grad_and_value(lambda p: model.loss_fn(p, batch))(params)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        params = apply_updates(params, updates)
+        return params, opt_state, {"loss": loss, "grad_norm": tree_l2_norm(grads)}
+
+    return train_step
 
 
 def make_decode_step(model: Model):

@@ -5,14 +5,18 @@ port of ``repro.models.dense``).
 package's pytree layout leaf for leaf: every per-layer leaf is stacked on a
 leading [L] axis (wq [L, D, Hkv, G, hd], wo [L, Hkv, G, hd, D], ...), so
 ``params_from_jax`` carries a JAX parameter tree across with no transposes,
-and the layer loop indexes [l] where the reference scans. Like the
+and the layer loop walks the leaves' ``unbind`` views (``unstack``) where
+the reference scans. Like the
 reference, it keeps a separate ``lm_head`` even where the config says
 ``tie_embeddings=True``.
 
 It serves:
 
-  - the teacher-forced forward and next-token loss (forward only: this
-    slice has no backward);
+  - the teacher-forced forward and next-token loss, differentiable: the
+    norm and attention kernels carry their backward kernels
+    (``kernels.*.ops``), and training runs the module as a template over a
+    flat parameter dict (``skeleton`` with ``torch.func.functional_call``,
+    ``models.api``);
   - prefill, through the flash-attention kernel;
   - single-token decode over a KV cache, full or rolling (sliding-window).
 
@@ -79,43 +83,43 @@ class DenseDecoder(nn.Module):
 
     # --- layer pieces ------------------------------------------------------
 
-    def _qkv(self, l: int, x: torch.Tensor, positions: torch.Tensor):
-        cfg, lp = self.cfg, self.layers
+    def _qkv(self, lp: dict, x: torch.Tensor, positions: torch.Tensor):
+        cfg = self.cfg
         hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
         g = cfg.num_heads // hkv
         b, s, d = x.shape
-        q = (x @ lp["wq"][l].reshape(d, -1)).reshape(b, s, hkv, g, hd)
-        k = (x @ lp["wk"][l].reshape(d, -1)).reshape(b, s, hkv, hd)
-        v = (x @ lp["wv"][l].reshape(d, -1)).reshape(b, s, hkv, hd)
+        q = (x @ lp["wq"].reshape(d, -1)).reshape(b, s, hkv, g, hd)
+        k = (x @ lp["wk"].reshape(d, -1)).reshape(b, s, hkv, hd)
+        v = (x @ lp["wv"].reshape(d, -1)).reshape(b, s, hkv, hd)
         if cfg.qkv_bias:
-            q = q + lp["bq"][l]
-            k = k + lp["bk"][l]
-            v = v + lp["bv"][l]
+            q = q + lp["bq"]
+            k = k + lp["bk"]
+            v = v + lp["bv"]
         q = apply_rope(q.reshape(b, s, hkv * g, hd), positions, cfg.rope_theta)
         q = q.reshape(b, s, hkv, g, hd)
         k = apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
 
-    def _attn_out(self, l: int, o: torch.Tensor) -> torch.Tensor:
+    def _attn_out(self, lp: dict, o: torch.Tensor) -> torch.Tensor:
         b, s = o.shape[:2]
-        wo = self.layers["wo"][l]
+        wo = lp["wo"]
         return o.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
 
-    def _mlp(self, l: int, h: torch.Tensor) -> torch.Tensor:
-        lp = self.layers
-        return swiglu(h, lp["w_gate"][l], lp["w_up"][l], lp["w_down"][l])
+    def _mlp(self, lp: dict, h: torch.Tensor) -> torch.Tensor:
+        return swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
 
-    def _layer(self, l: int, x: torch.Tensor, positions: torch.Tensor,
+    def _layer(self, lp: dict, x: torch.Tensor, positions: torch.Tensor,
                window: Optional[int]):
-        """One pre-norm GQA + SwiGLU block (forward / prefill path); returns
-        the new residual and the layer's (k, v)."""
+        """One pre-norm GQA + SwiGLU block (forward / prefill path) with the
+        layer's leaves ``lp``; returns the new residual and the layer's (k,
+        v)."""
         cfg = self.cfg
-        h = rms_norm(x, self.layers["attn_norm"][l], cfg.norm_eps)
-        q, k, v = self._qkv(l, h, positions)
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        q, k, v = self._qkv(lp, h, positions)
         o = attn_lib.attention(q, k, v, causal=True, window=window)
-        x = x + self._attn_out(l, o)
-        h = rms_norm(x, self.layers["mlp_norm"][l], cfg.norm_eps)
-        return x + self._mlp(l, h), (k, v)
+        x = x + self._attn_out(lp, o)
+        h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+        return x + self._mlp(lp, h), (k, v)
 
     # --- forward / loss ----------------------------------------------------
 
@@ -124,8 +128,8 @@ class DenseDecoder(nn.Module):
         cfg = self.cfg
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         x = _embed(cfg, self, tokens)
-        for l in range(cfg.num_layers):
-            x, _ = self._layer(l, x, positions, window)
+        for lp in unstack(self.layers):
+            x, _ = self._layer(lp, x, positions, window)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         return _logits(cfg, self, x)
 
@@ -146,8 +150,8 @@ class DenseDecoder(nn.Module):
         cache = {"k": torch.empty(shape, dtype=_dt(cfg), device=tokens.device),
                  "v": torch.empty(shape, dtype=_dt(cfg), device=tokens.device)}
         x = _embed(cfg, self, tokens)
-        for l in range(cfg.num_layers):
-            x, (k, v) = self._layer(l, x, positions, window)
+        for l, lp in enumerate(unstack(self.layers)):
+            x, (k, v) = self._layer(lp, x, positions, window)
             cache["k"][l] = k
             cache["v"][l] = v
         x = rms_norm(x[:, -1:], self.final_norm, cfg.norm_eps)
@@ -174,9 +178,9 @@ class DenseDecoder(nn.Module):
         else:
             kv_pos = torch.arange(t, device=dev)
         x = _embed(cfg, self, token[:, None])
-        for l in range(cfg.num_layers):
-            h = rms_norm(x, self.layers["attn_norm"][l], cfg.norm_eps)
-            q, k, v = self._qkv(l, h, positions)
+        for l, lp in enumerate(unstack(self.layers)):
+            h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+            q, k, v = self._qkv(lp, h, positions)
             ck, cv = cache["k"][l], cache["v"][l]
             ck[:, slot] = k[:, 0]
             cv[:, slot] = v[:, 0]
@@ -184,11 +188,21 @@ class DenseDecoder(nn.Module):
                 q, ck, cv, q_pos=positions, kv_pos=kv_pos, causal=True,
                 window=cfg.window if rolling else None,
                 kv_len=None if rolling else pos + 1)
-            x = x + self._attn_out(l, o)
-            h = rms_norm(x, self.layers["mlp_norm"][l], cfg.norm_eps)
-            x = x + self._mlp(l, h)
+            x = x + self._attn_out(lp, o)
+            h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+            x = x + self._mlp(lp, h)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         return _logits(cfg, self, x)[:, 0], cache
+
+
+def unstack(leaves) -> list[dict]:
+    """One dict of views a layer from leaves stacked on a leading axis, by
+    one ``unbind`` a leaf: its backward stacks the layers' gradients in one
+    pass, where indexing [l] gives every layer a full-size zero gradient of
+    the stack to add up (L passes over the stack)."""
+    names = list(leaves)
+    return [dict(zip(names, views, strict=True))
+            for views in zip(*(leaves[n].unbind(0) for n in names), strict=True)]
 
 
 def _embed(cfg: ModelConfig, params: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
@@ -198,7 +212,9 @@ def _embed(cfg: ModelConfig, params: nn.Module, tokens: torch.Tensor) -> torch.T
 
 def _logits(cfg: ModelConfig, params: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """[B, S, D] -> f32 logits [B, S, Vp] through ``params.lm_head``, the
-    padded vocab set to -1e30."""
+    padded vocab set to -1e30 in place (autograd keeps it right: the product
+    saves its inputs, not its output, and the masked columns get no
+    gradient)."""
     logits = (x @ params.lm_head).to(torch.float32)
     if logits.shape[-1] != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = NEG_INF
@@ -236,6 +252,20 @@ def init(cfg: ModelConfig, generator: torch.Generator) -> DenseDecoder:
     return DenseDecoder(cfg, {"embed": embed, "layers": layers,
                               "final_norm": ones(shapes["final_norm"]),
                               "lm_head": lm_head})
+
+
+def meta_tensors(shapes: dict) -> dict:
+    """A nested dict of leaf shapes as empty f32 tensors on the meta device."""
+    return {k: meta_tensors(v) if isinstance(v, dict)
+            else torch.empty(v, dtype=torch.float32, device="meta")
+            for k, v in shapes.items()}
+
+
+def skeleton(cfg: ModelConfig) -> DenseDecoder:
+    """The module with every leaf on the meta device (no memory): the
+    template that ``torch.func.functional_call`` runs a flat parameter dict
+    through."""
+    return DenseDecoder(cfg, meta_tensors(param_shapes(cfg)))
 
 
 def params_from_jax(cfg: ModelConfig, np_params: dict, device=None) -> DenseDecoder:

@@ -22,9 +22,13 @@ step. Every RMSNorm goes through the fused kernel: two a block and the
 final one, 2L + 1 launches a forward, prefill or decode step.
 
 It serves prefill (last-token logits and the recurrent state) and
-single-token decode, and computes the teacher-forced forward and loss
-(forward only: this slice has no backward). There is no KV cache: the
-state is O(1) in the sequence, and ``decode_step`` updates it in place (the
+single-token decode, and computes the teacher-forced forward and loss,
+differentiable: the mLSTM scan is plain PyTorch under autograd, as the
+reference differentiates it, and the norm and sLSTM kernels carry their
+backward kernels (``kernels.*.ops``; the sLSTM one is the model's
+hand-written BPTT). The teacher-forced forward writes no state: it starts
+from zero states and drops the final ones. There is no KV cache: the state
+is O(1) in the sequence, and ``decode_step`` updates it in place (the
 reference returns an updated copy), which saves a second 5.6 GB copy of
 the mLSTM state at xlstm-1.3b, batch 8.
 """
@@ -40,7 +44,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.slstm.ops import slstm_scan
-from repro_torch.models.dense import _embed, _logits, token_xent
+from repro_torch.models.dense import _embed, _logits, meta_tensors, token_xent, unstack
 from repro_torch.models.layers import dense_init, embed_init, gelu, rms_norm
 from repro_torch.models.specs import pad_vocab
 from repro_torch.utils.device import resolve_device
@@ -150,9 +154,12 @@ def _mlstm_gates(lp: dict, u: torch.Tensor):
     return torch.clamp_max(li, IGATE_CLIP), F.logsigmoid(lf)
 
 
-def mlstm_scan(q, k, v, log_i, log_f, chunk: int, C: torch.Tensor, n: torch.Tensor):
+def mlstm_scan(q, k, v, log_i, log_f, chunk: int, C: torch.Tensor | None,
+               n: torch.Tensor | None):
     """Chunkwise mLSTM. q/k/v [B, S, H, dh]; log_i/log_f [B, S, H]; C [B, H,
-    dk, dv], n [B, H, dk] the carried-in state. f32 inside. Returns (y [B,
+    dk, dv], n [B, H, dk] the carried-in state, or both None for a zero
+    state (whose carry-in terms are skipped: nothing of [B, H, dk, dv] is
+    allocated for them or saved for a backward). f32 inside. Returns (y [B,
     S, H, dh] f32, C, n): the state after the last position."""
     b, s, h, dh = q.shape
     scale = _scale(dh)
@@ -171,22 +178,26 @@ def mlstm_scan(q, k, v, log_i, log_f, chunk: int, C: torch.Tensor, n: torch.Tens
         cum = torch.cumsum(lf, dim=1)                      # [B, q, H]
         total = cum[:, -1]
         dec_in = torch.exp(cum)                            # decay applied to carry-in
-        y_prev = torch.einsum("bqhk,bhkv->bqhv", qq * dec_in[..., None], C) * scale
         g = (cum[:, :, None, :] - cum[:, None, :, :]) + li[:, None, :, :]   # [B, q, t, H]
         gate = torch.where(mask[None, :, :, None], torch.exp(g), 0.0)
         scores = torch.einsum("bqhk,bthk->bqth", qq, kk) * scale * gate
-        y_intra = torch.einsum("bqth,bthv->bqhv", scores, vv)
+        y = torch.einsum("bqth,bthv->bqhv", scores, vv)
         # normalizer: n_q = dec_in*n0 + sum_{t<=q} exp(cum_q-cum_t+li_t) k_t
         kgate = torch.einsum("bqth,bthk->bqhk", gate, kk)
         dec_out = torch.exp(total[:, None, :] - cum) * torch.exp(li)   # [B, q, H]
         decay = torch.exp(total)
-        n_q = dec_in[..., None] * n[:, None] + kgate
-        C = decay[:, :, None, None] * C + torch.einsum(
-            "bqhk,bqhv->bhkv", kk * dec_out[..., None], vv)
-        n = decay[:, :, None] * n + torch.einsum("bqh,bqhk->bhk", dec_out, kk)
+        C_in = torch.einsum("bqhk,bqhv->bhkv", kk * dec_out[..., None], vv)
+        n_in = torch.einsum("bqh,bqhk->bhk", dec_out, kk)
+        if C is None:
+            n_q, C, n = kgate, C_in, n_in
+        else:
+            y = torch.einsum("bqhk,bhkv->bqhv", qq * dec_in[..., None], C) * scale + y
+            n_q = dec_in[..., None] * n[:, None] + kgate
+            C = decay[:, :, None, None] * C + C_in
+            n = decay[:, :, None] * n + n_in
         qn = torch.einsum("bqhk,bqhk->bqh", qq, n_q) * scale
         denom = torch.clamp_min(torch.abs(qn), 1.0)
-        ys.append((y_prev + y_intra) / denom[..., None])
+        ys.append(y / denom[..., None])
     return torch.cat(ys, dim=1)[:, :s], C, n
 
 
@@ -205,10 +216,11 @@ def mlstm_step(C: torch.Tensor, n: torch.Tensor, q, k, v, log_i, log_f) -> torch
     return num / torch.clamp_min(torch.abs(qn), 1.0)[..., None]
 
 
-def mlstm_block(cfg: ModelConfig, lp: dict, x: torch.Tensor, state: MLSTMCache,
+def mlstm_block(cfg: ModelConfig, lp: dict, x: torch.Tensor, state: MLSTMCache | None,
                 single: bool) -> torch.Tensor:
     """Pre-norm mLSTM block over x [B, S, D]; ``state`` (C, n) is read and
-    overwritten in place."""
+    overwritten in place, or None: a zero state, written nowhere (the
+    teacher-forced forward)."""
     b, s, D = x.shape
     d_inner, H, dh = mdims(cfg)
     u = rms_norm(x, lp["norm"], cfg.norm_eps)
@@ -218,9 +230,11 @@ def mlstm_block(cfg: ModelConfig, lp: dict, x: torch.Tensor, state: MLSTMCache,
         y = mlstm_step(state.C, state.n, q[:, 0], k[:, 0], v[:, 0], li[:, 0], lf[:, 0])
         y = y[:, None]
     else:
-        y, C, n = mlstm_scan(q, k, v, li, lf, cfg.ssm_chunk or 256, state.C, state.n)
-        state.C.copy_(C)
-        state.n.copy_(n)
+        y, C, n = mlstm_scan(q, k, v, li, lf, cfg.ssm_chunk or 256,
+                             *((None, None) if state is None else state))
+        if state is not None:
+            state.C.copy_(C)
+            state.n.copy_(n)
     og = torch.sigmoid((u @ lp["w_og"]).float())
     y = y.reshape(b, s, d_inner) * og
     y = rms_norm(y.to(x.dtype), lp["out_norm"], cfg.norm_eps)
@@ -233,9 +247,10 @@ def mlstm_block(cfg: ModelConfig, lp: dict, x: torch.Tensor, state: MLSTMCache,
 
 
 def slstm_block(cfg: ModelConfig, lp: dict, x: torch.Tensor,
-                state: SLSTMCache) -> torch.Tensor:
+                state: SLSTMCache | None) -> torch.Tensor:
     """Sequential sLSTM over x [B, S, D] through the time-scan kernel, then
-    the GELU MLP; ``state`` (h, c, n, m) is read and overwritten in place."""
+    the GELU MLP; ``state`` (h, c, n, m) is read and overwritten in place,
+    or None: a zero state, written nowhere."""
     b, s, D = x.shape
     hs_, d = sdims(cfg)
     u = rms_norm(x, lp["norm"], cfg.norm_eps)
@@ -245,9 +260,14 @@ def slstm_block(cfg: ModelConfig, lp: dict, x: torch.Tensor,
     # the recurrent matrix in the model's dtype (the reference casts it to
     # halve its bytes); the product accumulates in f32
     r = lp["r_gates"].to(_dt(cfg))
-    hs, final = slstm_scan(gx, r, lp["b_gates"], *state)
-    for slot, new in zip(state, final, strict=True):
-        slot.copy_(new)
+    if state is None:
+        zero = torch.zeros((b, hs_, d), dtype=torch.float32, device=x.device)
+        hs, _ = slstm_scan(gx, r, lp["b_gates"], zero, zero, zero,
+                           torch.full_like(zero, -1e30))
+    else:
+        hs, final = slstm_scan(gx, r, lp["b_gates"], *state)
+        for slot, new in zip(state, final, strict=True):
+            slot.copy_(new)
     y = hs.transpose(0, 1).reshape(b, s, D).to(x.dtype)
     y = rms_norm(y, lp["out_norm"], cfg.norm_eps)
     x = x + y @ lp["w_out"]
@@ -280,27 +300,31 @@ class XLSTMDecoder(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def _stack(self, x: torch.Tensor, cache: XLSTMCache, single: bool) -> torch.Tensor:
+    def _stack(self, x: torch.Tensor, cache: XLSTMCache | None,
+               single: bool) -> torch.Tensor:
         """The G super-blocks over x [B, S, D], each M mLSTM blocks then one
-        sLSTM block, reading and overwriting ``cache`` in place."""
+        sLSTM block, reading ``cache`` and overwriting it in place; with
+        ``cache`` None every block starts from a zero state and none is
+        kept."""
         cfg = self.cfg
-        G, M = _group_struct(cfg)
-        for g in range(G):
-            for mi in range(M):
-                lp = {k: v[g, mi] for k, v in self.mlstm.items()}
-                x = mlstm_block(cfg, lp, x, MLSTMCache(*(t[g, mi] for t in cache.mlstm)),
-                                single)
-            lp = {k: v[g] for k, v in self.slstm.items()}
-            x = slstm_block(cfg, lp, x, SLSTMCache(*(t[g] for t in cache.slstm)))
+        mlstm, slstm = unstack(self.mlstm), unstack(self.slstm)
+        for g, (group, lp) in enumerate(zip(mlstm, slstm, strict=True)):
+            for mi, mp in enumerate(unstack(group)):
+                state = None if cache is None else MLSTMCache(
+                    *(t[g, mi] for t in cache.mlstm))
+                x = mlstm_block(cfg, mp, x, state, single)
+            state = None if cache is None else SLSTMCache(*(t[g] for t in cache.slstm))
+            x = slstm_block(cfg, lp, x, state)
         return x
 
     # --- forward / loss ----------------------------------------------------
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Teacher-forced forward: tokens [B, S] -> logits [B, S, Vp]."""
+        """Teacher-forced forward: tokens [B, S] -> logits [B, S, Vp], from
+        zero states, writing none (differentiable)."""
         cfg = self.cfg
         x = _embed(cfg, self, tokens)
-        x = self._stack(x, init_cache(cfg, tokens.shape[0], device=tokens.device), False)
+        x = self._stack(x, None, False)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         return _logits(cfg, self, x)
 
@@ -367,6 +391,13 @@ def init(cfg: ModelConfig, generator: torch.Generator) -> XLSTMDecoder:
         "mlstm": mlstm, "slstm": slstm,
         "final_norm": torch.ones(shapes["final_norm"], dtype=_dt(cfg), device=dev),
         "lm_head": dense_init(shapes["lm_head"], _dt(cfg), generator)})
+
+
+def skeleton(cfg: ModelConfig) -> XLSTMDecoder:
+    """The module with every leaf on the meta device (no memory): the
+    template that ``torch.func.functional_call`` runs a flat parameter dict
+    through."""
+    return XLSTMDecoder(cfg, meta_tensors(param_shapes(cfg)))
 
 
 def params_from_jax(cfg: ModelConfig, np_params: dict, device=None) -> XLSTMDecoder:

@@ -952,3 +952,153 @@ def test_reduced_xlstm_serve_launches_the_kernels(card):
     assert flash_attention_cuda.launches == f0
     for a, b in zip(got.logits, cpu.logits, strict=True):
         assert torch.allclose(a, b, rtol=1e-3, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# backward kernels: each against its plain backward on the same inputs
+# ---------------------------------------------------------------------------
+
+
+def _max_rel(got, want):
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d,dtype,scale_dtype", [
+    (1024, 896, "float32", "float32"), (300, 4095, "float32", "float32"),
+    (7, 8192, "float32", "float32"), (64, 896, "bfloat16", "float32"),
+    (64, 896, "bfloat16", "bfloat16")])
+def test_rmsnorm_bwd_kernel_matches_plain(card, rows, d, dtype, scale_dtype):
+    """dx within (D/2 + 8)·ε₃₂ of the largest |dx| (one bf16 ulp in bf16),
+    dscale within (R/2 + D/2 + 8)·ε₃₂ of the largest |dscale|; two
+    launches bit-identical (no atomics)."""
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd_cuda
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
+    gen = torch.Generator(device=card)
+    gen.manual_seed(1)
+    dt, sdt = getattr(torch, dtype), getattr(torch, scale_dtype)
+    x = (3 * torch.randn((rows, d), generator=gen, device=card)).to(dt)
+    s = (1 + 0.1 * torch.randn((d,), generator=gen, device=card)).to(sdt)
+    dy = torch.randn((rows, d), generator=gen, device=card).to(dt)
+    before = rmsnorm_bwd_cuda.launches
+    dx, ds = rmsnorm_bwd_cuda(x, s, dy, 1e-5)
+    dx2, ds2 = rmsnorm_bwd_cuda(x, s, dy, 1e-5)
+    want = rmsnorm_bwd_ref(x, s, dy, 1e-5)
+    torch.cuda.synchronize()
+    assert rmsnorm_bwd_cuda.launches == before + 2
+    assert dx.dtype == dt and ds.dtype == sdt
+    bf16 = 2.0 ** -7
+    assert _max_rel(dx, want[0]) <= (bf16 if dtype == "bfloat16" else (d / 2 + 8) * EPS32)
+    assert _max_rel(ds, want[1]) <= (bf16 if scale_dtype == "bfloat16"
+                                     else (rows / 2 + d / 2 + 8) * EPS32)
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bhkv,g,s,d,causal,window,dtype", [
+    (16, 7, 128, 64, True, None, "float32"), (4, 2, 200, 128, True, 40, "float32"),
+    (4, 1, 77, 64, False, None, "float32"), (4, 3, 100, 64, False, 30, "float32"),
+    (8, 7, 128, 64, True, None, "bfloat16"), (2, 2, 96, 128, True, None, "bfloat16")])
+def test_flash_attention_bwd_kernel_matches_plain(card, bhkv, g, s, d, causal, window, dtype):
+    """The training build's o bit-equal to the serve build's and its lse
+    within 1e-5 of the plain one; dq, dk, dv within 1e-5 of their largest
+    entry in f32 (SIMT f32 sums of at most 200 terms), one bf16 ulp in bf16;
+    two launches bit-identical (dk, dv summed over the group in a fixed
+    order)."""
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_cuda,
+                                                            flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_lse_ref
+    gen = torch.Generator(device=card)
+    gen.manual_seed(2)
+    dt = getattr(torch, dtype)
+    q, do = (torch.randn((bhkv * g, s, d), generator=gen, device=card).to(dt) for _ in "12")
+    k, v = (torch.randn((bhkv, s, d), generator=gen, device=card).to(dt) for _ in "12")
+    o_serve = flash_attention_cuda(q, k, v, group=g, causal=causal, window=window)
+    o, lse = flash_attention_cuda(q, k, v, group=g, causal=causal, window=window,
+                                  with_lse=True)
+    grads = flash_attention_bwd_cuda(q, k, v, o, lse, do, group=g, causal=causal,
+                                     window=window)
+    again = flash_attention_bwd_cuda(q, k, v, o, lse, do, group=g, causal=causal,
+                                     window=window)
+    q4 = q.view(bhkv, g, s, d)
+    _, lse_ref = attention_lse_ref(q4, k[:, None], v[:, None], causal=causal, window=window)
+    want = attention_bwd_ref(q4, k[:, None], v[:, None], o.view(q4.shape),
+                             lse.view(bhkv, g, s), do.view(q4.shape), causal=causal,
+                             window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_serve)
+    assert float((lse - lse_ref.reshape(lse.shape)).abs().max()) <= 1e-5 * float(
+        lse_ref.abs().max())
+    tol = 2.0 ** -7 if dtype == "bfloat16" else 1e-5
+    for got, w in zip(grads, (want[0].reshape(q.shape), want[1][:, 0], want[2][:, 0])):
+        assert got.dtype == dt and _max_rel(got, w) <= tol
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,b,h,d", [(16, 3, 4, 64), (64, 8, 4, 512), (5, 2, 1, 8)])
+def test_slstm_train_and_bwd_kernels_match_plain(card, s, b, h, d):
+    """The training build's hs bit-equal to the serve build's and its stores
+    within 1e-5 of the plain ones (relative to the largest); the BPTT's
+    dpre and dh0 within 1e-5 of the largest entry of the plain backward's,
+    dc0, dn0 to 1e-5 as well, with nonzero final-state cotangents."""
+    from repro_torch.kernels.slstm.kernel import slstm_bwd_cuda, slstm_cuda, slstm_train_cuda
+    from repro_torch.kernels.slstm.ref import slstm_bwd_ref, slstm_ref
+    gen = torch.Generator(device=card)
+    gen.manual_seed(3)
+    rn = lambda *shape: torch.randn(shape, generator=gen, device=card)
+    gx, r, bias = rn(s, b, 4, h, d), rn(h, d, 4, d) / d ** 0.5, 0.1 * rn(4, h, d)
+    h0, c0 = 0.5 * rn(b, h, d), 0.5 * rn(b, h, d)
+    n0, m0 = rn(b, h, d).abs() + 0.5, rn(b, h, d)
+    hs_serve, _ = slstm_cuda(gx, r, bias, h0, c0, n0, m0)
+    hs, _, saved = slstm_train_cuda(gx, r, bias, h0, c0, n0, m0)
+    _, _, saved_ref = slstm_ref(gx, r, bias, h0, c0, n0, m0, save=True)
+    d_hs, d_h, d_c, d_n = rn(s, b, h, d), rn(b, h, d), rn(b, h, d), rn(b, h, d)
+    got = slstm_bwd_cuda(d_hs, d_h, d_c, d_n, saved, c0, n0, r)
+    res = (torch.cat([h0[None], hs[:-1]]), torch.cat([c0[None], saved[0][:-1]]),
+           torch.cat([n0[None], saved[1][:-1]]), *saved[2:], saved[0], saved[1])
+    want = slstm_bwd_ref(d_hs, d_h, d_c, d_n, res, r)
+    torch.cuda.synchronize()
+    assert torch.equal(hs, hs_serve)
+    assert _max_rel(saved, saved_ref) <= 1e-5
+    for name, g_, w in zip(("dpre", "dh0", "dc0", "dn0"), got, (want[0], *want[3:6])):
+        assert _max_rel(g_, w) <= 1e-5, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "xlstm-1.3b"])
+def test_reduced_train_step_on_the_card(card, arch):
+    """One value-and-grad of the reduced config's loss on the card against
+    the CPU from the same parameters: every forward and backward kernel of
+    the family launched, loss within 1e-5, every gradient leaf nonzero and
+    within 3e-4 of its largest entry (the CPU tests' bound against JAX,
+    ``test_torch_train_dense.py``: the reference's init grows the residual
+    stream to ~5e3, so the two sides' f32 sums part by ~1e-4 of a leaf's
+    largest entry)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_cuda,
+                                                            flash_attention_cuda)
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd_cuda, rmsnorm_cuda
+    from repro_torch.kernels.slstm.kernel import slstm_bwd_cuda, slstm_cuda
+    from repro_torch.models import api
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced(arch).with_(dtype="float32", remat=False)
+    model = api.build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (4, 32), generator=torch.Generator().manual_seed(1))
+    kernels = [rmsnorm_cuda, rmsnorm_bwd_cuda] + (
+        [flash_attention_cuda, flash_attention_bwd_cuda] if cfg.family == "dense"
+        else [slstm_cuda, slstm_bwd_cuda])
+    for c in kernels:
+        c.launches = 0
+    gg, lg = torch.func.grad_and_value(lambda p: model.loss_fn(
+        p, {"tokens": toks.cuda(), "labels": toks.cuda()}))({k: v.cuda() for k, v in params.items()})
+    torch.cuda.synchronize()
+    assert all(c.launches > 0 for c in kernels)
+    gc, lc = torch.func.grad_and_value(lambda p: model.loss_fn(
+        p, {"tokens": toks, "labels": toks}))(params)
+    assert abs(float(lg) - float(lc)) <= 1e-5 * abs(float(lc))
+    for name in gc:
+        assert float(gg[name].abs().max()) > 0, name
+        assert _max_rel(gg[name].cpu(), gc[name]) <= 3e-4, name

@@ -28,7 +28,8 @@ def test_port_imports_no_jax_and_no_reference_package():
             "repro_torch.kernels.slstm.ops", "repro_torch.configs.xlstm_1_3b",
             "repro_torch.federated.server", "repro_torch.federated.rounds",
             "repro_torch.optim.adamw", "repro_torch.data.pipeline",
-            "repro_torch.core.sharding"} <= set(modules)
+            "repro_torch.core.sharding", "repro_torch.launch.train",
+            "repro_torch.data.synthetic"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"

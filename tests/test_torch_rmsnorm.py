@@ -97,10 +97,21 @@ def test_dispatch_refuses_other_devices():
 
 def test_builder_knows_every_kernel_source():
     """One shared builder compiles every ``csrc/*.cu`` of the port, each into
-    its own library named by a hash of its source."""
+    its own library named by a hash of its source, and the two training
+    builds (a forward source with a flag, built through ``build(extra)``)
+    into libraries of their own."""
     assert set(build.SOURCES) == {"aircomp", "quant_aircomp", "sparse_aircomp",
-                                  "rmsnorm", "flash_attention", "slstm"}
+                                  "rmsnorm", "flash_attention", "slstm", "rmsnorm_bwd",
+                                  "flash_attention_bwd", "slstm_bwd"}
     for name, src in build.SOURCES.items():
         assert src.parent.name == "csrc" and src.suffix == ".cu"
         assert build.library_path(name).name.startswith(f"lib{name}-")
-    assert len({build.library_path(n) for n in build.SOURCES}) == 6
+    from repro_torch.kernels.flash_attention.kernel import LSE_BUILD
+    from repro_torch.kernels.slstm.kernel import TRAIN_BUILD
+    trains = {LSE_BUILD: "flash_attention", TRAIN_BUILD: "slstm"}
+    for (src, flags), name in trains.items():
+        assert src == build.SOURCES[name] and flags
+        assert build.variant_path(src, flags).name.startswith(f"lib{name}-")
+    paths = {build.library_path(n) for n in build.SOURCES}
+    paths |= {build.variant_path(*t) for t in trains}
+    assert len(paths) == 11
