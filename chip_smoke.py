@@ -149,13 +149,17 @@ these phases and fails (non-zero exit, no result line) if any of them fails:
      bf16, 112 × 2048² × 64; ``slstm_bwd`` S = 128 and 2048 at B = 8,
      H = 4, d = 512), two launches bit-identical, the training builds'
      o and hs bit-equal to the serve builds', each timed beside its bound
-     and a library call (``F.rms_norm``'s and SDPA's f32 backwards; none
-     for the sLSTM); ``repro_torch.launch.train``'s path at full width and
+     and a library call (``F.rms_norm``'s and SDPA's f32 backwards, the
+     short flash shape also as device time a call; none for the sLSTM),
+     HMMA counted in the flash backward's 8 instantiations, how a step of
+     the sLSTM backward's long scan splits (``step_split --backward``);
+     ``repro_torch.launch.train``'s path at full width and
      depth for qwen2-0.5b and xlstm-1.3b (ca_afl, analog, N = 8, K = 4,
      seq 128, 2 rows a client, SGD; 5 rounds): every forward and backward
      kernel's launches exact, finite loss, λ and energy, steps/s, peak
      memory beside a plan from the shapes, no gradient leaf zero or
-     missing; one round of each at full width and cut depth on the card
+     missing, each backward kernel's device ms a round and µs a launch in
+     a profiled round; one round of each at full width and cut depth on the card
      and the CPU from the same weights and draws, and a seeded card run
      repeated bit for bit; ``examples/train_federated_100m_torch.py`` for
      40 rounds (its loss must fall).
@@ -262,13 +266,14 @@ def phase_card(torch):
     from repro_torch.kernels.slstm import step_split
     from repro_torch.kernels.slstm.kernel import TRAIN_BUILD
     t0 = time.perf_counter()
-    # with slstm's step-split builds and the two training builds
-    libs = build.build([*step_split.variants(), LSE_BUILD, TRAIN_BUILD])
+    # with slstm's and slstm_bwd's step-split builds and the two training builds
+    splits = [*step_split.variants(), *step_split.variants(backward=True)]
+    libs = build.build([*splits, LSE_BUILD, TRAIN_BUILD])
     build_s = time.perf_counter() - t0
     emit({"card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "kernel_build_s": build_s,
           "kernels_built": sorted(libs),
-          "slstm_step_split_builds": len(step_split.variants()),
+          "slstm_step_split_builds": len(splits),
           "training_builds": [LSE_BUILD[1][0], TRAIN_BUILD[1][0]]})
     return card
 
@@ -3031,14 +3036,17 @@ def flash_bound(torch, bhq, bhkv, sq, t, d, causal, window, dtype):
 
 def flash_hmma():
     """The HMMA (tensor-core) instructions in each flash instantiation's SASS,
-    read with cuobjdump from the built library; fails if one has none, so a
-    SIMT path cannot pass for the tensor-core one."""
+    the forward's and the backward's dK/dV and dq kernels (d ∈ {64, 128} ×
+    f32, bf16), read with cuobjdump from the built libraries; fails if one
+    has none, so a SIMT path cannot pass for the tensor-core one."""
     from repro_torch.kernels import build
-    counts = {name: n for name, n in build.hmma_counts(build.library_path("flash_attention")).items()
-              if "flash_attention_kernel" in name}
-    emit({"flash_attention_hmma": counts})
-    if len(counts) != 4 or min(counts.values()) == 0:
-        raise AssertionError(f"flash_attention: an instantiation without HMMA: {counts}")
+    for lib, marks, want in (("flash_attention", ("flash_attention_kernel",), 4),
+                             ("flash_attention_bwd", ("flash_bwd_dkdv", "flash_bwd_dq"), 8)):
+        counts = {name: n for name, n in build.hmma_counts(build.library_path(lib)).items()
+                  if any(m in name for m in marks)}
+        emit({f"{lib}_hmma": counts})
+        if len(counts) != want or min(counts.values()) == 0:
+            raise AssertionError(f"{lib}: an instantiation without HMMA: {counts}")
 
 
 def phase_flash(torch):
@@ -3524,9 +3532,11 @@ def phase_rmsnorm_bwd(torch):
 
 
 # flash_attention_bwd's tolerance, relative to the largest entry of each
-# gradient: 1e-5 in f32 (SIMT f32 sums of at most T terms against the plain
-# version's f32 products; the long shape sums 2048) and 2⁻⁷ (one bf16 step)
-# in bf16
+# gradient: 1e-5 in f32 (3×TF32 products, each tile's sum added to the
+# accumulator by an IEEE add, against the plain version's f32 products; dK
+# and dV at the long shape sum 7 × 2048 terms) and 2⁻⁷ (one bf16 step) in
+# bf16; tests/test_torch_flash_bwd_numerics.py holds the two routes' CPU
+# emulations to the same against jax.vjp
 FLASH_BWD_CASES = [   # (name, BHkv, G, S, d, causal, window, dtype, why)
     ("train_qwen2_0_5b", 16, 7, 128, 64, True, None, "float32",
      "qwen2-0.5b's gather round: 8 rows x 14 q / 2 kv heads, S = 128, d = 64"),
@@ -3544,7 +3554,7 @@ def flash_bwd_bound(torch, bhq, bhkv, s, d, causal, window, elt):
     3×TF32, three passes at the TF32 rate (the f32-accurate work on this
     card, as ``flash_bound`` counts the forward), or q, k, v, o, dO, lse read
     and dq, dk, dv written once over the memory rate; the SIMT f32 bound
-    (the kernel's present route) beside it."""
+    (the SIMT design's route) beside it."""
     flops = 10 * d * allowed_pairs(torch, s, s, causal, window) * bhq
     nbytes = (3 * bhq * s * d + 2 * bhkv * s * d) * elt + bhq * s * 4 \
         + (bhq * s * d + 2 * bhkv * s * d) * elt
@@ -3608,14 +3618,21 @@ def phase_flash_bwd(torch):
             qs, ks, vs = (t.clone().requires_grad_() for t in (qs, ks, vs))
             out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
             reps = 2 if s >= 2048 else 50
+
+            def library():
+                return torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True)
+
             timings.append({
                 "case": name, "shape": [bhkv * g, s, s, d], "group": g, "dtype": dtype,
                 "max_abs_err": max_err, "ms": time_ms(torch, kernel, reps),
                 "plain_ms": time_ms(torch, plain, 1 if s >= 2048 else reps,
                                     3 if s >= 2048 else SAMPLES),
-                "library_ms": time_ms(torch, lambda: torch.autograd.grad(
-                    out, (qs, ks, vs), dos, retain_graph=True), reps),
+                "library_ms": time_ms(torch, library, reps),
                 "library": "SDPA's f32 backward (k, v repeated to the q heads)",
+                # the short shape's calls are host-bound: device time a call
+                # with the card kept ahead of the host, both sides
+                "device_ms": device_ms(torch, kernel) if s < 2048 else None,
+                "library_device_ms": device_ms(torch, library, 20) if s < 2048 else None,
                 **flash_bwd_bound(torch, bhkv * g, bhkv, s, d, causal, window, 4)})
             del qs, ks, vs, out
         del q, k, v, do, o, lse, got, again, ref
@@ -3715,6 +3732,11 @@ def phase_slstm_bwd(torch):
         del args, hs, saved, saved_ref, saved64, cts, res, got, again, ref, exact
     emit({"slstm_bwd_checks": checks})
     emit({"slstm_bwd_timing": timings})
+    # where a step of the backward's long scan goes: the kernel built with
+    # its first 1, 2, 3 and 4 parts (barrier, dpre exchange, products and
+    # their sum, cell)
+    from repro_torch.kernels.slstm.step_split import step_split
+    emit({"slstm_bwd_step_split": step_split(torch, backward=True)})
     return timings
 
 
@@ -3873,11 +3895,13 @@ def profile_train(torch, arch, rounds=1):
         # time over the wrapper's launches in the window
         from torch.autograd import DeviceType
         per_round = train_launches(cfg, 1)
+        summary["bwd_device_ms_a_round"] = {}
         for name, marks in BWD_MARKS.items():
             us = sum(e.time_range.elapsed_us() for e in prof.events()
                      if e.device_type == DeviceType.CUDA and any(m in e.name for m in marks))
             n = per_round.get(name, 0) * rounds
             summary["kernel_device_us_per_launch"][name] = us / n if n else None
+            summary["bwd_device_ms_a_round"][name] = us / rounds / 1e3 if n else None
     emit({"train_trace": {"arch": arch, "rounds": rounds, **(summary or {})}})
     del ps, state, batches
     torch.cuda.empty_cache()

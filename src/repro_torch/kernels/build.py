@@ -9,8 +9,9 @@ the packages.
 Each source is compiled by ``nvcc`` (sm_90a) into its own shared library at
 first use, all sources at once, one ``nvcc`` a source, into
 ``build/repro_torch/`` under the checkout (or ``$REPRO_TORCH_BUILD_DIR`` for
-an installed package), named by a hash of the source and the flags so an
-unchanged source is not rebuilt; ``ctypes`` loads it. Nothing is built or
+an installed package), named by a hash of the source, the ``*.cuh``
+headers beside it and the flags so an unchanged source is not rebuilt;
+``ctypes`` loads it. Nothing is built or
 imported when this module is imported.
 """
 from __future__ import annotations
@@ -63,9 +64,11 @@ def build_dir() -> Path:
 
 def variant_path(source: Path, flags: tuple[str, ...] = ()) -> Path:
     """Where the library of ``source`` built with the extra nvcc ``flags``
-    (e.g. ``-D`` macros) lives: named by a hash of the source and all the
-    flags."""
+    (e.g. ``-D`` macros) lives: named by a hash of the source, the headers
+    beside it (``*.cuh``, which it may include) and all the flags."""
     h = hashlib.sha256(Path(source).read_bytes())
+    for header in sorted(Path(source).parent.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join((*NVCC_FLAGS, *flags)).encode())
     return build_dir() / f"lib{Path(source).stem}-{h.hexdigest()[:16]}.so"
 

@@ -24,11 +24,15 @@ outside the window skipped; the longest causal rows launched first.
 Training uses a build of the same source with ``-DFLASH_ATTENTION_LSE``
 (``LSE_BUILD``), which also writes each row's log-sum-exp, and the backward
 ``csrc/flash_attention_bwd.cu`` (``flash_attention_bwd_cuda``): dq, dk, dv
-for causal / windowed GQA, P recomputed from q, k and the log-sum-exp, dk
-and dv summed over each kv head's G q heads inside the block that owns the
-kv tile (no atomics). It replaces no TPU kernel (the JAX package
-differentiates its pure-JAX attention); bound by operations; a first
-SIMT f32 design (``csrc/flash_attention_bwd.cu`` has the details).
+for causal / windowed GQA, P recomputed from q, k and the log-sum-exp. It
+replaces no TPU kernel (the JAX package differentiates its pure-JAX
+attention); bound by operations (bytes at the training shape). All five
+products run on the tensor cores at the forward's precision routes (3×TF32;
+bf16 with P and dS split); a block of 4 warps owns 64 kv rows (dK, dV) or
+64 q rows (dq) with the accumulators in registers; where the dK/dV grid
+would leave the card idle, a kv head's G q heads are split over blocks
+(``bwd_splits``) whose f32 partials a last pass adds in a fixed order (no
+atomics). ``csrc/flash_attention_bwd.cu`` has the details.
 
 The sources are built and loaded by ``repro_torch.kernels.build``; nothing is
 built when this module is imported.
@@ -88,7 +92,29 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention_cuda.launches = 0
 
 BWD_ARGTYPES = (*(_P,) * 10, ctypes.c_int, ctypes.c_int, _I64, _I64, _I64, _I64,
-                ctypes.c_int, _I64, ctypes.c_float)
+                ctypes.c_int, _I64, ctypes.c_float, ctypes.c_int)
+# the backward's dK/dV blocks: 64 kv rows of a kv head, split over a kv
+# head's q heads until the grid reaches two blocks on each of an H100's 132
+# SMs (``bwd_splits``)
+BWD_KV_ROWS = 64
+BWD_FILL_BLOCKS = 264
+
+
+def bwd_splits(bhkv: int, group: int, t: int) -> int:
+    """The blocks the backward splits each kv head's ``group`` q heads over:
+    the least divisor of ``group`` that brings the dK/dV grid (kv tiles ×
+    kv heads × splits) to ``BWD_FILL_BLOCKS``, else ``group``. A function of
+    the shape alone, so a shape's sums always run in one order."""
+    blocks = bhkv * -(-t // BWD_KV_ROWS)
+    return next((s for s in range(1, group + 1)
+                 if group % s == 0 and blocks * s >= BWD_FILL_BLOCKS), group)
+
+
+def bwd_scratch_floats(bhq: int, bhkv: int, group: int, sq: int, t: int, d: int) -> int:
+    """The backward's f32 scratch: Dv [BHq·Sq], padded to 16 bytes, then
+    the split dK and dV partials [2, splits, BHkv, T, d] when it splits."""
+    splits = bwd_splits(bhkv, group, t)
+    return -(-bhq * sq // 4) * 4 + (2 * splits * bhkv * t * d if splits > 1 else 0)
 
 
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, group: int, causal: bool = True,
@@ -110,15 +136,16 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, group: int, causal: bool = 
     if tuple(lse.shape) != (bhq, sq) or lse.dtype != torch.float32 \
             or lse.device != q.device or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous [{bhq}, {sq}] f32 on {q.device}")
-    if bhq > 65535:
-        raise ValueError(f"the backward takes at most 65535 q heads, got {bhq}")
+    bhkv, t = k.shape[:2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    scratch = torch.empty((bhq, sq), dtype=torch.float32, device=q.device)
+    scratch = torch.empty((bwd_scratch_floats(bhq, bhkv, group, sq, t, d),),
+                          dtype=torch.float32, device=q.device)
     build.launch("flash_attention_bwd", BWD_ARGTYPES, q.device, q.data_ptr(), k.data_ptr(),
                  v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
                  dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
-                 int(q.dtype == torch.bfloat16), d, bhq, group, sq, k.shape[1],
-                 int(causal), 0 if window is None else window, 1.0 / (d ** 0.5))
+                 int(q.dtype == torch.bfloat16), d, bhq, group, sq, t,
+                 int(causal), 0 if window is None else window, 1.0 / (d ** 0.5),
+                 bwd_splits(bhkv, group, t))
     flash_attention_bwd_cuda.launches += 1
     return dq, dk, dv
 

@@ -91,6 +91,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "slstm_sync.cuh"
+
 // step-split variants (step_split.py): 1 the barrier alone, 2 + the h
 // exchange, 3 + the products, 4 the whole step (the kernel)
 #ifndef SLSTM_STAGES
@@ -159,26 +161,6 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
   const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-// the release pattern: the fence releases the writes of every thread of the
-// block made before the __syncthreads that precedes it
-__device__ __forceinline__ void arrive(int* counter) {
-  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
-  asm volatile("red.relaxed.gpu.global.add.s32 [%0], %1;\n" ::"l"(counter), "r"(1) : "memory");
-}
-__device__ __forceinline__ void wait_for(const int* counter, int target) {
-  int seen;
-  do {
-    asm volatile("ld.global.acquire.gpu.b32 %0, [%1];\n" : "=r"(seen) : "l"(counter) : "memory");
-  } while (seen < target);
 }
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
@@ -419,13 +401,6 @@ __global__ void __launch_bounds__(kThreads, 1) slstm_kernel(const Args a) {
       __syncthreads();
     }
   }
-}
-
-// clears the pending error state so a refused launch is not reported again
-// by the next kernel's cudaGetLastError()
-cudaError_t fail(cudaError_t err) {
-  cudaGetLastError();
-  return err;
 }
 
 template <typename G, typename R>

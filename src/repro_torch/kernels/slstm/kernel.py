@@ -22,9 +22,11 @@ Training uses a build of the same source with ``-DSLSTM_TRAIN``
 (``TRAIN_BUILD``), which also stores each step's c, n, i, f, tanh z and sigmoid o,
 and the backward ``csrc/slstm_bwd.cu`` (``slstm_bwd_cuda``): the
 reverse-time scan of the model's hand-written BPTT
-(``src/repro/models/xlstm.py::_slstm_core_bwd``), one block a (batch row,
-head), f32 only. It replaces no TPU kernel (``slstm_pallas`` has no
-backward).
+(``src/repro/models/xlstm.py::_slstm_core_bwd``), f32 only, in the
+forward's design: one cooperative launch, a block a head's slice of
+channels keeping its rows of R in shared memory for the whole scan, dpre
+exchanged through the output at L2 with a per-head barrier a step. It
+replaces no TPU kernel (``slstm_pallas`` has no backward).
 
 The launch raises when the grid cannot be resident at once (no block count
 of at most one an SM fits, or the occupancy calculator refuses it) and when
@@ -117,8 +119,7 @@ slstm_cuda.launches = 0
 
 
 TRAIN_ARGTYPES = (*ARGTYPES, _P)
-BWD_ARGTYPES = (*(_P,) * 12, _I64, _I64, _I64, _I64)
-BWD_MAX_D = 2048
+BWD_ARGTYPES = (*(_P,) * 13, _I64, _I64, _I64, _I64)
 
 
 def slstm_train_cuda(gx, r, b, h0, c0, n0, m0):
@@ -140,10 +141,13 @@ def slstm_bwd_cuda(d_hs, d_hT, d_cT, d_nT, saved, c0, n0, r):
     the model's ``_slstm_core_bwd``): d_hs [S, B, H, d], the final state's
     cotangents d_hT, d_cT, d_nT and c0, n0 [B, H, d], saved [6, S, B, H,
     d] from ``slstm_train_cuda``, r [H, d, 4, d]; all f32, contiguous, on
-    one CUDA device, d % 4 == 0 and d <= 2048 -> (dpre [S, B, 4, H, d],
-    dh0, dc0, dn0). dR and db are left to the caller (one product and one
-    sum over time and batch). Launches on the current stream, does not
-    synchronise; ``slstm_bwd_cuda.launches`` counts the launches."""
+    one CUDA device, d % 4 == 0 -> (dpre [S, B, 4, H, d], dh0, dc0, dn0).
+    dR and db are left to the caller (one product and one sum over time and
+    batch). The launch raises when the grid cannot be resident at once or
+    its shared memory (R's slice, the exchange rows, the partial sums:
+    d <= 516 at H = 4 on 132 SMs) exceeds the card's. Launches on the current stream,
+    does not synchronise; ``slstm_bwd_cuda.launches`` counts the
+    launches."""
     if d_hs.device.type != "cuda":
         raise ValueError(f"slstm_bwd_cuda takes CUDA tensors, got {d_hs.device}")
     if d_hs.dim() != 4:
@@ -158,16 +162,17 @@ def slstm_bwd_cuda(d_hs, d_hT, d_cT, d_nT, saved, c0, n0, r):
                 or not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous f32 {shape} on {d_hs.device}, "
                              f"got {x.dtype} {tuple(x.shape)} on {x.device}")
-    if dim % 4 or dim > BWD_MAX_D:
-        raise ValueError(f"d must be a multiple of 4 and at most {BWD_MAX_D}, got {dim}")
+    if dim % 4:
+        raise ValueError(f"d must be a multiple of 4, got {dim}")
     if r.data_ptr() % 16:
         r = r.clone()
     dpre = torch.empty((s, bsz, 4, heads, dim), dtype=torch.float32, device=d_hs.device)
     dstate = torch.empty((3, *state), dtype=torch.float32, device=d_hs.device)
+    counters = torch.empty((heads,), dtype=torch.int32, device=d_hs.device)
     build.launch("slstm_bwd", BWD_ARGTYPES, d_hs.device, d_hs.data_ptr(), d_hT.data_ptr(),
                  d_cT.data_ptr(), d_nT.data_ptr(), saved.data_ptr(), c0.data_ptr(),
                  n0.data_ptr(), r.data_ptr(), dpre.data_ptr(),
-                 *(x.data_ptr() for x in dstate), s, bsz, heads, dim)
+                 *(x.data_ptr() for x in dstate), counters.data_ptr(), s, bsz, heads, dim)
     slstm_bwd_cuda.launches += 1
     return dpre, *dstate.unbind(0)
 

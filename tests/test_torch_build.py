@@ -177,3 +177,96 @@ def test_aircomp_compare_refuses_without_a_card():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=Path(build.__file__).resolve().parents[2], timeout=120)
     assert out.returncode != 0 and "no CUDA device" in out.stderr
+
+
+def test_step_split_builds_the_backward_stages():
+    """``--backward`` builds ``slstm_bwd.cu`` at SLSTM_BWD_STAGES 1..4,
+    libraries apart from the forward's stages and from the kernel's own."""
+    got = step_split.variants(backward=True)
+    assert [flags for _, flags in got] == [(f"-DSLSTM_BWD_STAGES={n}",) for n in (1, 2, 3, 4)]
+    assert all(src == build.SOURCES["slstm_bwd"] for src, _ in got)
+    paths = {build.variant_path(s, f) for s, f in got}
+    assert len(paths) == 4 and build.library_path("slstm_bwd") not in paths
+    assert paths.isdisjoint({build.variant_path(s, f) for s, f in step_split.variants()})
+
+
+def test_slstm_bwd_source_guards_every_stage():
+    """The exchange, the products and the cell are each guarded, and the
+    full kernel is stage 4 by default."""
+    text = build.SOURCES["slstm_bwd"].read_text()
+    assert "#define SLSTM_BWD_STAGES 4" in text
+    for guard in ("SLSTM_BWD_STAGES >= 2", "SLSTM_BWD_STAGES >= 3", "SLSTM_BWD_STAGES < 4"):
+        assert guard in text
+
+
+@pytest.mark.parametrize("bhkv,group,t,want", [
+    (16, 7, 128, 7),     # qwen2-0.5b's gather round: 32 dK/dV blocks, split over 7
+    (16, 7, 2048, 1),    # the long shape: 512 blocks already fill the card
+    (40, 2, 512, 1), (4, 2, 200, 2), (3, 3, 45, 3), (20, 6, 256, 6),
+    (66, 6, 128, 2),     # 132 blocks: 2 of 6 heads' splits reach 264
+    (1, 48, 64, 48),     # granite-34b's one kv head
+])
+def test_flash_bwd_splits_are_the_least_divisor_that_fills_the_card(bhkv, group, t, want):
+    from repro_torch.kernels.flash_attention.kernel import (BWD_FILL_BLOCKS, BWD_KV_ROWS,
+                                                            bwd_scratch_floats, bwd_splits)
+    splits = bwd_splits(bhkv, group, t)
+    assert splits == want and group % splits == 0
+    blocks = bhkv * -(-t // BWD_KV_ROWS)
+    assert splits == group or blocks * splits >= BWD_FILL_BLOCKS
+    bhq, d = bhkv * group, 64
+    base = -(-bhq * t // 4) * 4
+    assert bwd_scratch_floats(bhq, bhkv, group, t, t, d) == (
+        base + 2 * splits * bhkv * t * d if splits > 1 else base)
+
+
+def test_flash_bwd_source_owns_the_wrapper_rows_a_block():
+    """The wrapper's split rule counts the .cu's dK/dV blocks: 4 warps of 16
+    kv rows, 64 a block, and the scratch holds the partials after Dv padded
+    to 16 bytes."""
+    from repro_torch.kernels.flash_attention.kernel import BWD_KV_ROWS
+    text = build.SOURCES["flash_attention_bwd"].read_text()
+    assert "constexpr int kWarps = 4;" in text and "constexpr int kA = 16 * kWarps;" in text
+    assert BWD_KV_ROWS == 16 * 4
+    assert "scratch + ((rows + 3) & ~int64_t(3))" in text
+
+
+def test_compare_scripts_call_each_source_by_its_interface(tmp_path):
+    """This tree's backward sources take the new arguments (flash's
+    ``splits``, sLSTM's ``counters``); a source without them is called as
+    the design before."""
+    from repro_torch.kernels.flash_attention import compare as flash_compare
+    from repro_torch.kernels.slstm import compare as slstm_compare
+    assert flash_compare.takes_splits(flash_compare.BWD_SOURCE)
+    assert slstm_compare.takes_counters(slstm_compare.SOURCE)
+    old = tmp_path / "old.cu"
+    old.write_text("int flash_attention_bwd_launch(float scale, void* stream);\n"
+                   "int slstm_bwd_launch(void* dn0, int64_t S, void* stream);\n")
+    assert not flash_compare.takes_splits(old) and not slstm_compare.takes_counters(old)
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("repro_torch.kernels.flash_attention.compare", ["compare", "--backward"]),
+    ("repro_torch.kernels.slstm.compare", ["compare"]),
+    ("repro_torch.kernels.slstm.step_split", ["step_split", "--backward"]),
+])
+def test_backward_timing_scripts_refuse_without_a_card(monkeypatch, module, argv):
+    import importlib
+    script = importlib.import_module(module)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(sys, "argv", argv)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        script.main()
+
+
+def test_variant_library_names_hash_the_headers_beside_the_source(tmp_path):
+    """A header beside a source (``flash_mma.cuh``, which both flash
+    sources include) is part of its libraries' names: editing it rebuilds
+    them."""
+    src, header = tmp_path / "k.cu", tmp_path / "h.cuh"
+    src.write_text('#include "h.cuh"\n')
+    header.write_text("// one\n")
+    first = build.variant_path(src)
+    header.write_text("// two\n")
+    assert build.variant_path(src) != first
+    assert (build.SOURCES["flash_attention"].parent / "flash_mma.cuh").is_file()
+    assert not any(p.suffix == ".cuh" for p in build.SOURCES.values())

@@ -999,13 +999,22 @@ def test_rmsnorm_bwd_kernel_matches_plain(card, rows, d, dtype, scale_dtype):
 @pytest.mark.parametrize("bhkv,g,s,d,causal,window,dtype", [
     (16, 7, 128, 64, True, None, "float32"), (4, 2, 200, 128, True, 40, "float32"),
     (4, 1, 77, 64, False, None, "float32"), (4, 3, 100, 64, False, 30, "float32"),
-    (8, 7, 128, 64, True, None, "bfloat16"), (2, 2, 96, 128, True, None, "bfloat16")])
+    (8, 7, 128, 64, True, None, "bfloat16"), (2, 2, 96, 128, True, None, "bfloat16"),
+    # the q-head split on (the training shape above: 32 dK/dV blocks x 7) and
+    # off (40 kv heads x 8 kv tiles = 320 blocks, beyond two an SM)
+    (40, 2, 512, 64, True, None, "float32"),
+    # ragged Sq = T against the 64-row blocks and 32-row tiles
+    (3, 2, 131, 64, True, None, "float32"), (3, 3, 45, 128, False, None, "float32"),
+    # a window with G > 1, split over 7 blocks
+    (2, 7, 300, 64, True, 64, "float32"),
+    # d = 128 in bf16, windowed and ragged
+    (2, 6, 200, 128, True, 50, "bfloat16")])
 def test_flash_attention_bwd_kernel_matches_plain(card, bhkv, g, s, d, causal, window, dtype):
     """The training build's o bit-equal to the serve build's and its lse
     within 1e-5 of the plain one; dq, dk, dv within 1e-5 of their largest
-    entry in f32 (SIMT f32 sums of at most 200 terms), one bf16 ulp in bf16;
-    two launches bit-identical (dk, dv summed over the group in a fixed
-    order)."""
+    entry in f32 (3×TF32 products summed in f32 over at most 512 terms), one
+    bf16 ulp (2⁻⁷) in bf16; two launches bit-identical (dk, dv summed over
+    the group in a fixed order, split or not)."""
     from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_cuda,
                                                             flash_attention_cuda)
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, attention_lse_ref
@@ -1037,7 +1046,23 @@ def test_flash_attention_bwd_kernel_matches_plain(card, bhkv, g, s, d, causal, w
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,b,h,d", [(16, 3, 4, 64), (64, 8, 4, 512), (5, 2, 1, 8)])
+def test_flash_attention_bwd_rejects_outside_its_domain(card):
+    """d outside {64, 128} raises before any launch; nothing is counted."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd_cuda
+    q = torch.zeros((2, 16, 32), device=card)
+    k = torch.zeros((1, 16, 32), device=card)
+    lse = torch.zeros((2, 16), device=card)
+    before = flash_attention_bwd_cuda.launches
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_bwd_cuda(q, k, k, q, lse, q, group=2)
+    assert flash_attention_bwd_cuda.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,b,h,d", [
+    (16, 3, 4, 64), (64, 8, 4, 512), (5, 2, 1, 8),
+    # B = 1; B = 9 (two passes of 8 rows); H = 1 at d = 128
+    (7, 1, 4, 64), (6, 9, 4, 64), (9, 4, 1, 128)])
 def test_slstm_train_and_bwd_kernels_match_plain(card, s, b, h, d):
     """The training build's hs bit-equal to the serve build's and its stores
     within 1e-5 of the plain ones (relative to the largest); the BPTT's
@@ -1064,6 +1089,53 @@ def test_slstm_train_and_bwd_kernels_match_plain(card, s, b, h, d):
     assert _max_rel(saved, saved_ref) <= 1e-5
     for name, g_, w in zip(("dpre", "dh0", "dc0", "dn0"), got, (want[0], *want[3:6])):
         assert _max_rel(g_, w) <= 1e-5, name
+    again = slstm_bwd_cuda(d_hs, d_h, d_c, d_n, saved, c0, n0, r)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_slstm_bwd_kernel_with_a_ragged_last_block(card):
+    """d = 260 at H = 4: the backward's 8-channel blocks (33 a head on 132
+    SMs) leave the last of each head 4 channels. The forward takes no such d
+    (its blocks own a power of two dividing d), so the stores come from the
+    plain forward; dpre, dh0, dc0, dn0 within 1e-5 of the plain backward's
+    largest entries, two launches bit-identical."""
+    from repro_torch.kernels.slstm.kernel import slstm_bwd_cuda
+    from repro_torch.kernels.slstm.ref import slstm_bwd_ref, slstm_ref
+    s, b, h, d = 6, 3, 4, 260
+    gen = torch.Generator(device=card)
+    gen.manual_seed(5)
+    rn = lambda *shape: torch.randn(shape, generator=gen, device=card)
+    gx, r, bias = rn(s, b, 4, h, d), rn(h, d, 4, d) / d ** 0.5, 0.1 * rn(4, h, d)
+    h0, c0 = 0.5 * rn(b, h, d), 0.5 * rn(b, h, d)
+    n0, m0 = rn(b, h, d).abs() + 0.5, rn(b, h, d)
+    hs, _, saved = slstm_ref(gx, r, bias, h0, c0, n0, m0, save=True)
+    d_hs, d_h, d_c, d_n = rn(s, b, h, d), rn(b, h, d), rn(b, h, d), rn(b, h, d)
+    got = slstm_bwd_cuda(d_hs, d_h, d_c, d_n, saved.contiguous(), c0, n0, r)
+    again = slstm_bwd_cuda(d_hs, d_h, d_c, d_n, saved.contiguous(), c0, n0, r)
+    res = (torch.cat([h0[None], hs[:-1]]), torch.cat([c0[None], saved[0][:-1]]),
+           torch.cat([n0[None], saved[1][:-1]]), *saved[2:], saved[0], saved[1])
+    want = slstm_bwd_ref(d_hs, d_h, d_c, d_n, res, r)
+    torch.cuda.synchronize()
+    for name, g_, w in zip(("dpre", "dh0", "dc0", "dn0"), got, (want[0], *want[3:6])):
+        assert _max_rel(g_, w) <= 1e-5, name
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_slstm_bwd_rejects_outside_its_domain(card):
+    """d % 4 != 0 raises in the wrapper; d = 1024 at H = 4, whose slice of R
+    (32 channels × 4096 f32) exceeds shared memory, is refused by the
+    launch and raises; neither is counted."""
+    from repro_torch.kernels.slstm.kernel import slstm_bwd_cuda
+    for h, d, err in ((1, 6, ValueError), (4, 1024, RuntimeError)):
+        state = torch.zeros((1, h, d), device=card)
+        saved = torch.ones((6, 1, 1, h, d), device=card)
+        r = torch.zeros((h, d, 4, d), device=card)
+        before = slstm_bwd_cuda.launches
+        with pytest.raises(err):
+            slstm_bwd_cuda(state[None], state, state, state, saved, state, state, r)
+        assert slstm_bwd_cuda.launches == before
 
 
 @pytest.mark.cuda
