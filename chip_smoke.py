@@ -149,8 +149,10 @@ these phases and fails (non-zero exit, no result line) if any of them fails:
      bf16, 112 × 2048² × 64; ``slstm_bwd`` S = 128 and 2048 at B = 8,
      H = 4, d = 512), two launches bit-identical, the training builds'
      o and hs bit-equal to the serve builds', each timed beside its bound
-     and a library call (``F.rms_norm``'s and SDPA's f32 backwards, the
-     short flash shape also as device time a call; none for the sLSTM),
+     and a library call (``F.rms_norm``'s and SDPA's f32 backwards; the
+     norm's four shapes and the short flash shape also as device time a
+     call, the library's too; none for the sLSTM), the norm's device
+     kernels a call by torch.profiler (at most two, all ``rmsnorm_bwd_*``),
      HMMA counted in the flash backward's 8 instantiations, how a step of
      the sLSTM backward's long scan splits (``step_split --backward``);
      ``repro_torch.launch.train``'s path at full width and
@@ -3482,9 +3484,10 @@ RMSNORM_BWD_CASES = [   # (name, rows, D, why)
 
 def phase_rmsnorm_bwd(torch):
     """rmsnorm_bwd against its plain backward at the training shapes and a
-    long one, f32; two launches bit-identical; timed beside F.rms_norm's
-    autograd backward."""
-    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd_cuda
+    long one, f32; two launches bit-identical; each case timed (host and
+    device time a call) beside F.rms_norm's autograd backward, with its
+    bytes bound and the kernel's blocks (``bwd_blocks``)."""
+    from repro_torch.kernels.rmsnorm.kernel import bwd_blocks, rmsnorm_bwd_cuda
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
 
     gen = torch.Generator(device="cuda")
@@ -3504,31 +3507,88 @@ def phase_rmsnorm_bwd(torch):
         max_err = max(float((g - p).abs().max()) for g, p in zip(got, plain))
         checks.append({"case": name, "shape": [rows, d], "why": why,
                        "rel_err": errs, "tolerance_rel": tols, "max_abs_err": max_err,
-                       "bit_identical_launches": same,
+                       "bit_identical_launches": same, "bwd_blocks": bwd_blocks(rows, d),
                        "within": all(errs[k] <= tols[k] for k in errs)})
         if not (checks[-1]["within"] and same and math.isfinite(max_err)):
             raise AssertionError(f"rmsnorm_bwd {name}: {checks[-1]}")
-        if name in ("train_qwen2_0_5b", "long"):
-            xr, sr = x.clone().requires_grad_(), scale.clone().requires_grad_()
-            y = torch.nn.functional.rms_norm(xr, (d,), sr, 1e-5)
-            nbytes = (3 * rows * d + 2 * d) * 4
-            reps = 20 if rows > 4096 else 200
-            timings.append({
-                "case": name, "shape": [rows, d], "dtype": "float32", "max_abs_err": max_err,
-                "ms": time_ms(torch, lambda: rmsnorm_bwd_cuda(x, scale, dy, 1e-5), reps),
-                "device_ms": device_ms(torch, lambda: rmsnorm_bwd_cuda(x, scale, dy, 1e-5)),
-                "plain_ms": time_ms(torch, lambda: rmsnorm_bwd_ref(x, scale, dy, 1e-5), reps),
-                "library_ms": time_ms(torch, lambda: torch.autograd.grad(
-                    y, (xr, sr), dy, retain_graph=True), reps),
-                "library": "torch.autograd.grad of F.rms_norm (its backward alone)",
-                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
-                "bound_by": "bytes",
-                "bound_reason": "x and dy read, dx written, f32; a few flops an element"})
-            del xr, sr, y
-        del x, scale, dy, got, again, plain
+        xr, sr = x.clone().requires_grad_(), scale.clone().requires_grad_()
+        y = torch.nn.functional.rms_norm(xr, (d,), sr, 1e-5)
+        nbytes = (3 * rows * d + 2 * d) * 4
+        reps = 20 if rows > 4096 else 200
+
+        def kernel():
+            return rmsnorm_bwd_cuda(x, scale, dy, 1e-5)
+
+        def library():
+            return torch.autograd.grad(y, (xr, sr), dy, retain_graph=True)
+
+        timings.append({
+            "case": name, "shape": [rows, d], "dtype": "float32", "max_abs_err": max_err,
+            "bwd_blocks": bwd_blocks(rows, d),
+            "ms": time_ms(torch, kernel, reps), "device_ms": device_ms(torch, kernel),
+            "plain_ms": time_ms(torch, lambda: rmsnorm_bwd_ref(x, scale, dy, 1e-5), reps),
+            "library_ms": time_ms(torch, library, reps),
+            "library_device_ms": device_ms(torch, library, 20),
+            "library": "torch.autograd.grad of F.rms_norm (its backward alone)",
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes,
+            "bound_by": "bytes",
+            "bound_reason": "x and dy read, dx written, f32; a few flops an element"})
+        del x, scale, dy, got, again, plain, xr, sr, y
     emit({"rmsnorm_bwd_checks": checks})
     emit({"rmsnorm_bwd_timing": timings})
     return timings
+
+
+def rmsnorm_bwd_kernel_counts(torch):
+    """The device kernels one rmsnorm_bwd call launches at each
+    RMSNORM_BWD_CASES shape, by torch.profiler (3 calls after a warm one,
+    the host waiting 50 ms on each side of them); run in a fresh process
+    by ``phase_rmsnorm_bwd_kernels``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.rmsnorm.kernel import bwd_blocks, rmsnorm_bwd_cuda
+
+    rows_out, calls = [], 3
+    for name, rows, d, _ in RMSNORM_BWD_CASES:
+        x = torch.randn((rows, d), device="cuda")
+        scale, dy = torch.ones((d,), device="cuda"), torch.randn((rows, d), device="cuda")
+        rmsnorm_bwd_cuda(x, scale, dy, 1e-5)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            for _ in range(calls):
+                rmsnorm_bwd_cuda(x, scale, dy, 1e-5)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        rows_out.append({"case": name, "shape": [rows, d], "bwd_blocks": bwd_blocks(rows, d),
+                         "device_kernels_a_call": len(names) / calls,
+                         "names": sorted(set(names))})
+        del x, scale, dy
+    return rows_out
+
+
+def phase_rmsnorm_bwd_kernels(torch):
+    """The device kernels a rmsnorm_bwd call launches (at most two, every
+    one named ``rmsnorm_bwd_*``), counted in a fresh process: late in this
+    script a short profiler window of these calls saw no device event on
+    the card, though the same window in a fresh process sees every one
+    (and the train traces' round-long windows see every launch)."""
+    code = ("import json, sys, torch; sys.path[:0] = [sys.argv[1], sys.argv[1] + '/src']; "
+            "import chip_smoke; print(json.dumps(chip_smoke.rmsnorm_bwd_kernel_counts(torch)))")
+    out = subprocess.run([sys.executable, "-c", code, str(ROOT)], capture_output=True,
+                         text=True, timeout=600, check=False, cwd=ROOT)
+    if out.returncode != 0:
+        raise AssertionError(f"rmsnorm_bwd kernels a call: rc {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    rows_out = json.loads(out.stdout.strip().splitlines()[-1])
+    emit({"rmsnorm_bwd_device_kernels": rows_out})
+    for row in rows_out:
+        if not (0 < row["device_kernels_a_call"] <= 2
+                and all("rmsnorm_bwd_" in n for n in row["names"])):
+            raise AssertionError(f"rmsnorm_bwd {row['case']}: device kernels {row}")
+    return rows_out
 
 
 # flash_attention_bwd's tolerance, relative to the largest entry of each
@@ -3902,6 +3962,10 @@ def profile_train(torch, arch, rounds=1):
             n = per_round.get(name, 0) * rounds
             summary["kernel_device_us_per_launch"][name] = us / n if n else None
             summary["bwd_device_ms_a_round"][name] = us / rounds / 1e3 if n else None
+            kernels_n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                            and any(m in e.name for m in marks))
+            summary.setdefault("bwd_device_kernels_a_launch", {})[name] = (
+                kernels_n / n if n else None)
     emit({"train_trace": {"arch": arch, "rounds": rounds, **(summary or {})}})
     del ps, state, batches
     torch.cuda.empty_cache()
@@ -4114,6 +4178,7 @@ def main() -> int:
         del served
         torch.cuda.empty_cache()
     train_traces = {arch: profile_train(torch, arch) for arch in TRAIN_ARCHS}
+    rms_bwd_kernels = phase_rmsnorm_bwd_kernels(torch)
     for transport in ("analog", "quantized", "sparse"):
         phase_card_vs_cpu(torch, transport)
     phase_sweep_card_vs_cpu(torch, data)
@@ -4212,12 +4277,20 @@ def main() -> int:
         timing = next(t for t in bwd_t[name] if t["case"] == case)
         trace = train_traces[arch]
         package = name.rsplit("_bwd", 1)[0]
+        extra = {}
+        if name == "rmsnorm_bwd":   # xlstm-1.3b's round runs it too, at D = 2048 and 4096
+            xlstm = train_traces["xlstm-1.3b"]
+            extra = {"xlstm_device_us_per_launch":
+                     xlstm and xlstm["kernel_device_us_per_launch"].get(name),
+                     "device_kernels_a_call": {r["case"]: r["device_kernels_a_call"]
+                                               for r in rms_bwd_kernels}}
         entries.append(kernel_entry(
             name, f"src/repro_torch/kernels/{package}/csrc/{name}.cu", tpu,
             train_runs[arch]["launches"][name], timing,
             trace and trace["kernel_device_us_per_launch"].get(name),
             backward_of=package,
-            launches_by_run={a: r["launches"][name] for a, r in train_runs.items()}))
+            launches_by_run={a: r["launches"][name] for a, r in train_runs.items()},
+            **extra))
     emit({"seconds_by_line": seconds_by_line(t_start)})
     emit({"script_s": time.perf_counter() - t_start})
     emit({"kernels": entries})

@@ -248,6 +248,7 @@ def test_compare_scripts_call_each_source_by_its_interface(tmp_path):
     ("repro_torch.kernels.flash_attention.compare", ["compare", "--backward"]),
     ("repro_torch.kernels.slstm.compare", ["compare"]),
     ("repro_torch.kernels.slstm.step_split", ["step_split", "--backward"]),
+    ("repro_torch.kernels.rmsnorm.compare", ["compare"]),
 ])
 def test_backward_timing_scripts_refuse_without_a_card(monkeypatch, module, argv):
     import importlib
@@ -270,3 +271,77 @@ def test_variant_library_names_hash_the_headers_beside_the_source(tmp_path):
     assert build.variant_path(src) != first
     assert (build.SOURCES["flash_attention"].parent / "flash_mma.cuh").is_file()
     assert not any(p.suffix == ".cuh" for p in build.SOURCES.values())
+
+
+@pytest.mark.parametrize("rows,d,want", [
+    (1024, 896, 128),     # qwen2-0.5b's gather round: one row a warp, one block an SM
+    (1024, 2048, 128),    # xlstm-1.3b's d_model: two warps a row, two rows a slot
+    (1024, 4096, 256),    # its mLSTM out-norm: four warps a row, two blocks an SM
+    (16384, 2048, 256),   # the long shape: 64-row bands
+    (128, 896, 16),       # the cut-depth card-vs-CPU round
+    (7, 8192, 7),         # the card tests' 7 rows: one row a block, 8 warps a row
+    (1, 896, 1), (1, 8192, 1),
+])
+def test_rmsnorm_bwd_blocks_are_a_function_of_the_shape(rows, d, want):
+    """``bwd_blocks`` fixes the backward's grid, and with it the order of
+    every dscale sum, from (rows, D) alone: within 1..BWD_MAX_BLOCKS (the
+    .cu's cooperative grid, two blocks an SM), no block without a row, at
+    most one row a slot's worth of blocks, two an SM only where every slot
+    walks two rows or more."""
+    from repro_torch.kernels.rmsnorm.kernel import (BWD_MAX_BLOCKS, BWD_WARPS, bwd_blocks,
+                                                    bwd_warps_a_row)
+    blocks = bwd_blocks(rows, d)
+    assert blocks == want == bwd_blocks(rows, d)
+    assert 1 <= blocks <= BWD_MAX_BLOCKS
+    slots = BWD_WARPS // bwd_warps_a_row(d)
+    band = -(-rows // blocks)
+    assert (blocks - 1) * band < rows <= blocks * band
+    assert blocks <= -(-rows // slots)
+    if blocks > BWD_MAX_BLOCKS // 2:
+        assert band >= 2 * slots
+
+
+@pytest.mark.parametrize("d,want", [(1, 1), (896, 1), (1024, 1), (1025, 2), (2048, 2),
+                                    (3000, 4), (4096, 4), (4097, 8), (8192, 8)])
+def test_rmsnorm_bwd_warps_a_row_hold_at_most_1024_columns_a_warp(d, want):
+    from repro_torch.kernels.rmsnorm.kernel import BWD_WARP_COLS, bwd_warps_a_row
+    assert bwd_warps_a_row(d) == want
+    assert want * BWD_WARP_COLS >= d and (want == 1 or want * BWD_WARP_COLS // 2 < d)
+
+
+def test_rmsnorm_bwd_source_owns_the_wrapper_grid():
+    """The wrapper's grid rule and barrier words are the .cu's: blocks of 8
+    warps of at most 1024 columns, two blocks an SM (launch bounds), a
+    cooperative launch, at most 512 blocks, three barrier words; one
+    ``__global__`` function, named with the ``rmsnorm_bwd_`` prefix the
+    train trace attributes device time by."""
+    from repro_torch.kernels.rmsnorm.kernel import (BWD_ARGTYPES, BWD_BARRIER_WORDS,
+                                                    BWD_MAX_BLOCKS, BWD_WARP_COLS, BWD_WARPS)
+    text = build.SOURCES["rmsnorm_bwd"].read_text()
+    assert f"constexpr int kWarps = {BWD_WARPS};" in text
+    assert f"constexpr int kWarpCols = {BWD_WARP_COLS};" in text
+    cap = int(re.search(r"constexpr int kMaxBlocks = (\d+);", text).group(1))
+    assert BWD_MAX_BLOCKS <= cap
+    assert "__launch_bounds__(kThreads, 2)" in text and "cudaLaunchCooperativeKernel" in text
+    assert "words + 2" in text and BWD_BARRIER_WORDS == 3
+    kernels = re.findall(r"__global__ void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\(",
+                         text)
+    assert kernels == ["rmsnorm_bwd_kernel"]
+    assert "atomicAdd(words" in text and text.count("atomicAdd") == 1
+    assert len(BWD_ARGTYPES) == 13
+
+
+def test_rmsnorm_compare_calls_each_source_by_its_interface(tmp_path):
+    """This tree's rmsnorm_bwd takes ``blocks`` and the barrier words; a
+    source taking ``chunks`` is called as the three-launch design, with its
+    wrapper's chunks and scratch."""
+    from repro_torch.kernels.rmsnorm import compare
+    assert compare.takes_blocks(compare.SOURCE)
+    old = tmp_path / "rmsnorm_bwd.cu"
+    old.write_text("int rmsnorm_bwd_launch(const void* x, void* scratch, int64_t rows,\n"
+                   "                       int64_t d, int64_t chunks, float eps, void* stream);\n")
+    assert not compare.takes_blocks(old)
+    assert [compare.chunks(r) for r in (1, 64, 65, 1024, 8192, 16384)] == [1, 1, 2, 16, 128, 128]
+    assert len(compare.CHUNKS_ARGTYPES) == 12
+    assert [c[1:] for c in compare.CASES] == [(1024, 896), (1024, 2048), (1024, 4096),
+                                              (16384, 2048)]

@@ -964,23 +964,39 @@ def _max_rel(got, want):
         float(want.float().abs().max()), 1e-30)
 
 
+def _rmsnorm_bwd_inputs(gen, rows, d, dtype, scale_dtype, offset=0):
+    """x, scale, dy on the card; ``offset`` elements into their buffers, so
+    that offset 1 makes x and dy 4-byte (f32) or 2-byte (bf16) aligned: the
+    kernel's one-element-a-vector path."""
+    dt, sdt = getattr(torch, dtype), getattr(torch, scale_dtype)
+    x = (3 * torch.randn((rows * d + offset,), generator=gen, device="cuda")).to(dt)
+    s = (1 + 0.1 * torch.randn((d,), generator=gen, device="cuda")).to(sdt)
+    dy = torch.randn((rows * d + offset,), generator=gen, device="cuda").to(dt)
+    return x[offset:].view(rows, d), s, dy[offset:].view(rows, d)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,d,dtype,scale_dtype", [
-    (1024, 896, "float32", "float32"), (300, 4095, "float32", "float32"),
-    (7, 8192, "float32", "float32"), (64, 896, "bfloat16", "float32"),
-    (64, 896, "bfloat16", "bfloat16")])
-def test_rmsnorm_bwd_kernel_matches_plain(card, rows, d, dtype, scale_dtype):
+@pytest.mark.parametrize("rows,d,dtype,scale_dtype,offset", [
+    (1024, 896, "float32", "float32", 0), (300, 4095, "float32", "float32", 0),
+    (7, 8192, "float32", "float32", 0), (64, 896, "bfloat16", "float32", 0),
+    (64, 896, "bfloat16", "bfloat16", 0),
+    # the cut-depth card-vs-CPU round; several warps a row; 8 warps a row
+    # in bf16 with a bf16 scale; one row; a misaligned view
+    (128, 896, "float32", "float32", 0), (1024, 4096, "float32", "float32", 0),
+    (33, 8192, "bfloat16", "bfloat16", 0), (1, 896, "float32", "float32", 0),
+    (1, 4096, "bfloat16", "float32", 0), (100, 896, "float32", "float32", 1),
+    (37, 2048, "bfloat16", "bfloat16", 1)])
+def test_rmsnorm_bwd_kernel_matches_plain(card, rows, d, dtype, scale_dtype, offset):
     """dx within (D/2 + 8)·ε₃₂ of the largest |dx| (one bf16 ulp in bf16),
     dscale within (R/2 + D/2 + 8)·ε₃₂ of the largest |dscale|; two
-    launches bit-identical (no atomics)."""
+    launches bit-identical (no atomic in any sum)."""
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd_cuda
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
     gen = torch.Generator(device=card)
     gen.manual_seed(1)
     dt, sdt = getattr(torch, dtype), getattr(torch, scale_dtype)
-    x = (3 * torch.randn((rows, d), generator=gen, device=card)).to(dt)
-    s = (1 + 0.1 * torch.randn((d,), generator=gen, device=card)).to(sdt)
-    dy = torch.randn((rows, d), generator=gen, device=card).to(dt)
+    x, s, dy = _rmsnorm_bwd_inputs(gen, rows, d, dtype, scale_dtype, offset)
+    assert x.is_contiguous() and (x.data_ptr() % 16 != 0) == bool(offset)
     before = rmsnorm_bwd_cuda.launches
     dx, ds = rmsnorm_bwd_cuda(x, s, dy, 1e-5)
     dx2, ds2 = rmsnorm_bwd_cuda(x, s, dy, 1e-5)
@@ -993,6 +1009,53 @@ def test_rmsnorm_bwd_kernel_matches_plain(card, rows, d, dtype, scale_dtype):
     assert _max_rel(ds, want[1]) <= (bf16 if scale_dtype == "bfloat16"
                                      else (rows / 2 + d / 2 + 8) * EPS32)
     assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,d", [(1024, 896), (1024, 4096), (7, 8192)])
+def test_rmsnorm_bwd_launches_at_most_two_device_kernels(card, rows, d):
+    """torch.profiler over three calls after a warm one: at most two device
+    kernels a call, every one named ``rmsnorm_bwd_*`` (no memset, no copy).
+    The host waits 50 ms on each side of the calls: a window of the calls
+    alone lost device events on the card."""
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd_cuda
+    x, s, dy = _rmsnorm_bwd_inputs(torch.Generator(device=card).manual_seed(2), rows, d,
+                                   "float32", "float32")
+    rmsnorm_bwd_cuda(x, s, dy, 1e-5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        for _ in range(3):
+            rmsnorm_bwd_cuda(x, s, dy, 1e-5)
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert 3 <= len(names) <= 6
+    assert all("rmsnorm_bwd_" in n for n in names), names
+
+
+@pytest.mark.cuda
+def test_rmsnorm_bwd_keeps_its_barrier_valid_across_calls(card):
+    """Three calls at one shape, then calls at two others (another grid,
+    another warps-a-row), each against the plain backward: the grid barrier's
+    words are left ready for the next call whatever its grid."""
+    from repro_torch.kernels.rmsnorm.kernel import bwd_blocks, rmsnorm_bwd_cuda
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
+    gen = torch.Generator(device=card).manual_seed(3)
+    shapes = [(1024, 896)] * 3 + [(1024, 4096), (1, 64), (1024, 896)]
+    assert len({bwd_blocks(r, d) for r, d in shapes}) == 3
+    for rows, d in shapes:
+        x, s, dy = _rmsnorm_bwd_inputs(gen, rows, d, "float32", "float32")
+        dx, ds = rmsnorm_bwd_cuda(x, s, dy, 1e-5)
+        want = rmsnorm_bwd_ref(x, s, dy, 1e-5)
+        torch.cuda.synchronize()
+        assert _max_rel(dx, want[0]) <= (d / 2 + 8) * EPS32
+        assert _max_rel(ds, want[1]) <= (rows / 2 + d / 2 + 8) * EPS32
 
 
 @pytest.mark.cuda
