@@ -113,9 +113,21 @@ these phases and fails (non-zero exit, no result line) if any of them fails:
      super-blocks of 7 mLSTM + 1 sLSTM blocks, d_model 2048, 4 heads, vocab
      50304 padded to 50688, 2.22 B parameters): slstm exactly 6 × 32 = 192
      times (one a super-block a forward), rmsnorm 97 × 32 = 3104 times, the
-     others never;
+     others never; the MoE family at full width, its depth cut to fit the
+     card in f32 (each MoE and hybrid serve's peak memory planned from its
+     shapes too): qwen3-moe-30b-a3b (d_model 2048, 32 / 4 heads of 128, 128
+     experts top-8 of d_ff 768) at 16 of 48 layers, rmsnorm 33 × 32 = 1056
+     and flash 16 times, its serve B repeated with every logit bit-equal
+     (the expert combine is a gather, no atomic add), and
+     qwen3-moe-235b-a22b (4096, 64 / 4 heads, G = 16, d_ff 1536) at 4 of
+     94, rmsnorm 9 × 32 = 288 and flash 4 times; and zamba2-1.2b at full
+     width and depth (38 Mamba2 blocks, the shared attention + MLP block at
+     6 sites, a tail of 2; d_model 2048, 32 heads of 64, state 64), rmsnorm
+     (2·38 + 2·6 + 1) × 32 = 2848 and flash 6 times;
   5. after all the timed runs of 3 and 4, a torch.profiler window over each
-     (the serves of qwen2-0.5b and xlstm-1.3b only; device time, the
+     (the serves of qwen2-0.5b, xlstm-1.3b, and run B's prefill and 7
+     decode steps of qwen3-moe-30b-a3b at 16 layers and zamba2-1.2b only;
+     device time, the
      device's busy share, device time by kernel), over
      one sweep group per transport (G = 20, 10 rounds), over 10 rounds
      of a temporal analog run and of a GCA quantized run, over 10
@@ -126,11 +138,23 @@ these phases and fails (non-zero exit, no result line) if any of them fails:
   6. the card against the CPU: the simulator on the same ``RoundDraws`` at
      quickstart scale for analog, quantized and sparse; each serve path on
      the same full-width weights (qwen2-0.5b, qwen2-1.5b cut to 8 layers,
-     xlstm-1.3b cut to one super-block, 8 layers; batch 2, prompt 64, 8
-     tokens, the card fed the CPU's tokens),
+     xlstm-1.3b cut to one super-block, 8 layers, qwen3-moe-30b-a3b cut to
+     2, zamba2-1.2b to 14: two sites and a tail of two; batch 2, prompt 64,
+     8 tokens, the card fed the CPU's tokens),
      max |Δlogit| at the prefill and each step within 1e-3, and the greedy
      tokens equal wherever the CPU's top-2 margin exceeds 100× that step's
-     Δ, at no fewer than half the positions; a sweep group at full
+     Δ, at no fewer than half the positions; for the MoE model every
+     router call's top-k sets on both sides, a set taken apart explained
+     only where the CPU's k-th/(k+1)-th probability gap is within 100× the
+     row's probability delta (its row then left out from that position
+     on) and failing otherwise, and for the 30b alone a position past 1e-3
+     explained only where an f64 run puts the CPU's f32 past 1e-3 from
+     exact and the card no farther; the rolling sliding-window cache (window
+     and threshold 64, ``init_cache(2, 10**6)`` allocating 64 slots) of
+     qwen2-0.5b at full depth and zamba2-1.2b at 14 layers, 160 decode
+     steps from an empty cache, the card fed the CPU's tokens, under the
+     same bounds; ``examples/serve_batched_torch.py`` on the card (rc 0, its
+     rolling cache leaf 8 slots); a sweep group at full
      width (analog, 2 values of C × 2 seeds, 10 rounds) on the same draws;
      and the full-width server, 5 steps of ca_afl per transport and of GCA
      analog on the same ``RoundDraws`` and batches, each step run on both
@@ -3269,58 +3293,104 @@ def phase_slstm(torch):
 # The serve path at full width
 # ---------------------------------------------------------------------------
 
-SERVE_ARCHS = ("qwen2-0.5b", "qwen2-1.5b", "qwen2-7b", "granite-34b", "xlstm-1.3b")
+SERVE_ARCHS = ("qwen2-0.5b", "qwen2-1.5b", "qwen2-7b", "granite-34b", "xlstm-1.3b",
+               "qwen3-moe-30b-a3b", "qwen3-moe-235b-a22b", "zamba2-1.2b")
 # batch, prompt, tokens; C's prompt is longer than the window of 8,192, so
 # its prefill attends through the window (its decode, as the reference's,
 # over the whole grown cache: the rolling cache starts at 131,072)
 SERVE_RUNS = {"A": (4, 32, 32), "B": (8, 2048, 32), "C": (1, 8320, 32)}
 SERVE_ARCH_RUNS = {"qwen2-1.5b": ("A", "B", "C")}   # the rest: A and B
-# granite-34b in f32 (~137 GB at 88 layers) does not fit one card: depth
-# cut to 16 layers, ~9.1 B parameters (~36 GB), at full width
-SERVE_CUTS = {"granite-34b": {"num_layers": 16}}
-# the archs with a profiler window over each serve run
-SERVE_TRACED = ("qwen2-0.5b", "xlstm-1.3b")
+# the archs with profiler windows: (run, tokens) each, None for the run's
+# own; the MoE and hybrid serves launch ~2,700 kernels a decode step, and a
+# window's post-processing costs ~0.7 ms a launch, so they trace run B's
+# prefill and 7 decode steps only
+SERVE_TRACED = {"qwen2-0.5b": (("A", None), ("B", None)),
+                "xlstm-1.3b": (("A", None), ("B", None)),
+                "qwen3-moe-30b-a3b": (("B", 8),), "zamba2-1.2b": (("B", 8),)}
 # card vs CPU on the same f32 weights: the two sum in other orders (cuBLAS
 # and the kernels against the CPU's BLAS and the plain versions), which moved
 # the logits by 3.8e-5 to 1.0e-4 on an H100; 1e-3 is ten times that, far
 # below the 0.05 a wrong kernel would shift them by
 SERVE_DLOGIT_LIMIT = 1e-3
+# a router top-k set that the card and the CPU pick apart is explained only
+# where the CPU's k-th/(k+1)-th probability gap is within this many times
+# the row's largest router-probability delta (explain_flips' rule)
+ROUTER_FLIP_FACTOR = 100.0
+# a position whose card-vs-CPU |Δlogit| passes SERVE_DLOGIT_LIMIT fails,
+# except in a check that asks for an f64 witness (``ill_conditioned``):
+# there it is explained only where an f64 run of the same weights shows
+# the CPU's own f32 reference past SERVE_DLOGIT_LIMIT from exact (so f32
+# cannot hold the position to the limit) and the card no farther from
+# exact than that reference. Only qwen3-moe-30b-a3b cut to 2 layers asks:
+# the reference's init (fan-in = L for the stacked leaves) gives it
+# attention scores of std ~1,000 (q and k of std ~32), where on an H100
+# machine the CPU's f32 logits lay 2.62e-3 from an f64 run's and the
+# card's 1.05e-3 (PERF.md §6)
+
+
+def _count(tree):
+    return sum(_count(v) if isinstance(v, dict) else math.prod(v) for v in tree.values())
 
 
 def serve_plan_bytes(torch, cfg, runs):
-    """The bytes a dense serve of ``runs`` needs on the card at most, from
-    the config's shapes alone: the f32 parameters, the largest run's KV
-    cache at prompt + tokens, and its prefill's largest live activations
-    (the MLP's gate, up and product [B, S, F], the residual, the normed
-    input and q/k/v/o [B, S, D] each, ×1.25 for the allocator's slack)."""
-    from repro_torch.models.dense import param_shapes
+    """The bytes a dense, MoE or hybrid serve of ``runs`` needs on the card
+    at most, from the config's shapes alone: the f32 parameters, the largest
+    run's caches at prompt + tokens (K/V a layer or a site, the Mamba2
+    states and tails), and its prefill's largest live activations, ×1.25 for
+    the allocator's slack: dense, the MLP's gate, up and product [B, S, F],
+    the residual, the normed input and q/k/v/o [B, S, D] each; MoE, the
+    dispatch buffers, three [E, B·C, D] (gathered, masked, expert output)
+    and four [E, B·C, F] (gate, its silu, up, product), and the residual's
+    six [B, S, D]; hybrid, the shared block's as dense, or a Mamba2 block's
+    ten [B, S, d_inner] and a chunk's five [B, q, q, H], whichever is
+    larger."""
+    from repro_torch.models import dense, hybrid, moe, ssm
 
-    def count(tree):
-        return sum(count(v) if isinstance(v, dict) else math.prod(v)
-                   for v in tree.values())
-
-    params = 4 * count(param_shapes(cfg))
+    shapes = {"dense": dense, "moe": moe, "hybrid": hybrid}[cfg.family].param_shapes(cfg)
+    params = 4 * _count(shapes)
+    kv = cfg.num_kv_heads * cfg.resolved_head_dim
     worst = 0
     for run in runs:
         b, p, g = SERVE_RUNS[run]
-        cache = 2 * 4 * cfg.num_layers * b * (p + g) * cfg.num_kv_heads * cfg.resolved_head_dim
-        act = 1.25 * 4 * b * p * (3 * cfg.d_ff + 6 * cfg.d_model)
+        if cfg.family == "hybrid":
+            sites = cfg.num_layers // cfg.shared_attn_every
+            d_inner, h, hp, n = ssm.dims(cfg)
+            cache = (2 * 4 * sites * b * (p + g) * kv + 4 * cfg.num_layers * b * (
+                h * n * hp + (cfg.conv_width - 1) * (d_inner + 2 * n)))
+            q = min(cfg.ssm_chunk, p)
+            act = 1.25 * 4 * max(b * p * (3 * cfg.d_ff + 6 * cfg.d_model),
+                                 10 * b * p * d_inner + 5 * b * q * q * h)
+        else:
+            cache = 2 * 4 * cfg.num_layers * b * (p + g) * kv
+            if cfg.family == "moe":
+                rows = cfg.num_experts * b * moe.capacity(cfg, p)
+                act = 1.25 * 4 * (rows * (3 * cfg.d_model + 4 * cfg.d_ff)
+                                  + 6 * b * p * cfg.d_model)
+            else:
+                act = 1.25 * 4 * b * p * (3 * cfg.d_ff + 6 * cfg.d_model)
         worst = max(worst, cache + act)
     return params, int(params + worst)
 
 
+def expert_bytes(cfg):
+    """The bytes of one decode step's expert weights: at C = 1 every expert
+    of every layer is read (f32)."""
+    return 4 * cfg.num_layers * cfg.num_experts * 3 * cfg.d_model * cfg.d_ff
+
+
 def serve_setup(torch, arch, **cut):
-    """``arch`` at full width (depth cut by ``cut``, if given), f32, random
-    weights from seed 0 on the card. A dense config's peak bytes are
-    planned from its shapes first, and a plan beyond 90% of the card's
-    memory raises before anything is loaded."""
+    """``arch`` at full width (depth cut by ``cut``, if given, else to the
+    launcher's ``ONE_CARD_LAYERS``), f32, random weights from seed 0 on the
+    card. A dense, MoE or hybrid config's peak
+    bytes are planned from its shapes first, and a plan beyond 90% of the
+    card's memory raises before anything is loaded."""
+    from repro_torch.configs import get_config
     from repro_torch.launch.serve import init_params, serve_config
     from repro_torch.models.api import build_model
 
-    full = serve_config(arch)
-    cfg = full.with_(**cut)
+    cfg = serve_config(arch).with_(**cut)
     plan = None
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe", "hybrid"):
         params_b, plan = serve_plan_bytes(torch, cfg, SERVE_ARCH_RUNS.get(arch, ("A", "B")))
         total = torch.cuda.get_device_properties(0).total_memory
         if plan > 0.9 * total:
@@ -3330,12 +3400,16 @@ def serve_setup(torch, arch, **cut):
     params = init_params(model, 0, "cuda")
     n = sum(p.numel() for p in params.parameters())
     emit({"serve_model": {"arch": cfg.name, "family": cfg.family, "layers": cfg.num_layers,
-                          "layers_in_config": full.num_layers,
-                          "cut": dict(cut) or None,
+                          "layers_in_config": get_config(arch).num_layers,
+                          "cut": ({"num_layers": cfg.num_layers}
+                                  if cfg.num_layers != get_config(arch).num_layers else None),
                           "d_model": cfg.d_model, "heads": cfg.num_heads,
                           "kv_heads": cfg.num_kv_heads, "head_dim": cfg.resolved_head_dim,
                           "d_ff": cfg.d_ff, "window": cfg.window,
-                          "slstm_group": cfg.slstm_group, "vocab": cfg.vocab_size,
+                          "slstm_group": cfg.slstm_group, "experts": cfg.num_experts,
+                          "experts_per_token": cfg.experts_per_token,
+                          "shared_attn_every": cfg.shared_attn_every,
+                          "ssm_state": cfg.ssm_state, "vocab": cfg.vocab_size,
                           "params": n, "dtype": cfg.dtype,
                           "planned_peak_gb": None if plan is None else plan / 1e9,
                           "loaded_gb": torch.cuda.memory_allocated() / 1e9}})
@@ -3344,18 +3418,22 @@ def serve_setup(torch, arch, **cut):
 
 def serve_launches(cfg, gen):
     """The kernel launches a serve of ``gen`` tokens must make: 2L + 1
-    norms a forward; a flash attention a dense prefill layer; an sLSTM scan
-    an xLSTM super-block a forward; nothing else."""
-    want = {"rmsnorm": (2 * cfg.num_layers + 1) * gen}
+    norms a forward (hybrid: 2L + 2G + 1, G = the shared block's sites); a
+    flash attention a dense or MoE prefill layer, or a hybrid prefill site;
+    an sLSTM scan an xLSTM super-block a forward; nothing else."""
+    sites = cfg.num_layers // cfg.shared_attn_every if cfg.family == "hybrid" else 0
+    want = {"rmsnorm": (2 * cfg.num_layers + 2 * sites + 1) * gen}
     if cfg.family == "ssm":
         want["slstm"] = cfg.num_layers // cfg.slstm_group * gen
     else:
-        want["flash_attention"] = cfg.num_layers
+        want["flash_attention"] = sites or cfg.num_layers
     return want
 
 
 # the kernels each family's serve path runs, for the profiler windows
-SERVE_KERNELS = {"dense": ("rmsnorm", "flash_attention"), "ssm": ("rmsnorm", "slstm")}
+SERVE_KERNELS = {"dense": ("rmsnorm", "flash_attention"), "ssm": ("rmsnorm", "slstm"),
+                 "moe": ("rmsnorm", "flash_attention"),
+                 "hybrid": ("rmsnorm", "flash_attention")}
 
 
 def phase_serve(torch, counters, cfg, model, params, run):
@@ -3385,22 +3463,49 @@ def phase_serve(torch, counters, cfg, model, params, run):
                 (lg[:, cfg.vocab_size:] == -1e30).all()):
             raise AssertionError(f"serve {cfg.name} run {run}: logits at step {i} not finite or "
                                  "the padded vocabulary not masked")
+    extra = {}
+    if cfg.family == "moe":   # a decode step reads every expert (C = 1)
+        from repro_torch.models.moe import capacity
+        extra = {"capacity": {"prefill": capacity(cfg, prompt), "decode": 1},
+                 "decode_expert_gb": expert_bytes(cfg) / 1e9,
+                 "decode_expert_bound_ms": expert_bytes(cfg) / HBM_BYTES_PER_S * 1e3,
+                 "decode_ms_per_step": res.decode_s / max(gen - 1, 1) * 1e3}
     emit({"serve": {"run": run, "arch": cfg.name, "batch": batch, "prompt": prompt,
                     "gen": gen, "device": device_name("cuda"),
                     "prefill_ms": res.prefill_ms, "decode_s": res.decode_s,
                     "decode_tokens_per_s": res.decode_tokens_per_s(),
                     "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-                    "launches": launches, "tokens_0": res.tokens[0, :8].tolist()}})
+                    "launches": launches, "tokens_0": res.tokens[0, :8].tolist(), **extra}})
     return launches
 
 
-def profile_serve(torch, cfg, model, params, run):
-    """A torch.profiler window over one serve run (prefill + decode)."""
+def phase_serve_repeat(torch, cfg, model, params, run="B"):
+    """The same seeded serve twice on the card: every logit bit-equal (the
+    MoE combine is a gather, no atomic add)."""
+    from repro_torch.launch.serve import generate, prompt_tokens
+
+    batch, prompt, gen = SERVE_RUNS[run]
+    tokens = prompt_tokens(cfg, batch, prompt, 0, "cuda")
+    first = generate(model, params, tokens, gen, keep_logits=True)
+    second = generate(model, params, tokens, gen, keep_logits=True)
+    same = [bool(torch.equal(a, b)) for a, b in zip(first.logits, second.logits, strict=True)]
+    emit({"serve_repeat": {"arch": cfg.name, "run": run, "layers": cfg.num_layers,
+                           "steps": len(same), "bit_equal_steps": sum(same),
+                           "tokens_equal": bool(torch.equal(first.tokens, second.tokens))}})
+    if not all(same):
+        raise AssertionError(f"serve {cfg.name} run {run} repeated: logits differ at steps "
+                             f"{[i for i, ok in enumerate(same) if not ok]}")
+
+
+def profile_serve(torch, cfg, model, params, run, gen=None):
+    """A torch.profiler window over one serve run (prefill + decode), of
+    ``gen`` tokens if given, else the run's."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.serve import generate, prompt_tokens
 
-    batch, prompt, gen = SERVE_RUNS[run]
+    batch, prompt, run_gen = SERVE_RUNS[run]
+    gen = gen or run_gen
     tokens = prompt_tokens(cfg, batch, prompt, 0, "cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3414,51 +3519,288 @@ def profile_serve(torch, cfg, model, params, run):
     return summary
 
 
-def phase_serve_card_vs_cpu(torch, cfg, model, params):
+class RouterLog:
+    """Records every router call of the MoE decoder (``models.moe._route``):
+    each call's top-k expert ids [B, S, k] and softmax probabilities [B, S,
+    E] on the host, in call order (the layers of the prefill, then of each
+    decode step)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        import torch
+        orig = self._orig = self.moe._route
+
+        def route(cfg, router_w, x):
+            gates, idx, aux = orig(cfg, router_w, x)
+            probs = torch.softmax(x.to(router_w.dtype) @ router_w, dim=-1)
+            self.calls.append((idx.cpu(), probs.cpu()))
+            return gates, idx, aux
+
+        self.moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self._orig
+
+
+def router_flips(torch, cfg, card_calls, cpu_calls, prompt, gen):
+    """The rows whose top-k sets the card and the CPU pick apart, by
+    ``explain_flips``' rule: a set taken apart is explained only where the
+    CPU's gap between its k-th and (k+1)-th probability is within
+    ROUTER_FLIP_FACTOR × that row's largest |Δprob|; an unexplained one
+    raises, and so do logs that do not hold a call a layer for the prefill
+    and each of the gen - 1 decode steps. Returns (flips, first step a
+    batch row is left out from): a flip at prompt position s leaves its row
+    out from the prefill's logits on (position s feeds every later one
+    through attention and the capacity of its group), a flip in decode step
+    j from that step on."""
+    want = cfg.num_layers * gen
+    if not len(card_calls) == len(cpu_calls) == want:
+        raise AssertionError(f"serve {cfg.name} card vs CPU: {len(card_calls)} router calls "
+                             f"on the card, {len(cpu_calls)} on the CPU, expected {want}")
+    k, layers = cfg.experts_per_token, cfg.num_layers
+    flips, left_out, rows = [], {}, 0
+    for c, ((gi, gp), (ci, cp)) in enumerate(zip(card_calls, cpu_calls, strict=True)):
+        step = 0 if c < layers else (c - layers) // layers + 1   # 0: the prefill
+        apart = (gi.sort(-1).values != ci.sort(-1).values).any(-1)      # [B, S]
+        rows += apart.numel()
+        for b, s in apart.nonzero().tolist():
+            top = cp[b, s].sort(descending=True).values
+            gap = float(top[k - 1] - top[k])
+            delta = float((gp[b, s] - cp[b, s]).abs().max())
+            flip = {"layer": c % layers, "step": step, "row": b,
+                    "position": s if step == 0 else prompt + step - 1,
+                    "gap": gap, "prob_delta": delta,
+                    "card": sorted(gi[b, s].tolist()), "cpu": sorted(ci[b, s].tolist())}
+            if gap > ROUTER_FLIP_FACTOR * delta:
+                raise AssertionError(f"serve {cfg.name} card vs CPU: router top-{k} set "
+                                     f"taken apart, unexplained: {flip}")
+            flips.append(flip)
+            left_out[b] = min(left_out.get(b, step), step)
+    emit({"serve_router_sets": {"arch": cfg.name, "rows_compared": rows,
+                                "flips": flips,
+                                "card": [g[0].tolist() for g in card_calls],
+                                "cpu": [c[0].tolist() for c in cpu_calls]}})
+    return flips, left_out
+
+
+def compare_serves(torch, what, card_logits, cpu_logits, card_tokens, cpu_tokens,
+                   left_out=None, explained=()):
+    """max |Δlogit| at every step within SERVE_DLOGIT_LIMIT, greedy tokens
+    equal wherever the CPU's top-2 margin exceeds 100× that step's Δ in the
+    row, at least half the positions compared; ``left_out`` {row: first
+    step} drops a row from that step on (router flips); the (step, row)
+    positions in ``explained`` are held to an f64 run instead of the limit
+    (``ill_conditioned``)."""
+    steps, compared = [], 0
+    left_out = left_out or {}
+    for i, (a, b) in enumerate(zip(card_logits, cpu_logits, strict=True)):
+        keep = torch.tensor([i < left_out.get(r, len(card_logits))
+                             for r in range(a.shape[0])])
+        delta = (a - b).abs().amax(dim=-1)                       # [B]
+        top2 = torch.topk(b, 2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        sure = (margin > 100 * delta) & keep
+        compared += int(sure.sum())
+        bad = sure & (card_tokens[:, i] != cpu_tokens[:, i])
+        kept = delta[keep & torch.tensor([(i, r) not in explained
+                                          for r in range(a.shape[0])])]
+        worst = float(kept.max()) if kept.numel() else 0.0
+        steps.append({"step": i, "max_abs_dlogit": worst, "rows": int(keep.sum()),
+                      "min_margin": float(margin.min()), "compared": int(sure.sum())})
+        if not bool(torch.isfinite(kept).all()) or worst > SERVE_DLOGIT_LIMIT:
+            raise AssertionError(f"{what}: step {i} max |dlogit| {worst} above "
+                                 f"{SERVE_DLOGIT_LIMIT}")
+        if bool(bad.any()):
+            raise AssertionError(f"{what}: step {i} greedy tokens differ where the margin "
+                                 "exceeds 100x the logit delta")
+    positions = card_tokens.numel()
+    if 2 * compared < positions:
+        raise AssertionError(f"{what}: only {compared} of {positions} positions had a "
+                             "margin above 100x the logit delta")
+    return steps, compared, positions
+
+
+def over_limit(card_logits, cpu_logits, left_out):
+    """The (step, row) positions whose card-vs-CPU |Δlogit| is not within
+    SERVE_DLOGIT_LIMIT, the rows ``left_out`` {row: first step} excepted."""
+    return [(i, r) for i, (a, b) in enumerate(zip(card_logits, cpu_logits, strict=True))
+            for r in range(a.shape[0])
+            if i < left_out.get(r, len(card_logits))
+            and not float((a[r] - b[r]).abs().max()) <= SERVE_DLOGIT_LIMIT]
+
+
+def judge_f64(what, over, card_logits, cpu_logits, exact_logits):
+    """Each (step, row) of ``over`` held to an f64 run's logits
+    ``exact_logits``: explained only where the CPU's f32 lies past
+    SERVE_DLOGIT_LIMIT from them and the card no farther than the CPU; an
+    unexplained one raises. Returns the explained positions' distances."""
+    found = []
+    for i, r in over:
+        dist = {name: float((run[i][r].double() - exact_logits[i][r].double()).abs().max())
+                for name, run in (("card", card_logits), ("cpu", cpu_logits))}
+        entry = {"step": i, "row": r,
+                 "card_cpu": float((card_logits[i][r] - cpu_logits[i][r]).abs().max()),
+                 "card_f64": dist["card"], "cpu_f64": dist["cpu"]}
+        if not (dist["cpu"] > SERVE_DLOGIT_LIMIT and dist["card"] <= dist["cpu"]):
+            raise AssertionError(f"{what}: |dlogit| beyond {SERVE_DLOGIT_LIMIT}, unexplained "
+                                 f"by an f64 run: {entry}")
+        found.append(entry)
+    return found
+
+
+def ill_conditioned(torch, cfg, cpu_params, tokens, cpu, card, left_out):
+    """The positions of ``over_limit``, each held to an f64 run of the same
+    weights on the CPU, teacher-fed the CPU's tokens (``judge_f64``; run
+    only if there is such a position; ``cpu_params`` is converted to f64 in
+    place)."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.api import build_model
+
+    over = over_limit(card.logits, cpu.logits, left_out)
+    if not over:
+        return []
+    cfg64 = cfg.with_(dtype="float64")
+    cpu_params.double().cfg = cfg64
+    exact = generate(build_model(cfg64), cpu_params, tokens.cpu(), len(cpu.logits),
+                     feed=cpu.tokens, keep_logits=True).logits
+    # the real vocabulary: the padded columns hold -1e30 in each run's dtype
+    real = [[lg[:, :cfg.vocab_size] for lg in run]
+            for run in (card.logits, cpu.logits, exact)]
+    return judge_f64(f"serve {cfg.name} card vs CPU", over, *real)
+
+
+def phase_serve_card_vs_cpu(torch, cfg, model, params, f64_witness=False):
     """The same full-width weights on the CPU and on the card: batch 2,
-    prompt 64, 8 tokens, the card fed the CPU's greedy tokens. max |Δlogit|
-    must stay within SERVE_DLOGIT_LIMIT at the prefill and at every step,
-    tokens must agree wherever the CPU's top-2 margin exceeds 100x that
-    step's max |Δlogit| (in the row), and at least half the positions must
-    be compared."""
+    prompt 64, 8 tokens, the card fed the CPU's greedy tokens (``compare_
+    serves``); for MoE every router call's top-k set on both sides, a set
+    taken apart explained or failing (``router_flips``); with
+    ``f64_witness``, a position beyond the limit explained by an f64 run or
+    failing (``ill_conditioned``), without it failing."""
+    import contextlib
+
     from repro_torch.launch.serve import generate, prompt_tokens
 
     tokens = prompt_tokens(cfg, 2, 64, 7, "cuda")
     cpu_params = copy.deepcopy(params).cpu()
+    moe_family = cfg.family == "moe"
+    logs = [RouterLog() if moe_family else contextlib.nullcontext() for _ in range(2)]
     t0 = time.perf_counter()
-    cpu = generate(model, cpu_params, tokens.cpu(), 8, keep_logits=True)
+    with logs[0]:
+        cpu = generate(model, cpu_params, tokens.cpu(), 8, keep_logits=True)
     cpu_s = time.perf_counter() - t0
+    with logs[1]:
+        card = generate(model, params, tokens, 8, feed=cpu.tokens, keep_logits=True)
+    flips, left_out = ([], {}) if not moe_family else router_flips(
+        torch, cfg, logs[1].calls, logs[0].calls, 64, 8)
+    ill = (ill_conditioned(torch, cfg, cpu_params, tokens, cpu, card, left_out)
+           if f64_witness else [])
     del cpu_params
-    card = generate(model, params, tokens, 8, feed=cpu.tokens, keep_logits=True)
-    steps, compared = [], 0
-    for i, (a, b) in enumerate(zip(card.logits, cpu.logits, strict=True)):
-        delta = (a - b).abs().amax(dim=-1)                       # [B]
-        top2 = torch.topk(b, 2, dim=-1).values
-        margin = top2[:, 0] - top2[:, 1]
-        sure = margin > 100 * delta
-        compared += int(sure.sum())
-        bad = sure & (card.tokens[:, i] != cpu.tokens[:, i])
-        steps.append({"step": i, "max_abs_dlogit": float(delta.max()),
-                      "min_margin": float(margin.min()), "compared": int(sure.sum())})
-        if not bool(torch.isfinite(delta).all()) or float(delta.max()) > SERVE_DLOGIT_LIMIT:
-            raise AssertionError(f"serve {cfg.name} card vs CPU: step {i} max |dlogit| "
-                                 f"{float(delta.max())} above {SERVE_DLOGIT_LIMIT}")
-        if bool(bad.any()):
-            raise AssertionError(f"serve {cfg.name} card vs CPU: step {i} greedy tokens "
-                                 f"differ where the margin exceeds 100x the logit delta")
-    positions = card.tokens.numel()
-    if 2 * compared < positions:
-        raise AssertionError(f"serve {cfg.name} card vs CPU: only {compared} of "
-                             f"{positions} positions had a margin above 100x the logit "
-                             "delta")
+    steps, compared, positions = compare_serves(
+        torch, f"serve {cfg.name} card vs CPU", card.logits, cpu.logits, card.tokens,
+        cpu.tokens, left_out, {(x["step"], x["row"]) for x in ill})
     emit({"serve_card_vs_cpu": {"arch": cfg.name, "layers": cfg.num_layers,
                                 "batch": 2, "prompt": 64, "gen": 8, "cpu_s": cpu_s,
                                 "dlogit_limit": SERVE_DLOGIT_LIMIT,
+                                "router_flips": len(flips) if moe_family else None,
+                                "rows_left_out": left_out or None,
+                                "ill_conditioned": ill or None,
                                 "positions_compared": compared, "positions": positions,
                                 "steps": steps}})
     return steps
 
 
+# the rolling (sliding-window) cache on the card: window and threshold 64,
+# so ``init_cache(2, 10**6)`` allocates 64 slots; 2.5 windows of decode
+ROLLING_WINDOW = 64
+ROLLING_STEPS = 160
+ROLLING_ARCHS = (("qwen2-0.5b", {}), ("zamba2-1.2b", {"num_layers": 14}))
+
+
+def rolling_decode(torch, model, params, cache, batch, steps, device, feed=None):
+    """Greedy decode from position 0 over ``cache``, the first input token
+    0 (``feed`` [B, steps], if given, is fed instead: step i reads feed[:,
+    i]). Returns (the inputs, the greedy tokens [B, steps], each step's
+    logits), all on the host."""
+    from repro_torch.models.api import make_decode_step
+
+    step = make_decode_step(model)
+    tok = torch.zeros((batch,), dtype=torch.int32, device=device)
+    inputs, toks, logits = [], [], []
+    with torch.inference_mode():
+        for i in range(steps):
+            inp = tok if feed is None else feed[:, i].to(device)
+            tok, lg, cache = step(params, cache, inp, i)
+            inputs.append(inp.cpu())
+            toks.append(tok.cpu())
+            logits.append(lg.cpu())
+    return torch.stack(inputs, 1), torch.stack(toks, 1), logits
+
+
+def phase_serve_rolling(torch, arch, **cut):
+    """The rolling sliding-window cache at full width on the card: batch 2,
+    ROLLING_STEPS decode steps from an empty cache of ROLLING_WINDOW slots
+    (``init_cache(2, 10**6)``), the card fed the CPU's inputs, held to the
+    CPU's logits and tokens as the serve's card vs CPU (``compare_serves``)."""
+    from repro_torch.launch.serve import init_params, serve_config
+    from repro_torch.models.api import build_model
+
+    cfg = serve_config(arch).with_(window=ROLLING_WINDOW,
+                                   long_context_threshold=ROLLING_WINDOW, **cut)
+    model = build_model(cfg)
+    params = init_params(model, 0, "cuda")
+    cache = model.init_cache(2, 10 ** 6, "cuda")
+    leaf = cache.k if cfg.family == "hybrid" else cache["k"]
+    if leaf.shape[2] != ROLLING_WINDOW:
+        raise AssertionError(f"rolling {arch}: cache leaf {tuple(leaf.shape)}, expected "
+                             f"{ROLLING_WINDOW} slots")
+    cpu_params = copy.deepcopy(params).cpu()
+    t0 = time.perf_counter()
+    fed, cpu_toks, cpu_logits = rolling_decode(
+        torch, model, cpu_params, model.init_cache(2, 10 ** 6, "cpu"), 2, ROLLING_STEPS, "cpu")
+    cpu_s = time.perf_counter() - t0
+    del cpu_params
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, card_toks, card_logits = rolling_decode(torch, model, params, cache, 2,
+                                               ROLLING_STEPS, "cuda", feed=fed)
+    card_s = time.perf_counter() - t0
+    steps, compared, positions = compare_serves(
+        torch, f"rolling {arch}", card_logits, cpu_logits, card_toks, cpu_toks)
+    emit({"serve_rolling": {"arch": arch, "layers": cfg.num_layers, "batch": 2,
+                            "window": ROLLING_WINDOW, "steps": ROLLING_STEPS,
+                            "cache_leaf": list(leaf.shape), "cpu_s": cpu_s,
+                            "card_s": card_s, "dlogit_limit": SERVE_DLOGIT_LIMIT,
+                            "max_abs_dlogit": max(x["max_abs_dlogit"] for x in steps),
+                            "positions_compared": compared, "positions": positions}})
+
+
+def phase_serve_example():
+    """``examples/serve_batched_torch.py`` on the card in a process of its
+    own (the kernels already built): rc 0, and its rolling cache leaf of 8
+    slots (window 8), O(window)."""
+    import os
+    import re
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(ROOT / "examples" / "serve_batched_torch.py")],
+                         capture_output=True, text=True, cwd=ROOT, env=env, timeout=600)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"serve_batched_torch.py exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    found = re.search(r"cache leaf shape=\(([\d, ]+)\)", out.stdout)
+    leaf = tuple(int(v) for v in found.group(1).split(",")) if found else None
+    if leaf is None or leaf[2] != 8:
+        raise AssertionError(f"serve_batched_torch.py: rolling cache leaf {leaf}, "
+                             "expected 8 slots")
+    emit({"serve_example": {"rc": out.returncode, "seconds": seconds,
+                            "rolling_cache_leaf": list(leaf),
+                            "lines": out.stdout.strip().splitlines()}})
 # ---------------------------------------------------------------------------
 # Training: the backward kernels, federated training of qwen2-0.5b and
 # xlstm-1.3b at full width through the parameter server
@@ -4157,9 +4499,11 @@ def main() -> int:
     # own; a model is made again from its seed for its profiler windows
     serve_counts, serve_traces = {}, {}
     for arch in SERVE_ARCHS:
-        served = serve_setup(torch, arch, **SERVE_CUTS.get(arch, {}))
+        served = serve_setup(torch, arch)
         for run in SERVE_ARCH_RUNS.get(arch, ("A", "B")):
             serve_counts[arch, run] = phase_serve(torch, counters, *served, run)
+        if arch == "qwen3-moe-30b-a3b":   # the seeded repeat, bit for bit
+            phase_serve_repeat(torch, *served)
         del served
         torch.cuda.empty_cache()
     train_runs = {arch: phase_train(torch, counters, arch) for arch in TRAIN_ARCHS}
@@ -4171,10 +4515,10 @@ def main() -> int:
     phase_temporal_gca_trace(torch, data)
     phase_server_trace(torch, data)
     phase_control_sharded_trace(torch, data, traces)
-    for arch in SERVE_TRACED:
+    for arch, windows in SERVE_TRACED.items():
         served = serve_setup(torch, arch)
-        for run in ("A", "B"):
-            serve_traces[arch, run] = profile_serve(torch, *served, run)
+        for run, gen in windows:
+            serve_traces[arch, run] = profile_serve(torch, *served, run, gen)
         del served
         torch.cuda.empty_cache()
     train_traces = {arch: profile_train(torch, arch) for arch in TRAIN_ARCHS}
@@ -4194,6 +4538,19 @@ def main() -> int:
     # xlstm-1.3b at full width, its depth cut to one super-block (8 layers)
     # so that the CPU's side stays short
     phase_serve_card_vs_cpu(torch, *serve_setup(torch, "xlstm-1.3b", num_layers=8))
+    # qwen3-moe-30b-a3b at full width cut to 2 layers (router flips
+    # explained or failing; its attention scores of std ~1,000 held to an
+    # f64 witness), zamba2-1.2b to 14 (two sites and a tail of two, the
+    # full config's structure)
+    phase_serve_card_vs_cpu(torch, *serve_setup(torch, "qwen3-moe-30b-a3b", num_layers=2),
+                            f64_witness=True)
+    torch.cuda.empty_cache()
+    phase_serve_card_vs_cpu(torch, *serve_setup(torch, "zamba2-1.2b", num_layers=14))
+    torch.cuda.empty_cache()
+    for arch, cut in ROLLING_ARCHS:
+        phase_serve_rolling(torch, arch, **cut)
+        torch.cuda.empty_cache()
+    phase_serve_example()
     phase_train_card_vs_cpu(torch)
     phase_train_example(torch)
     main_t = {name: next(t for t in ts if t["case"] == "main")

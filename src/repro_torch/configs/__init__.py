@@ -17,14 +17,16 @@ _MODULES = {
     "qwen2-7b": "qwen2_7b",
     "granite-34b": "granite_34b",
     "xlstm-1.3b": "xlstm_1_3b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "zamba2-1.2b": "zamba2_1_2b",
     "fmnist-logreg": "fmnist_logreg",
 }
 
 # known to the JAX package, not ported yet: where the ROADMAP queues each
 _NOT_PORTED = {
-    **{arch: "ROADMAP Queue 1 item 10(c): the other families and their configs"
-       for arch in ("qwen3-moe-30b-a3b", "zamba2-1.2b", "llama-3.2-vision-11b",
-                    "seamless-m4t-medium", "qwen3-moe-235b-a22b")},
+    **{arch: "ROADMAP Queue 1 item 10(c)(iii): the vlm and audio families and their configs"
+       for arch in ("llama-3.2-vision-11b", "seamless-m4t-medium")},
 }
 
 

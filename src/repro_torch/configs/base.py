@@ -11,8 +11,9 @@ from typing import NamedTuple, Optional
 @dataclass(frozen=True)
 class ModelConfig:
     """A model architecture. Field meanings are documented on the reference
-    ``repro.configs.base.ModelConfig``; the port builds the ``dense`` family
-    only (``repro_torch.models.api.build_model``)."""
+    ``repro.configs.base.ModelConfig``; the port builds the ``dense``,
+    ``ssm`` (xLSTM), ``moe`` and ``hybrid`` families
+    (``repro_torch.models.api.build_model``)."""
 
     # identity
     name: str

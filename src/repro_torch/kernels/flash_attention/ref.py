@@ -13,12 +13,13 @@ NEG_INF = -1e30
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: Optional[int] = None) -> torch.Tensor:
     """q [B, Hq, Sq, d]; k, v [B, Hkv, T, d]; Hq = G·Hkv -> [B, Hq, Sq, d]
-    in q's dtype. Full-materialisation softmax in f32."""
+    in q's dtype. Full-materialisation softmax in f32 (f64 for f64 q)."""
     b, hq, sq, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     g = hq // hkv
-    qg = q.reshape(b, hkv, g, sq, d).float()
-    s = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) / math.sqrt(d)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qg = q.reshape(b, hkv, g, sq, d).to(acc)
+    s = torch.einsum("bkgsd,bktd->bkgst", qg, k.to(acc)) / math.sqrt(d)
     qp = torch.arange(sq, device=q.device)[:, None]
     kp = torch.arange(t, device=q.device)[None, :]
     allowed = torch.ones((sq, t), dtype=torch.bool, device=q.device)
@@ -28,7 +29,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         allowed &= kp > qp - window
     s = torch.where(allowed, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
+    o = torch.einsum("bkgst,bktd->bkgsd", p, v.to(acc))
     return o.reshape(b, hq, sq, d).to(q.dtype)
 
 

@@ -6,10 +6,12 @@ import torch
 
 
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """x [R, D]; scale [D] -> [R, D] in x's dtype, f32 accumulation."""
-    xf = x.float()
+    """x [R, D]; scale [D] -> [R, D] in x's dtype, f32 accumulation (f64
+    for f64 x: the port's f64 runs, which judge two f32 ones)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(acc)
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+    return (xf * torch.rsqrt(var + eps) * scale.to(acc)).to(x.dtype)
 
 
 def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,

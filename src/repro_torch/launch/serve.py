@@ -2,16 +2,25 @@
 ``repro.launch.serve``).
 
 A static batch of random prompts of one length is prefilled once, the KV
-cache grown to prompt + gen (an xLSTM state cache passes through), and
-decoded greedily one step at a time, with random weights from ``--seed``.
-Every RMSNorm runs through the fused kernel; for the dense family
-(qwen2-0.5b, qwen2-1.5b, qwen2-7b, granite-34b) every prefill
-self-attention runs through the flash-attention kernel, for the xLSTM family (xlstm-1.3b) every sLSTM time scan, prefill
-and decode, through the sLSTM kernel.
+cache grown to prompt + gen (an xLSTM state cache and the hybrid's Mamba2
+states pass through), and decoded greedily one step at a time, with random
+weights from ``--seed``. Every RMSNorm runs through the fused kernel; every
+prefill self-attention through the flash-attention kernel: the dense family
+(qwen2-0.5b, qwen2-1.5b, qwen2-7b, granite-34b), the moe family
+(qwen3-moe-30b-a3b, qwen3-moe-235b-a22b: the sort-based expert dispatch in
+plain PyTorch) and the hybrid family's shared attention block at each of
+its sites (zamba2-1.2b: the Mamba2 SSD scan in plain PyTorch); for the
+xLSTM family (xlstm-1.3b) every sLSTM time scan, prefill and decode,
+through the sLSTM kernel.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen2-0.5b --batch 4 --prompt-len 32 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b
+
+Where the full config does not fit one 80 GB card in f32, it is served at
+full width with its depth cut to ``ONE_CARD_LAYERS`` (granite-34b 16 of 88
+layers, qwen3-moe-30b-a3b 16 of 48, qwen3-moe-235b-a22b 4 of 94).
 
 The default device is the CUDA card (it raises without one); ``--device
 cpu`` runs the kernels' plain versions on the CPU (use ``--reduced`` there).
@@ -42,9 +51,19 @@ class ServeResult(NamedTuple):
         return b * (gen - 1) / self.decode_s if gen > 1 else float("nan")
 
 
+# depth cuts at full width that fit one 80 GB card in f32 with a batch of 8
+# prompts of 2,048: granite-34b ~9.1 B parameters (~36 GB); qwen3-moe-30b-a3b
+# 10.59 B (42.4 GB; 48 layers would be 122 GB); qwen3-moe-235b-a22b 11.20 B
+# (44.8 GB)
+ONE_CARD_LAYERS = {"granite-34b": 16, "qwen3-moe-30b-a3b": 16, "qwen3-moe-235b-a22b": 4}
+
+
 def serve_config(arch: str, reduced: bool = False):
-    """The launcher's config: f32, no remat, as the reference forces."""
+    """The launcher's config: f32, no remat, as the reference forces; a full
+    config's depth cut to ``ONE_CARD_LAYERS`` where it has an entry."""
     cfg = get_reduced(arch) if reduced else get_config(arch)
+    if not reduced and arch in ONE_CARD_LAYERS:
+        cfg = cfg.with_(num_layers=ONE_CARD_LAYERS[arch])
     return cfg.with_(dtype="float32", remat=False)
 
 
@@ -129,7 +148,7 @@ def main(argv=None):
     params = init_params(model, args.seed, device)
     tokens = prompt_tokens(cfg, args.batch, args.prompt_len, args.seed, device)
     res = generate(model, params, tokens, args.gen)
-    print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} "
+    print(f"arch={cfg.name} layers={cfg.num_layers} batch={args.batch} prompt={args.prompt_len} "
           f"gen={args.gen} device={device_name(device)}")
     print(f"generated ids[0]: {res.tokens[0][:16].tolist()} ...")
     print(f"prefill {res.prefill_ms:.2f} ms; decode {res.decode_tokens_per_s():.1f} "

@@ -1,5 +1,5 @@
-"""Unified model API (port of ``repro.models.api`` for the dense and ssm
-(xLSTM) families).
+"""Unified model API (port of ``repro.models.api`` for the dense, ssm
+(xLSTM), moe and hybrid (Mamba2 + shared attention) families).
 
 ``build_model(cfg)`` returns a ``Model`` with the reference's signatures,
 where the reference's parameter pytree is the family's ``nn.Module``:
@@ -19,8 +19,10 @@ the meta device with ``torch.func.functional_call``, so ``torch.func``
 transforms and the dict optimizers (``repro_torch.optim``) take it as
 they take the logistic regression's.
 
-The other families (moe, hybrid, vlm, audio) raise ``NotImplementedError``
-until their slices land (ROADMAP Queue 1 item 10(c)).
+The vlm and audio families raise ``NotImplementedError`` until their slice
+lands (ROADMAP Queue 1 item 10(c)(iii)). The moe and hybrid families serve
+and compute the forward and loss on their modules; their flat-dict
+(training) form raises until item 10(e).
 """
 from __future__ import annotations
 
@@ -34,13 +36,14 @@ from torch import nn
 from torch.func import functional_call
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import dense, xlstm
+from repro_torch.models import dense, hybrid, moe, xlstm
 from repro_torch.optim import apply_updates
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_l2_norm
 
-_FAMILY = {"dense": dense, "ssm": xlstm}
-_NOT_PORTED = ("moe", "hybrid", "vlm", "audio")
+_FAMILY = {"dense": dense, "ssm": xlstm, "moe": moe, "hybrid": hybrid}
+_NOT_PORTED = ("vlm", "audio")
+_NOT_TRAINED = ("moe", "hybrid")
 
 
 @dataclass(frozen=True)
@@ -65,19 +68,26 @@ class Model:
 
     # --- train ---------------------------------------------------------------
 
-    def forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        """The teacher-forced forward, tokens [B, S] -> f32 logits [B, S,
-        Vp], of a module or of a flat parameter dict."""
+    def _outputs(self, params, tokens: torch.Tensor):
         if isinstance(params, nn.Module):
             return params(tokens)
         return functional_call(_skeleton(self.cfg), params, (tokens,))
 
+    def forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        """The teacher-forced forward, tokens [B, S] -> f32 logits [B, S,
+        Vp], of a module or of a flat parameter dict (moe's router aux loss
+        is dropped: ``loss_fn`` adds it)."""
+        out = self._outputs(params, tokens)
+        return out[0] if self.cfg.family == "moe" else out
+
     def loss_fn(self, params, batch, ctx=None):
         """Mean next-token cross-entropy (per-example ``weights`` if the
-        batch has them); ``ctx`` is the reference's sharding context, unused."""
-        logits = self.forward(params, batch["tokens"])
-        return dense.token_xent(logits[:, :-1], batch["labels"][:, 1:],
-                                batch.get("weights"))
+        batch has them), plus ``moe_aux_coef`` · the router aux loss for
+        moe; ``ctx`` is the reference's sharding context, unused."""
+        out = self._outputs(params, batch["tokens"])
+        logits, aux = out if self.cfg.family == "moe" else (out, None)
+        ce = dense.token_xent(logits[:, :-1], batch["labels"][:, 1:], batch.get("weights"))
+        return ce if aux is None else ce + self.cfg.moe_aux_coef * aux
 
     # --- serve -------------------------------------------------------------
 
@@ -92,17 +102,24 @@ class Model:
 
     def grow_cache(self, cache, cur_len: int, new_len: int):
         """Extend the KV sequence axis from cur_len to new_len with zeros
-        (serving: prefill cache -> decode cache). State caches (xLSTM) pass
-        through unchanged."""
+        (serving: prefill cache -> decode cache). State caches (xLSTM, the
+        hybrid's Mamba2 leaves) pass through unchanged."""
         extra = new_len - cur_len
         if extra <= 0 or self.cfg.family == "ssm":
             return cache
-        # [L, B, T, Hkv, hd]: pad the third axis from the end
-        return {name: F.pad(c, (0, 0, 0, 0, 0, extra)) for name, c in cache.items()}
+        # [L or sites, B, T, Hkv, hd]: pad the third axis from the end
+        pad = lambda c: F.pad(c, (0, 0, 0, 0, 0, extra))
+        if self.cfg.family == "hybrid":
+            return cache._replace(k=pad(cache.k), v=pad(cache.v))
+        return {name: pad(c) for name, c in cache.items()}
 
 
 @functools.lru_cache(maxsize=None)
 def _skeleton(cfg: ModelConfig) -> nn.Module:
+    if cfg.family in _NOT_TRAINED:
+        raise NotImplementedError(
+            f"training the {cfg.family!r} family (the flat parameter dict) is not "
+            "ported yet (ROADMAP Queue 1 item 10(e))")
     return _FAMILY[cfg.family].skeleton(cfg)
 
 
@@ -111,7 +128,7 @@ def build_model(cfg: ModelConfig) -> Model:
         return Model(cfg=cfg, mod=_FAMILY[cfg.family])
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 10(c))")
+            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 10(c)(iii))")
     raise ValueError(f"no production model for family {cfg.family!r}")
 
 

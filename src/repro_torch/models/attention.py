@@ -67,7 +67,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if kv_pos is None:
         kv_pos = torch.arange(t, device=q.device)
     # the reference's preferred_element_type=f32 product, for every dtype
-    s = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float())
+    # but f64 (the port's f64 runs, which judge two f32 ones)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    s = torch.einsum("bskgd,btkd->bkgst", q.to(acc), k.to(acc))
     s = s * scale
     allowed = _mask(q_pos, kv_pos, causal, window)
     if kv_len is not None:

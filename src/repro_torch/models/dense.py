@@ -83,43 +83,26 @@ class DenseDecoder(nn.Module):
 
     # --- layer pieces ------------------------------------------------------
 
-    def _qkv(self, lp: dict, x: torch.Tensor, positions: torch.Tensor):
-        cfg = self.cfg
-        hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-        g = cfg.num_heads // hkv
-        b, s, d = x.shape
-        q = (x @ lp["wq"].reshape(d, -1)).reshape(b, s, hkv, g, hd)
-        k = (x @ lp["wk"].reshape(d, -1)).reshape(b, s, hkv, hd)
-        v = (x @ lp["wv"].reshape(d, -1)).reshape(b, s, hkv, hd)
-        if cfg.qkv_bias:
-            q = q + lp["bq"]
-            k = k + lp["bk"]
-            v = v + lp["bv"]
-        q = apply_rope(q.reshape(b, s, hkv * g, hd), positions, cfg.rope_theta)
-        q = q.reshape(b, s, hkv, g, hd)
-        k = apply_rope(k, positions, cfg.rope_theta)
-        return q, k, v
-
-    def _attn_out(self, lp: dict, o: torch.Tensor) -> torch.Tensor:
-        b, s = o.shape[:2]
-        wo = lp["wo"]
-        return o.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
-
     def _mlp(self, lp: dict, h: torch.Tensor) -> torch.Tensor:
         return swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
 
-    def _layer(self, lp: dict, x: torch.Tensor, positions: torch.Tensor,
-               window: Optional[int]):
-        """One pre-norm GQA + SwiGLU block (forward / prefill path) with the
+    def _attn_block(self, lp: dict, x: torch.Tensor, positions: torch.Tensor,
+                    window: Optional[int]):
+        """The pre-norm GQA half of a block (forward / prefill path) with the
         layer's leaves ``lp``; returns the new residual and the layer's (k,
         v)."""
-        cfg = self.cfg
-        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q, k, v = self._qkv(lp, h, positions)
+        h = rms_norm(x, lp["attn_norm"], self.cfg.norm_eps)
+        q, k, v = _qkv(self.cfg, lp, h, positions)
         o = attn_lib.attention(q, k, v, causal=True, window=window)
-        x = x + self._attn_out(lp, o)
-        h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        return x + self._mlp(lp, h), (k, v)
+        return x + _attn_out(lp, o), (k, v)
+
+    def _layer(self, lp: dict, x: torch.Tensor, positions: torch.Tensor,
+               window: Optional[int]):
+        """One pre-norm GQA + MLP block (forward / prefill path); returns the
+        new residual and the layer's (k, v)."""
+        x, kv = self._attn_block(lp, x, positions, window)
+        h = rms_norm(x, lp["mlp_norm"], self.cfg.norm_eps)
+        return x + self._mlp(lp, h), kv
 
     # --- forward / loss ----------------------------------------------------
 
@@ -166,33 +149,60 @@ class DenseDecoder(nn.Module):
         cfg = self.cfg
         pos = int(pos)
         dev = token.device
-        t = cache["k"].shape[2]
-        positions = torch.arange(pos, pos + 1, device=dev)
-        rolling = cfg.window is not None and t == cfg.window
-        slot = pos % t if rolling else pos
-        if rolling:
-            kv_pos = _rolling_kv_pos(pos, t, dev)
-            # unwritten slots (pos < window) carry negative positions: mask
-            # them by pushing beyond the causal horizon
-            kv_pos = torch.where(kv_pos < 0, 2 ** 30, kv_pos)
-        else:
-            kv_pos = torch.arange(t, device=dev)
+        rolling, slot, kv_pos = decode_slots(cfg, pos, cache["k"].shape[2], dev)
         x = _embed(cfg, self, token[:, None])
         for l, lp in enumerate(unstack(self.layers)):
-            h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-            q, k, v = self._qkv(lp, h, positions)
-            ck, cv = cache["k"][l], cache["v"][l]
-            ck[:, slot] = k[:, 0]
-            cv[:, slot] = v[:, 0]
-            o = attn_lib.attention(
-                q, ck, cv, q_pos=positions, kv_pos=kv_pos, causal=True,
-                window=cfg.window if rolling else None,
-                kv_len=None if rolling else pos + 1)
-            x = x + self._attn_out(lp, o)
+            x = decode_attn(cfg, lp, x, cache["k"][l], cache["v"][l], pos, rolling,
+                            slot, kv_pos)
             h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
             x = x + self._mlp(lp, h)
         x = rms_norm(x, self.final_norm, cfg.norm_eps)
         return _logits(cfg, self, x)[:, 0], cache
+
+
+def decode_attn(cfg: ModelConfig, lp: dict, x: torch.Tensor, ck: torch.Tensor,
+                cv: torch.Tensor, pos: int, rolling: bool, slot: int,
+                kv_pos: torch.Tensor) -> torch.Tensor:
+    """The pre-norm GQA half of a block at one decode position: x [B, 1, D];
+    the token's K/V written into the cache views ck, cv [B, T, Hkv, hd] at
+    ``slot`` in place, then attention over them (``decode_slots``' rolling,
+    slot and kv_pos). Returns the new residual."""
+    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    positions = torch.arange(pos, pos + 1, device=x.device)
+    q, k, v = _qkv(cfg, lp, h, positions)
+    ck[:, slot] = k[:, 0]
+    cv[:, slot] = v[:, 0]
+    o = attn_lib.attention(q, ck, cv, q_pos=positions, kv_pos=kv_pos, causal=True,
+                           window=cfg.window if rolling else None,
+                           kv_len=None if rolling else pos + 1)
+    return x + _attn_out(lp, o)
+
+
+def _qkv(cfg: ModelConfig, lp: dict, x: torch.Tensor, positions: torch.Tensor):
+    """x [B, S, D] -> q [B, S, Hkv, G, hd], k, v [B, S, Hkv, hd], RoPE'd, from
+    the attention leaves ``lp`` (wq, wk, wv and, with ``qkv_bias``, bq, bk,
+    bv)."""
+    hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    g = cfg.num_heads // hkv
+    b, s, d = x.shape
+    q = (x @ lp["wq"].reshape(d, -1)).reshape(b, s, hkv, g, hd)
+    k = (x @ lp["wk"].reshape(d, -1)).reshape(b, s, hkv, hd)
+    v = (x @ lp["wv"].reshape(d, -1)).reshape(b, s, hkv, hd)
+    if cfg.qkv_bias:
+        q = q + lp["bq"]
+        k = k + lp["bk"]
+        v = v + lp["bv"]
+    q = apply_rope(q.reshape(b, s, hkv * g, hd), positions, cfg.rope_theta)
+    q = q.reshape(b, s, hkv, g, hd)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _attn_out(lp: dict, o: torch.Tensor) -> torch.Tensor:
+    """o [B, S, Hkv, G, hd] -> [B, S, D] through wo."""
+    b, s = o.shape[:2]
+    wo = lp["wo"]
+    return o.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1])
 
 
 def unstack(leaves) -> list[dict]:
@@ -211,11 +221,11 @@ def _embed(cfg: ModelConfig, params: nn.Module, tokens: torch.Tensor) -> torch.T
 
 
 def _logits(cfg: ModelConfig, params: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """[B, S, D] -> f32 logits [B, S, Vp] through ``params.lm_head``, the
-    padded vocab set to -1e30 in place (autograd keeps it right: the product
-    saves its inputs, not its output, and the masked columns get no
-    gradient)."""
-    logits = (x @ params.lm_head).to(torch.float32)
+    """[B, S, D] -> f32 logits [B, S, Vp] (f64 for f64 x) through
+    ``params.lm_head``, the padded vocab set to -1e30 in place (autograd
+    keeps it right: the product saves its inputs, not its output, and the
+    masked columns get no gradient)."""
+    logits = (x @ params.lm_head).to(torch.promote_types(x.dtype, torch.float32))
     if logits.shape[-1] != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = NEG_INF
     return logits
@@ -230,6 +240,12 @@ def init(cfg: ModelConfig, generator: torch.Generator) -> DenseDecoder:
     """Random parameters from ``generator``, on its device, drawn as the
     reference draws them: truncated normals with its fan-in rule, norms at
     1, biases at 0."""
+    return DenseDecoder(cfg, init_tensors(cfg, generator))
+
+
+def init_tensors(cfg: ModelConfig, generator: torch.Generator, mlp: bool = True) -> dict:
+    """``init``'s parameter tree as tensors; ``mlp=False`` leaves out the
+    SwiGLU leaves (w_gate, w_up, w_down), which the MoE decoder replaces."""
     dt = _dt(cfg)
     shapes = param_shapes(cfg)
     ls = shapes["layers"]
@@ -244,14 +260,15 @@ def init(cfg: ModelConfig, generator: torch.Generator) -> DenseDecoder:
     layers = {"attn_norm": ones(ls["attn_norm"]), "wq": stacked("wq"),
               "wk": stacked("wk"), "wv": stacked("wv"),
               "wo": stacked("wo", scale=1.0 / D ** 0.5),
-              "mlp_norm": ones(ls["mlp_norm"]), "w_gate": stacked("w_gate"),
-              "w_up": stacked("w_up"), "w_down": stacked("w_down")}
+              "mlp_norm": ones(ls["mlp_norm"])}
+    if mlp:
+        layers.update(w_gate=stacked("w_gate"), w_up=stacked("w_up"),
+                      w_down=stacked("w_down"))
     lm_head = dense_init(shapes["lm_head"], dt, generator)
     if cfg.qkv_bias:
         layers.update(bq=zeros(ls["bq"]), bk=zeros(ls["bk"]), bv=zeros(ls["bv"]))
-    return DenseDecoder(cfg, {"embed": embed, "layers": layers,
-                              "final_norm": ones(shapes["final_norm"]),
-                              "lm_head": lm_head})
+    return {"embed": embed, "layers": layers, "final_norm": ones(shapes["final_norm"]),
+            "lm_head": lm_head}
 
 
 def meta_tensors(shapes: dict) -> dict:
@@ -268,27 +285,35 @@ def skeleton(cfg: ModelConfig) -> DenseDecoder:
     return DenseDecoder(cfg, meta_tensors(param_shapes(cfg)))
 
 
+def tensors_from_numpy(shapes: dict, np_tree: dict, dtype_of, device) -> dict:
+    """The reference's parameter tree ``np_tree`` (numpy arrays) as tensors
+    on ``device``, nested as ``shapes``, each leaf's shape checked against
+    it and cast to ``dtype_of(group, name)`` (group: the enclosing key,
+    None at the top), leaf for leaf with no transposes."""
+    def walk(shapes, tree, group):
+        out = {}
+        for name, shape in shapes.items():
+            if isinstance(shape, dict):
+                out[name] = walk(shape, tree[name], name)
+                continue
+            a = np.asarray(tree[name])
+            if tuple(a.shape) != tuple(shape):
+                raise ValueError(f"leaf of shape {a.shape}, expected {shape}")
+            t = torch.from_numpy(np.ascontiguousarray(a.astype(np.float32)))
+            out[name] = t.to(device=device, dtype=dtype_of(group, name))
+        return out
+
+    return walk(shapes, np_tree, None)
+
+
 def params_from_jax(cfg: ModelConfig, np_params: dict, device=None) -> DenseDecoder:
     """The reference's parameter tree (numpy arrays, per-layer leaves stacked
     on [L]) as a ``DenseDecoder`` on ``device`` (``None``: the card, raising
     without one), leaf for leaf with no transposes."""
-    device = resolve_device(device)
     dt = _dt(cfg)
-    shapes = param_shapes(cfg)
-
-    def tensor(a, shape):
-        a = np.asarray(a)
-        if tuple(a.shape) != tuple(shape):
-            raise ValueError(f"leaf of shape {a.shape}, expected {shape}")
-        t = torch.from_numpy(np.ascontiguousarray(a.astype(np.float32)))
-        return t.to(device=device, dtype=dt)
-
-    return DenseDecoder(cfg, {
-        "embed": tensor(np_params["embed"], shapes["embed"]),
-        "layers": {k: tensor(np_params["layers"][k], s)
-                   for k, s in shapes["layers"].items()},
-        "final_norm": tensor(np_params["final_norm"], shapes["final_norm"]),
-        "lm_head": tensor(np_params["lm_head"], shapes["lm_head"])})
+    return DenseDecoder(cfg, tensors_from_numpy(param_shapes(cfg), np_params,
+                                                lambda group, name: dt,
+                                                resolve_device(device)))
 
 
 # ---------------------------------------------------------------------------
@@ -338,3 +363,17 @@ def _rolling_kv_pos(pos: int, t: int, device) -> torch.Tensor:
     """Absolute positions held by each rolling-cache slot at write-time `pos`."""
     slots = torch.arange(t, device=device)
     return pos - torch.remainder(pos % t - slots, t)
+
+
+def decode_slots(cfg: ModelConfig, pos: int, t: int, device):
+    """(rolling, slot, kv_pos) of a decode step at ``pos`` over a KV cache of
+    ``t`` slots: the cache is rolling iff it is as long as the window, the
+    new K/V go to ``slot``, and ``kv_pos`` [t] is each slot's absolute
+    position."""
+    rolling = cfg.window is not None and t == cfg.window
+    if not rolling:
+        return False, pos, torch.arange(t, device=device)
+    kv_pos = _rolling_kv_pos(pos, t, device)
+    # unwritten slots (pos < window) carry negative positions: mask them by
+    # pushing beyond the causal horizon
+    return True, pos % t, torch.where(kv_pos < 0, 2 ** 30, kv_pos)

@@ -36,20 +36,23 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+def rope_frequencies(head_dim: int, theta: float, device=None,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    exponents = torch.arange(0, head_dim, 2, dtype=dtype, device=device) / head_dim
     return 1.0 / (theta ** exponents)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x: [..., seq, heads, head_dim]; positions: broadcastable to [..., seq].
-    The halves rotate in f32 and the result is cast back to x's dtype."""
+    The halves rotate in f32 (f64 for f64 x) and the result is cast back to
+    x's dtype."""
     hd = x.shape[-1]
-    freqs = rope_frequencies(hd, theta, x.device)                   # [hd/2]
-    angles = positions[..., :, None].to(torch.float32) * freqs      # [..., seq, hd/2]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    freqs = rope_frequencies(hd, theta, x.device, acc)              # [hd/2]
+    angles = positions[..., :, None].to(acc) * freqs                # [..., seq, hd/2]
     cos = torch.cos(angles)[..., :, None, :]                        # [..., seq, 1, hd/2]
     sin = torch.sin(angles)[..., :, None, :]
-    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    x1, x2 = torch.chunk(x.to(acc), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 

@@ -37,14 +37,14 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.slstm.ops import slstm_scan
-from repro_torch.models.dense import _embed, _logits, meta_tensors, token_xent, unstack
+from repro_torch.models.dense import (_embed, _logits, meta_tensors, tensors_from_numpy,
+                                      token_xent, unstack)
 from repro_torch.models.layers import dense_init, embed_init, gelu, rms_norm
 from repro_torch.models.specs import pad_vocab
 from repro_torch.utils.device import resolve_device
@@ -405,19 +405,7 @@ def params_from_jax(cfg: ModelConfig, np_params: dict, device=None) -> XLSTMDeco
     [G, M], sLSTM leaves [G]) as an ``XLSTMDecoder`` on ``device``
     (``None``: the card, raising without one), leaf for leaf with no
     transposes; the reference's f32 leaves stay f32."""
-    device = resolve_device(device)
-    shapes = param_shapes(cfg)
-
-    def tensor(a, shape, dtype):
-        a = np.asarray(a)
-        if tuple(a.shape) != tuple(shape):
-            raise ValueError(f"leaf of shape {a.shape}, expected {shape}")
-        t = torch.from_numpy(np.ascontiguousarray(a.astype(np.float32)))
-        return t.to(device=device, dtype=dtype)
-
-    tensors = {name: tensor(np_params[name], shapes[name], _dt(cfg))
-               for name in ("embed", "final_norm", "lm_head")}
-    for group in ("mlstm", "slstm"):
-        tensors[group] = {k: tensor(np_params[group][k], s, _leaf_dtype(cfg, group, k))
-                          for k, s in shapes[group].items()}
-    return XLSTMDecoder(cfg, tensors)
+    return XLSTMDecoder(cfg, tensors_from_numpy(
+        param_shapes(cfg), np_params,
+        lambda group, name: _leaf_dtype(cfg, group, name) if group else _dt(cfg),
+        resolve_device(device)))

@@ -600,7 +600,7 @@ def test_server_kernel_paths_launch_once_a_step_and_equal_the_cpu(card, method,
 # rounding step on top, rtol 2⁻⁷. A wrong kv head, mask or dropped tile
 # moves outputs by O(0.1).
 
-from repro_torch.configs import get_reduced  # noqa: E402
+from repro_torch.configs import get_config, get_reduced  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
@@ -950,6 +950,85 @@ def test_reduced_xlstm_serve_launches_the_kernels(card):
     assert slstm_cuda.launches - s0 == 4 * groups
     assert rmsnorm_cuda.launches - r0 == 4 * (2 * cfg.num_layers + 1)
     assert flash_attention_cuda.launches == f0
+    for a, b in zip(got.logits, cpu.logits, strict=True):
+        assert torch.allclose(a, b, rtol=1e-3, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the MoE and hybrid families (plain PyTorch between the kernels)
+# ---------------------------------------------------------------------------
+#
+# Tolerances. ``moe_mlp`` at the full routing shape (128 experts top-8) and
+# ``ssd_scan``: rtol 1e-4, atol 1e-4 against the CPU on the same inputs
+# (cuBLAS and the CPU's BLAS sum in other orders), with the top-k experts
+# compared exactly first; the combine is a gather, so two card runs give
+# the same bits.
+
+from repro_torch.models import moe as moe_lib  # noqa: E402
+from repro_torch.models import ssm as ssm_lib  # noqa: E402
+
+
+def _moe_layer(device, d=256, f=128, e=128, seed=11):
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed)
+    lp = {"router": torch.randn((d, e), generator=gen) / d ** 0.5,
+          "we_gate": torch.randn((e, d, f), generator=gen) / d ** 0.5,
+          "we_up": torch.randn((e, d, f), generator=gen) / d ** 0.5,
+          "we_down": torch.randn((e, f, d), generator=gen) / f ** 0.5}
+    x = torch.randn((4, 32, d), generator=gen)
+    return {k: v.to(device) for k, v in lp.items()}, x.to(device)
+
+
+@pytest.mark.cuda
+def test_moe_mlp_on_the_card_matches_the_cpu_and_repeats(card):
+    cfg = get_config("qwen3-moe-30b-a3b").with_(d_model=256, d_ff=128)
+    lp, x = _moe_layer(card)
+    _, idx, _ = moe_lib._route(cfg, lp["router"], x)
+    _, cidx, _ = moe_lib._route(cfg, lp["router"].cpu(), x.cpu())
+    assert torch.equal(idx.cpu(), cidx)
+    y, aux = moe_lib.moe_mlp(cfg, lp, x)
+    cy, caux = moe_lib.moe_mlp(cfg, {k: v.cpu() for k, v in lp.items()}, x.cpu())
+    assert torch.allclose(y.cpu(), cy, rtol=1e-4, atol=1e-4)
+    assert torch.allclose(aux.cpu(), caux, rtol=1e-4)
+    y2, _ = moe_lib.moe_mlp(cfg, lp, x)
+    assert torch.equal(y, y2)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_on_the_card_matches_the_cpu(card):
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(12)
+    b, s, h, p, n = 2, 300, 8, 64, 64
+    xh = torch.randn((b, s, h, p), generator=gen)
+    dt = torch.nn.functional.softplus(torch.randn((b, s, h), generator=gen))
+    a = -torch.exp(0.5 * torch.randn((h,), generator=gen))
+    bm, cm = (torch.randn((b, s, n), generator=gen) for _ in range(2))
+    state0 = torch.randn((b, h, n, p), generator=gen)
+    args = (xh, dt, a, bm, cm)
+    y, st = ssm_lib.ssd_scan(*(t.to(card) for t in args), 128, state0.to(card))
+    cy, cst = ssm_lib.ssd_scan(*args, 128, state0)
+    assert torch.allclose(y.cpu(), cy, rtol=1e-4, atol=1e-4)
+    assert torch.allclose(st.cpu(), cst, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "zamba2-1.2b"])
+def test_reduced_moe_and_hybrid_serves_launch_the_kernels(card, arch):
+    """Reduced qwen3-moe-30b-a3b (2 layers) and zamba2-1.2b (4 layers, 2
+    sites): prefill + 3 decode steps launch rmsnorm 4 × (2L + 1) or 4 × (2L
+    + 2G + 1) times and flash attention L or G times, and give the CPU's
+    logits when fed the CPU's tokens."""
+    cfg = get_reduced(arch).with_(dtype="float32", remat=False)
+    model = build_model(cfg)
+    params = init_params(model, 0, card)
+    tokens = prompt_tokens(cfg, 2, 40, 0, card)
+    cpu = generate(model, copy.deepcopy(params).cpu(), tokens.cpu(), 4,
+                   keep_logits=True)
+    r0, f0 = rmsnorm_cuda.launches, flash_attention_cuda.launches
+    got = generate(model, params, tokens, 4, feed=cpu.tokens, keep_logits=True)
+    sites = cfg.num_layers // cfg.shared_attn_every if cfg.family == "hybrid" else 0
+    assert rmsnorm_cuda.launches - r0 == 4 * (2 * cfg.num_layers + 2 * sites + 1)
+    assert flash_attention_cuda.launches - f0 == (sites or cfg.num_layers)
     for a, b in zip(got.logits, cpu.logits, strict=True):
         assert torch.allclose(a, b, rtol=1e-3, atol=1e-3)
 

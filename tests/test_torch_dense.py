@@ -120,13 +120,13 @@ def test_configs_are_field_for_field_copies():
 
 def test_unported_and_unknown_archs():
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        get_config("zamba2-1.2b")
+        get_config("llama-3.2-vision-11b")
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        get_reduced("qwen3-moe-30b-a3b")
+        get_reduced("seamless-m4t-medium")
     with pytest.raises(KeyError):
         get_config("not-an-arch")
     with pytest.raises(NotImplementedError):
-        api.build_model(get_reduced("qwen2-0.5b").with_(family="moe"))
+        api.build_model(get_reduced("qwen2-0.5b").with_(family="vlm"))
     with pytest.raises(ValueError):
         api.build_model(get_reduced("qwen2-0.5b").with_(family="nope"))
 

@@ -29,7 +29,11 @@ def test_port_imports_no_jax_and_no_reference_package():
             "repro_torch.federated.server", "repro_torch.federated.rounds",
             "repro_torch.optim.adamw", "repro_torch.data.pipeline",
             "repro_torch.core.sharding", "repro_torch.launch.train",
-            "repro_torch.data.synthetic"} <= set(modules)
+            "repro_torch.data.synthetic", "repro_torch.models.moe",
+            "repro_torch.models.ssm", "repro_torch.models.hybrid",
+            "repro_torch.configs.qwen3_moe_30b_a3b",
+            "repro_torch.configs.qwen3_moe_235b_a22b",
+            "repro_torch.configs.zamba2_1_2b"} <= set(modules)
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
             "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
@@ -45,7 +49,8 @@ def test_port_sources_name_no_jax_or_reference_import():
     where only PyTorch and the port are imported."""
     assert CHIP_SMOKE.is_file()
     worker = Path(__file__).with_name("_torch_mesh_worker.py")
-    for path in [*SRC.rglob("*.py"), CHIP_SMOKE, worker]:
+    twin = SRC.parents[1] / "examples" / "serve_batched_torch.py"
+    for path in [*SRC.rglob("*.py"), CHIP_SMOKE, worker, twin]:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
