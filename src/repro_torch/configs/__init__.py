@@ -1,8 +1,6 @@
 """Architecture registry: ``get_config(arch_id)`` / ``get_reduced(arch_id)``.
 
-Arch ids are the JAX package's (``repro.configs``). The port carries the
-ones whose paths it has ported; any other known id raises
-``NotImplementedError`` naming the ROADMAP item that ports it, and an
+Arch ids are the JAX package's (``repro.configs``), all of them ported; an
 unknown id raises ``KeyError`` as the JAX package does.
 """
 from __future__ import annotations
@@ -20,21 +18,15 @@ _MODULES = {
     "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "zamba2-1.2b": "zamba2_1_2b",
+    "llama-3.2-vision-11b": "llama_3_2_vision_11b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
     "fmnist-logreg": "fmnist_logreg",
-}
-
-# known to the JAX package, not ported yet: where the ROADMAP queues each
-_NOT_PORTED = {
-    **{arch: "ROADMAP Queue 1 item 10(c)(iii): the vlm and audio families and their configs"
-       for arch in ("llama-3.2-vision-11b", "seamless-m4t-medium")},
 }
 
 
 def _module(arch: str):
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(f"arch {arch!r} is not ported yet: {_NOT_PORTED[arch]}")
     if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {sorted([*_MODULES, *_NOT_PORTED])}")
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
 
 

@@ -11,8 +11,7 @@ from typing import NamedTuple, Optional
 @dataclass(frozen=True)
 class ModelConfig:
     """A model architecture. Field meanings are documented on the reference
-    ``repro.configs.base.ModelConfig``; the port builds the ``dense``,
-    ``ssm`` (xLSTM), ``moe`` and ``hybrid`` families
+    ``repro.configs.base.ModelConfig``; the port builds all six families
     (``repro_torch.models.api.build_model``)."""
 
     # identity

@@ -2,21 +2,26 @@
 ``repro.launch.serve``).
 
 A static batch of random prompts of one length is prefilled once, the KV
-cache grown to prompt + gen (an xLSTM state cache and the hybrid's Mamba2
-states pass through), and decoded greedily one step at a time, with random
-weights from ``--seed``. Every RMSNorm runs through the fused kernel; every
-prefill self-attention through the flash-attention kernel: the dense family
+cache grown to prompt + gen (an xLSTM state cache, the hybrid's Mamba2
+states and the static cross K/V pass through), and decoded greedily one
+step at a time, with random weights from ``--seed``. All six families
+serve. Every RMSNorm runs through the fused kernel; every prefill
+self-attention through the flash-attention kernel: the dense family
 (qwen2-0.5b, qwen2-1.5b, qwen2-7b, granite-34b), the moe family
 (qwen3-moe-30b-a3b, qwen3-moe-235b-a22b: the sort-based expert dispatch in
-plain PyTorch) and the hybrid family's shared attention block at each of
-its sites (zamba2-1.2b: the Mamba2 SSD scan in plain PyTorch); for the
-xLSTM family (xlstm-1.3b) every sLSTM time scan, prefill and decode,
-through the sLSTM kernel.
+plain PyTorch), the hybrid family's shared attention block at each of its
+sites (zamba2-1.2b: the Mamba2 SSD scan in plain PyTorch), the vlm family
+(llama-3.2-vision-11b) and the audio family (seamless-m4t-medium, its
+encoder too); the vlm's and audio's cross-attention also at every decode
+step. For the xLSTM family (xlstm-1.3b) every sLSTM time scan, prefill and
+decode, runs through the sLSTM kernel. The vlm and audio frontends are
+stubbed, as the reference's: random image or frame embeddings
+(``stub_inputs``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen2-0.5b --batch 4 --prompt-len 32 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-3.2-vision-11b
 
 Where the full config does not fit one 80 GB card in f32, it is served at
 full width with its depth cut to ``ONE_CARD_LAYERS`` (granite-34b 16 of 88
@@ -36,7 +41,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs import get_config, get_reduced
-from repro_torch.models.api import Model, build_model, make_decode_step, make_prefill
+from repro_torch.models.api import (EXTRA_INPUTS, Model, build_model, make_decode_step,
+                                    make_prefill)
 from repro_torch.utils.device import resolve_device
 
 
@@ -54,7 +60,8 @@ class ServeResult(NamedTuple):
 # depth cuts at full width that fit one 80 GB card in f32 with a batch of 8
 # prompts of 2,048: granite-34b ~9.1 B parameters (~36 GB); qwen3-moe-30b-a3b
 # 10.59 B (42.4 GB; 48 layers would be 122 GB); qwen3-moe-235b-a22b 11.20 B
-# (44.8 GB)
+# (44.8 GB); llama-3.2-vision-11b (9.78 B, 39.1 GB) and seamless-m4t-medium
+# (0.878 B, 3.5 GB) fit at full depth
 ONE_CARD_LAYERS = {"granite-34b": 16, "qwen3-moe-30b-a3b": 16, "qwen3-moe-235b-a22b": 4}
 
 
@@ -81,6 +88,22 @@ def prompt_tokens(cfg, batch: int, prompt_len: int, seed: int, device) -> torch.
                          device=device, dtype=torch.int32)
 
 
+def stub_inputs(cfg, batch: int, seed: int, device) -> dict:
+    """The stubbed frontend's embeddings a vlm or audio batch carries:
+    {"images": [B, num_image_tokens, D]} or {"audio": [B, num_audio_frames,
+    D]}, f32 standard normals; {} for the other families. The reference
+    draws them with the prompt tokens' key; the port has no threefry twin,
+    so they come from a ``torch.Generator`` seeded as the tokens' is (seed
+    + 1), on ``device``: the same shapes and distribution, other draws."""
+    if cfg.family not in EXTRA_INPUTS:
+        return {}
+    rows = cfg.num_image_tokens if cfg.family == "vlm" else cfg.num_audio_frames
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 1)
+    return {EXTRA_INPUTS[cfg.family]: torch.randn((batch, rows, cfg.d_model), generator=gen,
+                                                 device=device)}
+
+
 def _sync(device) -> None:
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
@@ -88,9 +111,11 @@ def _sync(device) -> None:
 
 @torch.inference_mode()
 def generate(model: Model, params, tokens: torch.Tensor, gen: int, *,
-             feed: Optional[torch.Tensor] = None,
-             keep_logits: bool = False) -> ServeResult:
-    """Prefill ``tokens`` [B, P], then gen - 1 greedy decode steps.
+             feed: Optional[torch.Tensor] = None, keep_logits: bool = False,
+             extra: Optional[dict] = None) -> ServeResult:
+    """Prefill ``tokens`` [B, P] (with ``extra``, the vlm's images or the
+    audio family's frames, ``stub_inputs``), then gen - 1 greedy decode
+    steps.
 
     ``feed`` [B, gen], if given, is fed back in place of the greedy tokens
     (teacher-fed: step i reads feed[:, i]), so two runs can be compared step
@@ -104,7 +129,7 @@ def generate(model: Model, params, tokens: torch.Tensor, gen: int, *,
     serve_step = make_decode_step(model)
     _sync(device)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": tokens})
+    logits, cache = prefill(params, {"tokens": tokens, **(extra or {})})
     cache = model.grow_cache(cache, prompt_len, prompt_len + gen)
     tok = torch.argmax(logits, dim=-1).to(torch.int32)
     _sync(device)
@@ -147,7 +172,8 @@ def main(argv=None):
     model = build_model(cfg)
     params = init_params(model, args.seed, device)
     tokens = prompt_tokens(cfg, args.batch, args.prompt_len, args.seed, device)
-    res = generate(model, params, tokens, args.gen)
+    extra = stub_inputs(cfg, args.batch, args.seed, device)
+    res = generate(model, params, tokens, args.gen, extra=extra)
     print(f"arch={cfg.name} layers={cfg.num_layers} batch={args.batch} prompt={args.prompt_len} "
           f"gen={args.gen} device={device_name(device)}")
     print(f"generated ids[0]: {res.tokens[0][:16].tolist()} ...")

@@ -41,9 +41,8 @@ def lm_batches(corpus: np.ndarray, batch_per_client: int, seq: int, cfg, seed: i
     windows of ``seq`` tokens, client-contiguous (numpy int32; the
     reference's offsets, bit for bit)."""
     if cfg.family not in ("dense", "ssm"):
-        item = "10(e)" if cfg.family in ("moe", "hybrid") else "10(c)(iii)"
         raise NotImplementedError(f"training the {cfg.family!r} family is not ported "
-                                  f"yet (ROADMAP Queue 1 item {item})")
+                                  "yet (ROADMAP Queue 1 item 10(e))")
     n, tlen = corpus.shape
     rng = np.random.default_rng(seed)
     while True:

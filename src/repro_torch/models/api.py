@@ -1,11 +1,13 @@
-"""Unified model API (port of ``repro.models.api`` for the dense, ssm
-(xLSTM), moe and hybrid (Mamba2 + shared attention) families).
+"""Unified model API (port of ``repro.models.api`` for the six families:
+dense, ssm (xLSTM), moe, hybrid (Mamba2 + shared attention), vlm (gated
+cross-attention over image embeddings) and audio (encoder-decoder)).
 
 ``build_model(cfg)`` returns a ``Model`` with the reference's signatures,
 where the reference's parameter pytree is the family's ``nn.Module``:
 
     init(generator) -> params
-    loss_fn(params, batch) -> scalar              batch: tokens/labels[/weights]
+    loss_fn(params, batch) -> scalar              batch: tokens/labels[/images
+                                                  /audio][/weights]
     prefill(params, batch) -> (logits, cache)
     decode_step(params, cache, token, pos) -> (logits, cache)
     init_cache(batch, seq_len, device) / grow_cache(cache, cur_len, new_len)
@@ -19,10 +21,11 @@ the meta device with ``torch.func.functional_call``, so ``torch.func``
 transforms and the dict optimizers (``repro_torch.optim``) take it as
 they take the logistic regression's.
 
-The vlm and audio families raise ``NotImplementedError`` until their slice
-lands (ROADMAP Queue 1 item 10(c)(iii)). The moe and hybrid families serve
-and compute the forward and loss on their modules; their flat-dict
-(training) form raises until item 10(e).
+The vlm and audio batches carry the stubbed frontend's embeddings
+(``images`` [B, I, D], ``audio`` [B, F, D]), which ``forward``,
+``loss_fn`` and ``prefill`` pass to the module. The moe, hybrid, vlm and
+audio families serve and compute the forward and loss on their modules;
+their flat-dict (training) form raises until item 10(e).
 """
 from __future__ import annotations
 
@@ -36,14 +39,16 @@ from torch import nn
 from torch.func import functional_call
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import dense, hybrid, moe, xlstm
+from repro_torch.models import dense, encdec, hybrid, moe, vlm, xlstm
 from repro_torch.optim import apply_updates
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.tree import tree_l2_norm
 
-_FAMILY = {"dense": dense, "ssm": xlstm, "moe": moe, "hybrid": hybrid}
-_NOT_PORTED = ("vlm", "audio")
-_NOT_TRAINED = ("moe", "hybrid")
+_FAMILY = {"dense": dense, "ssm": xlstm, "moe": moe, "hybrid": hybrid, "vlm": vlm,
+           "audio": encdec}
+# the batch key of each family's stubbed frontend embeddings
+EXTRA_INPUTS = {"vlm": "images", "audio": "audio"}
+_NOT_TRAINED = ("moe", "hybrid", "vlm", "audio")
 
 
 @dataclass(frozen=True)
@@ -68,23 +73,30 @@ class Model:
 
     # --- train ---------------------------------------------------------------
 
-    def _outputs(self, params, tokens: torch.Tensor):
-        if isinstance(params, nn.Module):
-            return params(tokens)
-        return functional_call(_skeleton(self.cfg), params, (tokens,))
+    def _inputs(self, batch: dict) -> tuple:
+        """The module's inputs from a batch: its tokens, and for vlm / audio
+        the stubbed frontend's embeddings."""
+        key = EXTRA_INPUTS.get(self.cfg.family)
+        return (batch["tokens"],) if key is None else (batch["tokens"], batch[key])
 
-    def forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        """The teacher-forced forward, tokens [B, S] -> f32 logits [B, S,
-        Vp], of a module or of a flat parameter dict (moe's router aux loss
-        is dropped: ``loss_fn`` adds it)."""
-        out = self._outputs(params, tokens)
+    def _outputs(self, params, batch: dict):
+        if isinstance(params, nn.Module):
+            return params(*self._inputs(batch))
+        return functional_call(_skeleton(self.cfg), params, self._inputs(batch))
+
+    def forward(self, params, tokens: torch.Tensor, extra: dict | None = None) -> torch.Tensor:
+        """The teacher-forced forward, tokens [B, S] (and ``extra``, the
+        batch's images or audio for vlm / audio) -> f32 logits [B, S, Vp],
+        of a module or of a flat parameter dict (moe's router aux loss is
+        dropped: ``loss_fn`` adds it)."""
+        out = self._outputs(params, {"tokens": tokens, **(extra or {})})
         return out[0] if self.cfg.family == "moe" else out
 
     def loss_fn(self, params, batch, ctx=None):
         """Mean next-token cross-entropy (per-example ``weights`` if the
         batch has them), plus ``moe_aux_coef`` · the router aux loss for
         moe; ``ctx`` is the reference's sharding context, unused."""
-        out = self._outputs(params, batch["tokens"])
+        out = self._outputs(params, batch)
         logits, aux = out if self.cfg.family == "moe" else (out, None)
         ce = dense.token_xent(logits[:, :-1], batch["labels"][:, 1:], batch.get("weights"))
         return ce if aux is None else ce + self.cfg.moe_aux_coef * aux
@@ -92,7 +104,7 @@ class Model:
     # --- serve -------------------------------------------------------------
 
     def prefill(self, params, batch):
-        return params.prefill(batch["tokens"])
+        return params.prefill(*self._inputs(batch))
 
     def decode_step(self, params, cache, token, pos):
         return params.decode_step(cache, token, pos)
@@ -101,15 +113,16 @@ class Model:
         return self.mod.init_cache(self.cfg, batch, seq_len, resolve_device(device))
 
     def grow_cache(self, cache, cur_len: int, new_len: int):
-        """Extend the KV sequence axis from cur_len to new_len with zeros
-        (serving: prefill cache -> decode cache). State caches (xLSTM, the
-        hybrid's Mamba2 leaves) pass through unchanged."""
+        """Extend the self-attention KV sequence axis from cur_len to new_len
+        with zeros (serving: prefill cache -> decode cache). State caches
+        (xLSTM, the hybrid's Mamba2 leaves) and the static cross K/V (vlm's
+        xk, xv; audio's mk, mv) pass through unchanged."""
         extra = new_len - cur_len
         if extra <= 0 or self.cfg.family == "ssm":
             return cache
-        # [L or sites, B, T, Hkv, hd]: pad the third axis from the end
+        # [..., B, T, Hkv, hd]: pad the third axis from the end
         pad = lambda c: F.pad(c, (0, 0, 0, 0, 0, extra))
-        if self.cfg.family == "hybrid":
+        if isinstance(cache, tuple):   # the NamedTuple caches: hybrid, vlm, audio
             return cache._replace(k=pad(cache.k), v=pad(cache.v))
         return {name: pad(c) for name, c in cache.items()}
 
@@ -124,12 +137,9 @@ def _skeleton(cfg: ModelConfig) -> nn.Module:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family in _FAMILY:
-        return Model(cfg=cfg, mod=_FAMILY[cfg.family])
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 10(c)(iii))")
-    raise ValueError(f"no production model for family {cfg.family!r}")
+    if cfg.family not in _FAMILY:
+        raise ValueError(f"no production model for family {cfg.family!r}")
+    return Model(cfg=cfg, mod=_FAMILY[cfg.family])
 
 
 # ---------------------------------------------------------------------------

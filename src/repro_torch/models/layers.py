@@ -1,7 +1,6 @@
 """Common transformer building blocks (port of ``repro.models.layers``).
 
-``layer_norm`` and ``gelu_mlp`` (with biases) wait for the families that
-use them.
+``layer_norm`` is not ported: no model of the zoo calls it.
 """
 from __future__ import annotations
 
@@ -29,6 +28,12 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     """SwiGLU MLP: down(silu(x @ gate) * (x @ up))."""
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
+             w_out: torch.Tensor, b_out: torch.Tensor) -> torch.Tensor:
+    """GELU MLP with biases: gelu(x @ w_in + b_in) @ w_out + b_out."""
+    return gelu(x @ w_in + b_in) @ w_out + b_out
 
 
 # ---------------------------------------------------------------------------

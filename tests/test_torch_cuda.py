@@ -688,6 +688,11 @@ def test_rmsnorm_kernel_refuses_what_it_does_not_take(card):
     (1, 2, 200, 200, 128, True, 1, 2.0),      # d = 128, window 1
     (2, 1, 100, 300, 128, False, None, 2.0),  # G = 1, non-causal, Sq != T, d = 128
     (2, 7, 300, 300, 64, True, None, 16.0),   # q 8x larger: the running max moves far
+    # the vlm's and audio family's cross-attention and encoder
+    (2, 4, 300, 161, 128, False, None, 2.0),  # non-causal, Sq > T (ragged)
+    (1, 4, 1, 1601, 128, False, None, 2.0),   # a vlm decode step over 1601 image rows
+    (2, 1, 1, 1024, 64, False, None, 2.0),    # an audio decode step over 1024 frames
+    (1, 1, 1024, 1024, 64, False, None, 2.0),  # the audio encoder: bidirectional
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_kernel_matches_plain(card, bhkv, g, sq, t, d, causal,
@@ -1029,6 +1034,49 @@ def test_reduced_moe_and_hybrid_serves_launch_the_kernels(card, arch):
     sites = cfg.num_layers // cfg.shared_attn_every if cfg.family == "hybrid" else 0
     assert rmsnorm_cuda.launches - r0 == 4 * (2 * cfg.num_layers + 2 * sites + 1)
     assert flash_attention_cuda.launches - f0 == (sites or cfg.num_layers)
+    for a, b in zip(got.logits, cpu.logits, strict=True):
+        assert torch.allclose(a, b, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "seamless-m4t-medium"])
+def test_reduced_vlm_and_audio_serves_launch_the_kernels(card, arch):
+    """Reduced llama-3.2-vision-11b (4 layers, a cross layer every 2: G = 2,
+    M = 1) and seamless-m4t-medium (2 + 2 layers), the vlm's gates at 1.0
+    and the audio MLP biases nonzero: prefill + 3 decode steps launch
+    rmsnorm (2GM + 3G + 1) + 3 (2GM + 2G + 1) or (2Le + 1 + 3Ld + 1) + 3
+    (3Ld + 1) times and flash attention (GM + G) + 3G or (Le + 2Ld) + 3Ld
+    times, and give the CPU's logits when fed the CPU's tokens."""
+    from repro_torch.launch.serve import stub_inputs
+
+    kw = {"num_layers": 4} if arch.startswith("llama") else {}
+    cfg = get_reduced(arch).with_(dtype="float32", remat=False, **kw)
+    model = build_model(cfg)
+    params = init_params(model, 0, card)
+    with torch.no_grad():
+        if cfg.family == "vlm":
+            params.cross_layers["gate_attn"].fill_(1.0)
+            params.cross_layers["gate_mlp"].fill_(1.0)
+        else:
+            for stack in (params.encoder, params.decoder):
+                for name in ("b_in", "b_out"):
+                    stack[name].normal_(0.0, 0.1)
+    tokens = prompt_tokens(cfg, 2, 40, 0, card)
+    extra = stub_inputs(cfg, 2, 0, card)
+    cpu = generate(model, copy.deepcopy(params).cpu(), tokens.cpu(), 4, keep_logits=True,
+                   extra={k: v.cpu() for k, v in extra.items()})
+    r0, f0 = rmsnorm_cuda.launches, flash_attention_cuda.launches
+    got = generate(model, params, tokens, 4, feed=cpu.tokens, keep_logits=True, extra=extra)
+    if cfg.family == "vlm":
+        g, m = cfg.num_layers // cfg.cross_attn_every, cfg.cross_attn_every - 1
+        norms = (2 * g * m + 3 * g + 1) + 3 * (2 * g * m + 2 * g + 1)
+        flash = (g * m + g) + 3 * g
+    else:
+        le, ld = cfg.encoder_layers, cfg.decoder_layers
+        norms = (2 * le + 1 + 3 * ld + 1) + 3 * (3 * ld + 1)
+        flash = (le + 2 * ld) + 3 * ld
+    assert rmsnorm_cuda.launches - r0 == norms
+    assert flash_attention_cuda.launches - f0 == flash
     for a, b in zip(got.logits, cpu.logits, strict=True):
         assert torch.allclose(a, b, rtol=1e-3, atol=1e-3)
 

@@ -44,7 +44,7 @@ from repro.configs import get_reduced as jax_get_reduced  # noqa: E402
 from repro.models import api as japi  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro_torch.configs import get_config, get_reduced  # noqa: E402
-from repro_torch.launch import train  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import api, moe  # noqa: E402
 from repro_torch.models.specs import pad_vocab  # noqa: E402
@@ -141,25 +141,32 @@ def test_configs_are_field_for_field_copies(arch):
 
 @pytest.mark.parametrize("family", ["vlm", "audio"])
 def test_vlm_and_audio_still_raise(family):
-    with pytest.raises(NotImplementedError, match=r"10\(c\)\(iii\)"):
-        api.build_model(get_reduced("qwen2-0.5b").with_(family=family))
+    """The vlm and audio families build (they raised until their slice
+    landed), and their configs are field-for-field copies of the JAX
+    package's."""
     arch = {"vlm": "llama-3.2-vision-11b", "audio": "seamless-m4t-medium"}[family]
-    with pytest.raises(NotImplementedError, match=r"10\(c\)\(iii\)"):
-        get_config(arch)
+    for f, g in ((jax_get_config, get_config), (jax_get_reduced, get_reduced)):
+        jcfg, tcfg = f(arch), g(arch)
+        assert tcfg.family == family
+        assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+        assert jcfg.resolved_head_dim == tcfg.resolved_head_dim
+        assert api.build_model(tcfg).cfg == tcfg
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "zamba2-1.2b", "llama-3.2-vision-11b",
+                                  "seamless-m4t-medium"])
 def test_training_the_new_families_raises(arch):
     """The flat parameter dict (the training form) and the launcher's
-    batches raise for moe and hybrid, naming ROADMAP item 10(e); the module
-    form serves and computes the loss."""
+    batches raise for moe, hybrid, vlm and audio, naming ROADMAP item 10(e);
+    the module form serves and computes the loss."""
     cfg = get_reduced(arch).with_(dtype="float32", remat=False)
     model = api.build_model(cfg)
     gen = torch.Generator()
     gen.manual_seed(0)
     params = model.init_params(gen)
     batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
-             "labels": torch.zeros((1, 8), dtype=torch.int32)}
+             "labels": torch.zeros((1, 8), dtype=torch.int32),
+             **serve.stub_inputs(cfg, 1, 0, "cpu")}
     with pytest.raises(NotImplementedError, match=r"10\(e\)"):
         model.loss_fn(params, batch)
     with pytest.raises(NotImplementedError, match=r"10\(e\)"):

@@ -8,7 +8,10 @@ decode step; ``RouterLog`` sees every call of a real MoE serve.
 ``compare_serves`` holds every position to SERVE_DLOGIT_LIMIT (1e-3) except
 the rows left out after a flip and the positions an f64 run explained;
 ``judge_f64`` explains a position only where the CPU's f32 lies past the
-same limit from the f64 run and the card no farther from it. The f64
+same limit from the f64 run and the card no farther from it (no farther
+than a stated factor times, where a check asks for one), and records the
+plain-kernel witness runs beside it; ``plain_kernels`` swaps the kernels'
+entry points for their plain versions and back. The f64
 run is f64 throughout: RoPE, the SSD scan and step, and the logits keep
 f64 in f64 (checked against numpy f64 at rtol 1e-12), and f32 inputs still
 compute in f32. The launcher's one-card depth cuts are one table.
@@ -148,6 +151,60 @@ def test_judge_f64_holds_the_card_to_the_limit_from_exact(smoke, card_f64, cpu_f
     else:
         with pytest.raises(AssertionError, match="unexplained"):
             smoke.judge_f64("t", [(0, 0)], card, cpu, exact)
+
+
+@pytest.mark.parametrize("card_f64,factor,explained", [
+    (1.52e-3, 1.0, False),   # the vlm cut's position: farther than the CPU
+    (1.52e-3, 2.0, True),    # ... within twice the CPU's distance
+    (2.2e-3, 2.0, False),    # past twice the CPU's distance
+])
+def test_judge_f64_factor_and_plain_witnesses(smoke, card_f64, factor, explained):
+    """The CPU 1.05e-3 from exact; the card's witness runs (plain attention
+    1.1e-3 from exact, every kernel plain 9e-4) recorded, judging
+    nothing."""
+    exact = [torch.zeros((1, 4), dtype=torch.float64)]
+    card = [torch.tensor([[0.0, card_f64, 0.0, 0.0]], dtype=torch.float32)]
+    cpu = [torch.tensor([[0.0, -1.05e-3, 0.0, 0.0]], dtype=torch.float32)]
+    plain = {"plain_attention": [torch.tensor([[0.0, -1.1e-3, 0.0, 0.0]])],
+             "plain_kernels": [torch.tensor([[0.0, 9e-4, 0.0, 0.0]])]}
+    if not explained:
+        with pytest.raises(AssertionError, match="unexplained"):
+            smoke.judge_f64("t", [(0, 0)], card, cpu, exact, factor, plain)
+        return
+    (found,) = smoke.judge_f64("t", [(0, 0)], card, cpu, exact, factor, plain)
+    assert found["factor"] == factor
+    assert found["plain_attention_f64"] == pytest.approx(1.1e-3, rel=1e-6)
+    assert found["plain_attention_cpu"] == pytest.approx(0.05e-3, rel=1e-4)
+    assert found["plain_kernels_f64"] == pytest.approx(9e-4, rel=1e-6)
+    assert found["plain_kernels_cpu"] == pytest.approx(1.95e-3, rel=1e-5)
+    assert found["plain_attention_card"] == pytest.approx(card_f64 + 1.1e-3, rel=1e-5)
+
+
+def test_plain_kernels_swaps_the_kernels_for_their_plain_versions(smoke):
+    """Within ``plain_kernels`` the kernels' entry points compute what the
+    CPU's wrappers do (flattened heads over [BHkv, G] groups; the RMSNorm
+    rows), and on leaving the kernels' own are back."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rms_ops
+
+    own = flash_ops.flash_attention_cuda, rms_ops.rmsnorm_cuda
+    gen = torch.Generator().manual_seed(0)
+    b, s, t, hkv, g, d = 2, 5, 7, 2, 3, 8
+    q = torch.randn((b, s, hkv, g, d), generator=gen)
+    k, v = (torch.randn((b, t, hkv, d), generator=gen) for _ in range(2))
+    x, scale = torch.randn((6, 16), generator=gen), torch.randn((16,), generator=gen)
+    kh, vh = (y.permute(0, 2, 1, 3).reshape(b * hkv, t, d) for y in (k, v))
+    with smoke.plain_kernels(("flash_attention", "rmsnorm")):
+        for rows, causal in ((s, False), (s, True), (1, False)):
+            want = flash_ops.flash_attention(q[:, :rows], k, v, causal=causal)   # the CPU's
+            qh = q[:, :rows].permute(0, 2, 3, 1, 4).reshape(b * hkv * g, rows, d)
+            got = flash_ops.flash_attention_cuda(qh, kh, vh, group=g, causal=causal,
+                                                 window=None)
+            torch.testing.assert_close(got.reshape(b, hkv, g, rows, d).permute(0, 3, 1, 2, 4),
+                                       want, rtol=0, atol=0)
+        torch.testing.assert_close(rms_ops.rmsnorm_cuda(x, scale, 1e-5),
+                                   rms_ops.rmsnorm(x, scale, 1e-5), rtol=0, atol=0)
+    assert (flash_ops.flash_attention_cuda, rms_ops.rmsnorm_cuda) == own
 
 
 @pytest.mark.parametrize("moved,explained", [("cpu", True), ("card", False)])
