@@ -200,7 +200,10 @@ def quant_step(flat_rows: torch.Tensor, bits) -> torch.Tensor:
     a [G] vector against rows [G, C, P]."""
     b = torch.as_tensor(bits, dtype=flat_rows.dtype, device=flat_rows.device)
     levels = torch.clamp_min(torch.exp2(b) - 1.0, 1.0)
-    amax = torch.amax(torch.abs(flat_rows), dim=-1)
+    # max |x| as max(max x, -min x) from one pass and no |x| copy of the
+    # rows (a zoo model's [N, P] payloads); + 0 makes a -0 max +0, as |x|
+    lo, hi = torch.aminmax(flat_rows, dim=-1)
+    amax = torch.maximum(hi, -lo) + 0.0
     return 2.0 * amax / per_cell(levels, amax)
 
 
@@ -305,7 +308,10 @@ def sparse_thresholds(v_rows: torch.Tensor, k_coords: int) -> torch.Tensor:
     prefix that counts exactly k. The reference stops its loop once every
     row is frozen; here all 31 passes run, with no host sync, and give the
     same result because a frozen row never changes. Counts are exact
-    int32 sums (the reference's f32 dot is exact for P < 2²⁴).
+    integer sums (the reference's f32 dot is exact for P < 2²⁴): on the
+    CPU, rows of a zoo model's length (2²⁰ coordinates and more) count by
+    one ``count_nonzero`` a row, which runs faster there than the int32 sum
+    over the last axis that the card and short rows take.
     """
     mags = torch.abs(v_rows)
     if mags.element_size() > 4:
@@ -316,9 +322,15 @@ def sparse_thresholds(v_rows: torch.Tensor, k_coords: int) -> torch.Tensor:
     prefix = torch.zeros(shape, dtype=torch.int32, device=mags.device)
     cnt = torch.full(shape, mags.shape[-1], dtype=torch.int32,
                      device=mags.device)
+    rows = bits.reshape(-1, bits.shape[-1])
+    long_host_rows = bits.device.type == "cpu" and bits.shape[-1] >= 1 << 20
     for i in range(31):
         cand = prefix | (1 << (30 - i))
-        cnt_cand = (bits >= cand[..., None]).sum(dim=-1, dtype=torch.int32)
+        if long_host_rows:
+            cnt_cand = torch.stack([torch.count_nonzero(row >= c) for row, c in
+                                    zip(rows, cand.reshape(-1))]).reshape(shape).to(torch.int32)
+        else:
+            cnt_cand = (bits >= cand[..., None]).sum(dim=-1, dtype=torch.int32)
         take = (cnt != k_coords) & (cnt_cand >= k_coords)
         prefix = torch.where(take, cand, prefix)
         cnt = torch.where(take, cnt_cand, cnt)
@@ -356,6 +368,25 @@ def sparse_aggregate_flat_rows(base_flat, delta_rows, resid_rows, weights,
     new_resid = torch.where(sent, (v - _kept(v, thr)).to(resid_rows.dtype),
                             resid_rows)
     return base_flat + agg, new_resid
+
+
+def sparse_aggregate_rows_in_place(base_flat, v_rows, resid_rows, weights,
+                                   noise_std, k_coords: int, k, z=None):
+    """:func:`sparse_aggregate_flat_rows` over the payload rows v = Δ + r
+    [C, P] made by the caller, frugal with memory where the rows are a
+    zoo model's: the thresholds and the residual are made a row at a time,
+    and r' is written into ``v_rows``'s own storage, which is returned as
+    the new residual (``resid_rows``, read where a row sent nothing, is
+    not written). Bit-equal to :func:`sparse_aggregate_flat_rows`: every
+    step is elementwise or within a row."""
+    thr = torch.stack([sparse_thresholds(row, k_coords) for row in v_rows])
+    agg = fused_pass("sparse_aircomp", v_rows, weights, thr, z=z,
+                     noise_std=noise_std, k=k)
+    sent = weights > 0
+    for c, row in enumerate(v_rows):
+        row.copy_(torch.where(sent[c], (row - _kept(row, thr[c])).to(resid_rows.dtype),
+                              resid_rows[c]))
+    return base_flat + agg, v_rows
 
 
 def sparse_aggregate_stack_tree(w_base: dict, trees: dict, weights, z,

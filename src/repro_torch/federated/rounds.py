@@ -20,9 +20,9 @@ dense and ssm (xLSTM) families, whose parameters are flat dicts run
 through the family's module (``models.api.Model``; their kernels carry
 backward kernels). The reference jits each round and scans over
 microbatches and over the probe's clients; here a round is eager PyTorch,
-microbatches are a Python loop and the probe is one ``torch.func.vmap``
-over the N client blocks (which the zoo's kernels have no ``vmap`` rule
-for: the server refuses the probe paths on zoo models).
+microbatches are a Python loop and the probe is a ``torch.func.vmap`` over
+the client blocks, a chunk of them at a time (through the zoo's kernels
+by their autograd.Functions' ``vmap`` rules).
 
 Randomness is an input, as everywhere in the port: a round takes the
 receiver noise z as a flat [P] vector in sorted-leaf order (the round's
@@ -53,7 +53,7 @@ from torch.func import grad_and_value, vmap
 from repro_torch.federated.client import client_weights
 from repro_torch.models.dense import per_token_nll
 from repro_torch.optim import apply_updates
-from repro_torch.utils.tree import (leaf_names, ravel, ravel_stack, tree_l2_norm,
+from repro_torch.utils.tree import (leaf_names, ravel, tree_l2_norm,
                                     unravel)
 
 
@@ -235,7 +235,14 @@ def _make_gather_round(model, optimizer, num_clients: int, noise_std, ctx,
             per_ex = _per_example_nll(model, p, sub, ctx)
             return torch.sum(per_ex * w) / bsz
 
-        grads, loss = grad_and_value(loss_fn)(params)
+        if idx.numel():
+            grads, loss = grad_and_value(loss_fn)(params)
+        else:
+            # a rank whose chunk holds no selected block joins the psum with
+            # exact zeros, the gradient and loss of an empty sum, and runs
+            # no forward (the kernels take no 0-row launch)
+            grads = {name: torch.zeros_like(params[name]) for name in leaf_names(params)}
+            loss = torch.zeros((), dtype=torch.float32, device=idx.device)
         if axis is not None:
             grads, loss = _psum_grads(grads, loss, axis)
         if noise_std:
@@ -305,27 +312,48 @@ def per_client_losses(model, params, batch, num_clients: int, ctx=None,
     return _segment_mean(per_ex, cids, num_clients, axis)
 
 
+# the most bytes of per-client gradients one chunk of the probe holds at
+# once (f32 rows of P): 10 GiB makes chunks of 4 clients at qwen2-0.5b's
+# P = 630,396,800 and at xlstm-1.3b's 8-layer cut (543,334,456), and of 1
+# at its full 2,221,906,256; beside the quantized and sparse transports'
+# two [8, P] buffers (40.3 GB at qwen2-0.5b) a chunk of 6 would not fit
+# an 80 GB card with its transients
+PROBE_CHUNK_BYTES = 10 * 2 ** 30
+
+
+def probe_chunk(num_params: int, blocks: int) -> int:
+    """The client blocks one vmapped chunk of the probe takes: as many as
+    keep their f32 gradients within ``PROBE_CHUNK_BYTES``, at least one,
+    at most ``blocks``."""
+    return max(1, min(blocks, PROBE_CHUNK_BYTES // (4 * num_params)))
+
+
 def make_grad_norm_probe(model, num_clients: int, ctx=None,
                          with_grads: bool = False, axis=None):
     """GCA's control-channel probe: [N] per-client gradient norms at w^t.
 
     GCA needs ‖∇f_i(w^t)‖ before the round's mask exists, so each client's
-    mean-loss gradient is taken on its own block: one ``torch.func.vmap``
-    of ``grad_and_value`` over the [N, B/N, ...] blocks (one batched
-    forward and backward; the reference scans the clients one at a time).
-    The batch must hold each client's examples contiguous and equally
-    sized (B % N == 0).
+    mean-loss gradient is taken on its own block: a ``torch.func.vmap`` of
+    ``grad_and_value`` over the [N, B/N, ...] blocks, run over
+    ``probe_chunk`` blocks at a time (the reference scans the clients one
+    at a time, and N clients' gradients at once would not fit beside a
+    model of the zoo), each chunk's results written straight into the
+    outputs. The batch must hold each client's examples contiguous and
+    equally sized (B % N == 0). A norm is the square root of the sum over
+    the leaves (sorted) of each leaf's f32 sum of squares, with or without
+    the rows.
 
     ``with_grads=True`` returns ``(norms [N], losses [N], grads [N, P])``,
     each client's mean gradient raveled to a flat f32 row (sorted-leaf
     order) and its mean loss at w^t: the server reuses them as the round's
-    update. Every output is scattered by each block's observed client id,
-    so permuted blocks still land on the right client.
+    update. Every output is written at each block's observed client id, so
+    permuted blocks still land on the right client; no result depends on
+    the chunk.
 
     On a mesh (``axis``) ``batch`` is this rank's chunk, N/D blocks: their
-    norms and losses are scattered into [N] by client id and summed over
-    the ranks (each entry is its owner's, exactly), and the gradients are
-    this rank's rows [N/D, P], in the chunk's block order.
+    norms and losses are placed into [N] by client id and summed over the
+    ranks (each entry is its owner's, exactly), and the gradients are this
+    rank's rows [N/D, P], in the chunk's block order.
     """
     blocks = num_clients if axis is None else num_clients // axis.size
 
@@ -340,25 +368,36 @@ def make_grad_norm_probe(model, num_clients: int, ctx=None,
             raise ValueError("the probe needs equal per-client batches")
         mb = {k: v.reshape((blocks, bsz // blocks) + v.shape[1:])
               for k, v in batch.items()}
-        grads, losses = per_client(params, mb)
         obs = mb["client_ids"][:, 0].long()
-
-        def scatter(*vs):
-            out = torch.zeros((len(vs), num_clients) + vs[0].shape[1:],
-                              dtype=vs[0].dtype, device=vs[0].device)
-            for row, v in zip(out, vs):
-                row.index_copy_(0, obs, v)
-            return out if axis is None else axis.psum(out)
-
+        names = leaf_names(params)
+        sizes = [params[name].numel() for name in names]
+        step = probe_chunk(sum(sizes), blocks)
+        f32 = dict(dtype=torch.float32, device=obs.device)
+        sums = torch.zeros((2, num_clients), **f32)   # squared norms, losses
+        rows = (torch.zeros((num_clients if axis is None else blocks, sum(sizes)), **f32)
+                if with_grads else None)
+        for lo in range(0, blocks, step):
+            hi = min(lo + step, blocks)
+            grads, losses = per_client(params, {k: v[lo:hi] for k, v in mb.items()})
+            at = obs[lo:hi]
+            sq = sum(torch.sum(torch.square(grads[name].to(torch.float32)).flatten(1),
+                               dim=-1) for name in names)
+            sums.index_copy_(1, at, torch.stack([sq, losses.to(torch.float32)]))
+            if with_grads:
+                off = 0
+                for name, size in zip(names, sizes):
+                    g = grads[name].reshape(hi - lo, size).to(torch.float32)
+                    if axis is None:
+                        rows[:, off:off + size].index_copy_(0, at, g)
+                    else:
+                        rows[lo:hi, off:off + size] = g
+                    off += size
+            del grads
+        if axis is not None:
+            sums = axis.psum(sums)
+        norms = torch.sqrt(sums[0])
         if not with_grads:
-            norms = torch.sqrt(sum(
-                torch.sum(torch.square(grads[name].to(torch.float32)).flatten(1),
-                          dim=-1)
-                for name in leaf_names(grads)))
-            return scatter(norms)[0]
-        flats = ravel_stack(grads, torch.float32, lead=1)
-        norms = torch.sqrt(torch.sum(torch.square(flats), dim=-1))
-        norms, losses = scatter(norms, losses.to(torch.float32))
-        return norms, losses, (scatter(flats)[0] if axis is None else flats)
+            return norms
+        return norms, sums[1], rows
 
     return probe

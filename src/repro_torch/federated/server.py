@@ -50,15 +50,18 @@ one-device result. The reference's mesh is placement only (it
 ``shard_batch``es the batch and leaves the round to XLA); a mesh of one
 is the plain server.
 
-Models: the logistic regression (``per_example_nll``) on every path, and
-the model zoo's dense and ssm (xLSTM) families (``models.api.Model``,
-parameters a flat dict made by ``init_state`` from a ``torch.Generator``
-on the device seeded with ``seed``; batches of ``tokens``, ``labels`` and
-``client_ids``) under the exact-K methods with the analog and digital
-transports. On a zoo model GCA, the quantized and sparse transports (whose
-per-client probe is a ``torch.func.vmap`` through the kernels'
-autograd.Functions, which have no ``vmap`` rule) and a client mesh raise
-``NotImplementedError`` (ROADMAP Queue 1 item 10(d)).
+Models: the logistic regression (``per_example_nll``) and the model zoo's
+dense and ssm (xLSTM) families (``models.api.Model``, parameters a flat
+dict made by ``init_state`` from a ``torch.Generator`` on the device
+seeded with ``seed``; batches of ``tokens``, ``labels`` and
+``client_ids``), on every path: the exact-K methods and GCA, the four
+transports, one device or a client mesh. On a zoo model the per-client
+probe is a ``torch.func.vmap`` through the kernels' autograd.Functions
+(their ``vmap`` rules), a chunk of clients at a time, and its [N, P] rows
+are the largest buffer of a step: the applies write the payloads and the
+sparse residual into them in place rather than copy them. The moe,
+hybrid, vlm and audio families raise at their first forward
+(``models/api.py``, ROADMAP Queue 1 item 10(e)).
 """
 from __future__ import annotations
 
@@ -112,24 +115,6 @@ class ServerState:
     dl_energy_joules: float = 0.0
 
 
-def _check_zoo(fl: FLConfig, axis) -> None:
-    """A zoo model runs the exact-K rounds under analog and digital on one
-    device; the rest raises (ROADMAP Queue 1 item 10(d))."""
-    why = None
-    if fl.method == "gca":
-        why = "GCA's per-client gradient probe"
-    elif fl.transport in ("quantized", "sparse"):
-        why = f"the {fl.transport} transport's per-client delta probe"
-    if why is not None:
-        raise NotImplementedError(
-            f"{why} is a torch.func.vmap through the zoo model's kernels, whose "
-            "autograd.Functions have no vmap rule yet (ROADMAP Queue 1 item 10(d))")
-    if axis is not None:
-        raise NotImplementedError(
-            "the parameter server on a client mesh runs the logistic regression; "
-            "zoo models on a mesh are not checked yet (ROADMAP Queue 1 item 10(d))")
-
-
 class ParameterServer:
     """CA-AFL parameter server for the production tier. ``device=None`` is
     the CUDA card, and raises when there is none. ``mesh``: a client axis
@@ -146,8 +131,6 @@ class ParameterServer:
         if self.axis is not None:
             check_divisible(fl.num_clients, self.axis.size)
         self._zoo = not hasattr(model, "per_example_nll")
-        if self._zoo:
-            _check_zoo(fl, self.axis)
         transport_mod.require_ported(fl.transport)
         if fl.method not in EXACT_K_METHODS + ("gca",):
             raise ValueError(f"unknown selection method {fl.method!r}")
@@ -254,13 +237,16 @@ class ParameterServer:
         its row of the round's uniforms or top-k compressed with its
         carried residual, and the fused masked aggregate of eq. (10) is
         added to the params directly: one simulator round at
-        local_steps = 1. The optimizer is bypassed. On a mesh ``gflat`` is
-        this rank's rows, clients ``lids``: their uniforms and residuals are
-        read by client id and the partial sums meet in a psum. Returns
-        ``(params, loss, gnorm, resid)``."""
+        local_steps = 1. The optimizer is bypassed. On one device the
+        payloads are made in ``gflat``'s own storage (it is consumed), and
+        under the sparse transport the new residual is written there too,
+        a row at a time, so no further [N, P] buffer is made. On a mesh
+        ``gflat`` is this rank's rows, clients ``lids``: their uniforms and
+        residuals are read by client id and the partial sums meet in a
+        psum. Returns ``(params, loss, gnorm, resid)``."""
         k_sched = torch.clamp_min(torch.sum(mask), 1.0)
         flat = ravel(params, torch.float32)
-        deltas = (-eta) * gflat
+        deltas = gflat.mul_(-eta) if self.axis is None else (-eta) * gflat
         noise_std = self._round_noise
         z = d.noise if noise_std else None
         axis = self.axis
@@ -280,9 +266,9 @@ class ParameterServer:
             k_coords = transport_mod.sparse_k_coords(self.fl.sparse_density,
                                                      flat.shape[0])
             if axis is None:
-                new_flat, resid = transport_mod.sparse_aggregate_flat_rows(
-                    flat, deltas, resid, mask, noise_std, k_coords, k_sched,
-                    z=z)
+                new_flat, resid = transport_mod.sparse_aggregate_rows_in_place(
+                    flat, deltas.add_(resid), resid, mask, noise_std, k_coords,
+                    k_sched, z=z)
             else:
                 agg, rows = transport_mod.sparse_psum_rows(
                     deltas, resid[lids], mask[lids], z, noise_std, k_coords,

@@ -15,7 +15,17 @@ the kernel's training build, which also writes each row's log-sum-exp
 ``kernel.flash_attention_bwd_cuda`` (``ref.attention_bwd_ref`` on the
 CPU), run as the forward of a second Function so that it sees plain
 tensors under ``torch.func`` (see ``kernels.rmsnorm.ops``). No double
-backward and no ``vmap`` rule.
+backward.
+
+Under ``torch.func.vmap`` both Functions have a hand-written ``vmap``
+rule: the vmapped axis is folded into the flattened heads, [N, BHq, Sq, d]
+into [N·BHq, Sq, d] and k, v likewise, so q head n·BHq + j still reads kv
+head n·BHkv + j // G = (n·BHq + j) // G, and one launch serves every slice;
+the log-sum-exp and output the training build saves fold the same way. An
+operand that arrives unbatched is expanded first. The backward's split of
+a kv head's q heads (``kernel.bwd_splits``) depends on the total head
+count, so a folded call may add a slice's dK/dV partials in another order
+than a call of that slice alone.
 """
 from __future__ import annotations
 
@@ -34,6 +44,21 @@ def _grouped(qh, kh, group):
     """[BHq, Sq, d], [BHkv, T, d] as the plain versions' [BHkv, G, Sq, d],
     [BHkv, 1, T, d]."""
     return (qh.reshape(kh.shape[0], group, *qh.shape[1:]), kh[:, None])
+
+
+def _folded(info, in_dims, *xs):
+    """The vmapped operands, each with its vmapped axis folded into the
+    leading (head) axis: moved first, or expanded where unbatched."""
+    n = info.batch_size
+    out = []
+    for x, dim in zip(xs, in_dims):
+        x = x.expand(n, *x.shape) if dim is None else x.movedim(dim, 0)
+        out.append(x.reshape(n * x.shape[1], *x.shape[2:]))
+    return out
+
+
+def _unfolded(n, *xs):
+    return tuple(x.reshape(n, x.shape[0] // n, *x.shape[1:]) for x in xs)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -60,6 +85,12 @@ class _FlashAttention(torch.autograd.Function):
         return (*_FlashAttentionBackward.apply(*ctx.saved_tensors, do, *ctx.opts),
                 None, None, None)
 
+    @staticmethod
+    def vmap(info, in_dims, qh, kh, vh, group, causal, window):
+        folded = _folded(info, in_dims[:3], qh, kh, vh)
+        o, lse = _FlashAttention.forward(*folded, group, causal, window)
+        return _unfolded(info.batch_size, o, lse), (0, 0)
+
 
 class _FlashAttentionBackward(torch.autograd.Function):
     @staticmethod
@@ -73,6 +104,12 @@ class _FlashAttentionBackward(torch.autograd.Function):
         return flash_attention_bwd_cuda(
             *(x.contiguous() for x in (qh, kh, vh, o, lse, do)), group=group,
             causal=causal, window=window)
+
+    @staticmethod
+    def vmap(info, in_dims, qh, kh, vh, o, lse, do, group, causal, window):
+        folded = _folded(info, in_dims[:6], qh, kh, vh, o, lse, do)
+        grads = _FlashAttentionBackward.forward(*folded, group, causal, window)
+        return _unfolded(info.batch_size, *grads), (0, 0, 0)
 
     @staticmethod
     def setup_context(ctx, inputs, output):

@@ -103,3 +103,56 @@ def near_tie(log: CompareLog, r: int, cell=None) -> bool:
     print(f"round {r}: closest compare {name} at {where}: {lhs!r} vs {rhs!r}, "
           f"{margin:.2f} ulps of the larger side")
     return margin <= ULPS
+
+
+# a stochastic rounding this close to a grid point, or a magnitude this
+# close (relatively) to the top-k threshold, is a tie between two runs a
+# few ulps apart (``chip_smoke.py``'s bounds for the card against the CPU)
+QUANT_TIE = 2.0 ** -12
+SPARSE_TIE = 1e-5
+
+
+def decisions_apart(fl, x_a, x_b, u=None, resid=None, agree=0.0, near=False):
+    """The payload decisions two sides take apart on delta rows ``x_a`` and
+    ``x_b`` [C, P] of the same clients (f32 tensors; their rounding
+    uniforms ``u`` or carried residuals ``resid`` [C, P]): ``x_a``'s side's
+    floor(x/d + u) or kept sets against ``x_b``'s. Returns (per row and
+    coordinate the most each decision can move the aggregate before the
+    1/k, the count of decisions that differ, the farthest of them from a
+    tie, in units of its row's bound); raises unless every one lies within
+    its row's tie bound of a grid point / the threshold.
+
+    The bound is ``QUANT_TIE`` grid steps / ``SPARSE_TIE`` of the
+    threshold, or, for two sides whose rows agree only to ``agree`` of
+    each row's largest entry (the port's gradients against the JAX
+    package's), as far as that agreement reaches: ``agree``·max|x|/d grid
+    steps, ``agree``·max|v|/thr of the threshold. ``near``: every decision
+    within ``QUANT_TIE`` / ``SPARSE_TIE`` of a tie on ``x_a``'s side counts
+    as taken apart too (two implementations may round such a one apart
+    even on the same rows: an FMA, a reciprocal)."""
+    from repro_torch.core.transport import (quant_step, sparse_k_coords,
+                                            sparse_thresholds)
+
+    if fl.transport == "quantized":
+        step_a, step_b = quant_step(x_a, fl.quant_bits), quant_step(x_b, fl.quant_bits)
+        v_a = x_a / step_a[:, None] + u
+        n_a, n_b = torch.floor(v_a), torch.floor(x_b / step_b[:, None] + u)
+        dist = (v_a - torch.round(v_a)).abs()
+        differ = (n_a != n_b) | (near & (dist <= QUANT_TIE))
+        moved = torch.clamp_min((n_a - n_b).abs(), 1.0) * step_a[:, None]
+        tie = torch.clamp_min(agree * x_a.abs().amax(dim=1) / step_a, QUANT_TIE)
+    else:
+        v_a, v_b = x_a + resid, x_b + resid
+        k = sparse_k_coords(fl.sparse_density, v_a.shape[1])
+        thr_a, thr_b = sparse_thresholds(v_a, k), sparse_thresholds(v_b, k)
+        dist = torch.minimum((v_a.abs() - thr_a[:, None]).abs() / thr_a[:, None],
+                             (v_b.abs() - thr_b[:, None]).abs() / thr_b[:, None])
+        differ = (((v_a.abs() >= thr_a[:, None]) != (v_b.abs() >= thr_b[:, None]))
+                  | (near & (dist <= SPARSE_TIE)))
+        moved = torch.maximum(v_a.abs(), v_b.abs())
+        tie = torch.clamp_min(agree * v_a.abs().amax(dim=1) / thr_a, SPARSE_TIE)
+    share = dist / tie[:, None]
+    far = float(share[differ].max()) if bool(differ.any()) else 0.0
+    assert far <= 1, (f"{fl.transport}: a payload decision differs {far} of its "
+                      "row's tie bound from a tie")
+    return moved * differ, int(differ.sum()), far

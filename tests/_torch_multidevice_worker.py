@@ -37,7 +37,11 @@ runs; then every rank runs every case, in the same order:
     ranks bit-equal to each other. ``srv_reference`` runs the mesh server
     on the reference server's draws (OUT/pop_draws.npz) and writes its
     history to OUT/rank<RANK>_srv.npz for the test to hold against
-    ``repro.federated.server.ParameterServer(mesh=...)``;
+    ``repro.federated.server.ParameterServer(mesh=...)``. ``srv_zoo_*``
+    runs the reduced qwen2-0.5b on the two-rank axes (ca_afl analog, GCA
+    analog with probe reuse; the launcher's batches) against the one-device
+    server the same way, counting the steps in which a rank's chunk holds
+    no selected client (its gather round joins the psum with zeros);
   - ``mesh_cache_after_reinit``: after ``destroy_process_group`` and a new
     group, ``cells_clients_axes`` makes new axes, whose collectives run.
 
@@ -163,6 +167,11 @@ SERVER_CASES = (
 SERVER_NAMES = [f"{name}_d{d}" for name, _, _, ds in SERVER_CASES for d in ds]
 # the case held against the reference's mesh server
 SRV_REF_FL = srv_fl()
+# the zoo on a mesh: the reduced qwen2-0.5b, N = 4 (two blocks a rank on
+# two ranks), K = 2, two 16-token rows a client; (name, method)
+ZOO_N, ZOO_K, ZOO_ROWS, ZOO_SEQ = 4, 2, 2, 16
+ZOO_CASES = (("srv_zoo_ca_afl_analog", "ca_afl"), ("srv_zoo_gca_analog", "gca"))
+ZOO_NAMES = [f"{name}_d2" for name, _ in ZOO_CASES]
 
 
 def data():
@@ -485,6 +494,80 @@ def server_cases(rank, axes, ds, npz, out_dir, verdicts):
         verdicts["srv_reference"] = {"ok": False, "error": traceback.format_exc()}
 
 
+def zoo_conditioned(params: dict) -> dict:
+    """The seeded weights with every stacked layer leaf [L, fan-in, ...] at
+    the std its input width gives: the reference's init reads the stack
+    axis L as the fan-in (``src/repro/models/layers.py:66-70``), and at
+    that init the gradients carry ~1e5 of cancellation, so two summation
+    orders of one step lie ~4e-5 apart, past the mesh bound; this mesh
+    case checks the psums, not that init's conditioning."""
+    return {name: (v * (v.shape[0] / v.shape[1]) ** 0.5
+                   if name.startswith("layers.") and v.dim() >= 3 else v)
+            for name, v in params.items()}
+
+
+def zoo_cases(axes, verdicts):
+    """The reduced qwen2-0.5b's server on the two-rank axes against the
+    one-device server, SRV_STEPS steps on the same batches and draws; each
+    step's selected clients are recorded (wrapping the server's
+    ``select_clients_sparse``), so the verdict counts the steps that left
+    a rank's chunk with none."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.synthetic import make_lm_tokens
+    from repro_torch.federated import server as server_mod
+    from repro_torch.launch.train import lm_batches
+    from repro_torch.models import api
+
+    cfg = get_reduced("qwen2-0.5b").with_(dtype="float32", remat=False)
+    model = api.build_model(cfg)
+    corpus = make_lm_tokens(ZOO_N, 256, cfg.vocab_size, seed=0)
+    it = lm_batches(corpus, ZOO_ROWS, ZOO_SEQ, cfg, 0)
+    batches = [next(it) for _ in range(SRV_STEPS)]
+    selected = []
+    inner = server_mod.select_clients_sparse
+
+    def record(*args, **kw):
+        mask, idx = inner(*args, **kw)
+        selected.append(sorted(idx.tolist()))
+        return mask, idx
+
+    for name, method in ZOO_CASES:
+        case = f"{name}_d2"
+        try:
+            fl = FLConfig(num_clients=ZOO_N, clients_per_round=ZOO_K, rounds=SRV_STEPS,
+                          method=method, energy_C=8.0, noise_std=1e-3)
+            p = sum(v.numel() for v in model.init_params(torch.Generator().manual_seed(0))
+                    .values())
+            gen, quant_gen, temporal_gen = seed_generators(5, "cpu")
+            draws = [draw_round(gen, quant_gen, fl, p, 1, temporal_gen=temporal_gen)
+                     for _ in range(SRV_STEPS)]
+
+            def run(axis):
+                ps = ParameterServer(model, sgd(0.05), fl, seed=0, mesh=axis, device="cpu")
+                st = ps.init_state()
+                st.params = zoo_conditioned(st.params)
+                for b, d in zip(batches, draws):
+                    st = ps.step(st, b, d)
+                return st
+
+            one = run(None)
+            selected.clear()
+            server_mod.select_clients_sparse = record
+            try:
+                got = run(axes[2])
+            finally:
+                server_mod.select_clients_sparse = inner
+            half = ZOO_N // 2
+            empty = sum(1 for sel in selected
+                        if all(c < half for c in sel) or all(c >= half for c in sel))
+            verdicts[case] = verdict(
+                srv_deviation(got, one), digest=srv_digest(got),
+                num_scheduled=[h["num_scheduled"] for h in got.history],
+                steps_with_an_empty_rank=empty)
+        except Exception:   # noqa: BLE001
+            verdicts[case] = {"ok": False, "error": traceback.format_exc()}
+
+
 def reinit_case(rank, world, store_path, verdicts) -> None:
     """Destroy the process group, start a new one, and run a psum on each
     axis of ``cells_clients_axes(4, 2)`` made in the new group."""
@@ -525,6 +608,7 @@ def main(rank: int, world: int, store_path: str, out_dir: str) -> None:
         npz = np.load(wait_for(Path(out_dir, "pop_draws.npz")))
         pop_cases(rank, axes, model, ds, npz, out_dir, verdicts)
         server_cases(rank, axes, ds, npz, out_dir, verdicts)
+        zoo_cases(axes, verdicts)
         reinit_case(rank, world, store_path, verdicts)
         Path(out_dir, f"rank{rank}.json").write_text(json.dumps(verdicts))
     finally:

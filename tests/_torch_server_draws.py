@@ -11,6 +11,8 @@ apply) splits the noise key once per leaf and draws a leaf with
 quantized and sparse applies) draws each leaf at once, the simulator's
 discipline.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -23,19 +25,26 @@ CLS, DIM = 10, 16
 LEAF_SHAPES = ((CLS,), (DIM, CLS))   # the test logreg's, sorted-key order: b, w
 
 
-def row_awgn(k_noise, leaf_shapes=LEAF_SHAPES) -> np.ndarray:
-    """The [P] standard normals that ``rounds.add_awgn`` adds under
-    ``k_noise`` (before its σ), in sorted-leaf order."""
+@functools.partial(jax.jit, static_argnums=1)
+def _row_awgn(k_noise, leaf_shapes):
     keys = jax.random.split(k_noise, len(leaf_shapes))
     parts = []
     for k, shape in zip(keys, leaf_shapes):
         if len(shape) >= 2 and shape[0] > 4:
-            z = jnp.stack([jax.random.normal(jax.random.fold_in(k, i), shape[1:])
-                           for i in range(shape[0])])
+            # row i from fold_in(k, i), all rows at once
+            z = jax.vmap(lambda i, k=k, shape=shape: jax.random.normal(
+                jax.random.fold_in(k, i), shape[1:]))(jnp.arange(shape[0]))
         else:
             z = jax.random.normal(k, shape)
-        parts.append(np.asarray(z).reshape(-1))
-    return np.concatenate(parts)
+        parts.append(z.reshape(-1))
+    return jnp.concatenate(parts)
+
+
+def row_awgn(k_noise, leaf_shapes=LEAF_SHAPES) -> np.ndarray:
+    """The [P] standard normals that ``rounds.add_awgn`` adds under
+    ``k_noise`` (before its σ), in sorted-leaf order (one compiled call a
+    set of leaf shapes)."""
+    return np.asarray(_row_awgn(k_noise, tuple(tuple(s) for s in leaf_shapes)))
 
 
 def server_draws(fl, seed, steps, row_noise, leaf_shapes=LEAF_SHAPES):

@@ -10,6 +10,9 @@ the port's ``RoundDraws`` are filled from the reference server's key chain
 ``rounds.add_awgn``'s per-leaf discipline (``row_awgn``) over the zoo
 model's leaves in sorted order.
 """
+import dataclasses
+import warnings
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,38 +40,84 @@ def configs(arch, **kw):
     return jax_get_reduced(arch).with_(**kw), get_reduced(arch).with_(**kw)
 
 
-def both_servers(arch, fl_kw, steps, seed=0, seq=16, per_client=2, **cfg_kw):
-    """``steps`` steps of both servers on ``arch``'s reduced config, the
-    port's each from the reference's state before it (params, λ and the
-    energy ledger carried across: the reference's init grows the residual
-    stream to ~5e3, so SGD at lr 0.05 amplifies the two frameworks'
-    rounding from step to step, and a step is checked on its own); yields
-    (port state, reference state, the params before the step as numpy)
-    after each."""
+def reference_run(arch, fl_kw, steps, seed=0, seq=16, per_client=2, reuse_probe_grads=True,
+                  share=None, **cfg_kw):
+    """``steps`` steps of the reference's server on ``arch``'s reduced
+    config and the launcher's batches: (the server, [(state before, state
+    after, the batch, the port's ``RoundDraws`` of the step)]). The draws
+    follow each path's receiver-noise discipline: ``add_awgn``'s rows for
+    the rounds and the GCA apply, the per-leaf flat draw for the quantized
+    and sparse applies. ``share``: a reference server of the same config
+    whose jitted with-grads probe and loss probe this one takes over, so
+    that each is compiled once a config."""
     jcfg, tcfg = configs(arch, **cfg_kw)
     jfl, fl = JFLConfig(**fl_kw), FLConfig(**fl_kw)
-    ref = JServer(japi.build_model(jcfg), jsgd(LR), jfl, seed=seed)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # the quantized/sparse optimizer bypass
+        ref = JServer(japi.build_model(jcfg), jsgd(LR), jfl, seed=seed,
+                      reuse_probe_grads=reuse_probe_grads)
+    if share is not None:
+        probe = share._grad_probe or share._delta_probe
+        for attr in ("_grad_probe", "_delta_probe"):
+            if getattr(ref, attr) is not None:
+                setattr(ref, attr, probe)
+        ref._loss_probe = share._loss_probe
     rs = ref.init_state(jax.random.PRNGKey(seed))
-    family = dense if tcfg.family == "dense" else xlstm
-    opt = sgd(LR)
-    port = ParameterServer(api.build_model(tcfg), opt, fl, seed=seed, device="cpu")
-    ps = port.init_state()
-    shapes = [tuple(ps.params[name].shape) for name in sorted(ps.params)]
-    draws = server_draws(fl, seed, steps, row_noise=True, leaf_shapes=shapes)
+    shapes = [tuple(leaf.shape) for leaf in jax.tree_util.tree_leaves(rs.params)]
+    draws = server_draws(fl, seed, steps, leaf_shapes=shapes,
+                         row_noise=fl.transport not in ("quantized", "sparse"))
     corpus = make_lm_tokens(fl.num_clients, 256, tcfg.vocab_size, seed=seed)
     batches = lm_batches(corpus, per_client, seq, tcfg, seed)
+    run = []
     for d in draws:
-        np_params = jax.tree_util.tree_map(np.asarray, rs.params)
+        batch = next(batches)
+        new = ref.step(rs, {k: jnp.asarray(v) for k, v in batch.items()})
+        # the server appends to one history list: keep this step's rows
+        run.append((rs, dataclasses.replace(new, history=list(new.history)), batch, d))
+        rs = new
+    return ref, run
+
+
+def both_servers(arch, fl_kw, steps, seed=0, reuse_probe_grads=True, inputs=False,
+                 ref_run=None, **cfg_kw):
+    """``steps`` steps of both servers on ``arch``'s reduced config (the
+    reference's from :func:`reference_run`, or ``ref_run`` made by it), the
+    port's each from the reference's state before it (params, λ, the energy
+    ledger and the sparse residual carried across: the reference's init
+    grows the residual stream to ~5e3, so SGD at lr 0.05 amplifies the two
+    frameworks' rounding from step to step, and a step is checked on its
+    own); yields (port state, reference state, the params before the step
+    as numpy) after each, and with ``inputs`` a fourth item: (the port
+    server, the reference server, the two states before the step, the
+    batch, the port's draws)."""
+    ref, run = ref_run or reference_run(arch, fl_kw, steps, seed,
+                                        reuse_probe_grads=reuse_probe_grads, **cfg_kw)
+    _, tcfg = configs(arch, **cfg_kw)
+    fl = FLConfig(**fl_kw)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        port = ParameterServer(api.build_model(tcfg), sgd(LR), fl, seed=seed,
+                               reuse_probe_grads=reuse_probe_grads, device="cpu")
+    family = dense if tcfg.family == "dense" else xlstm
+    opt = sgd(LR)
+    history = []
+    for rs_before, rs, batch, d in run[:steps]:
+        np_params = jax.tree_util.tree_map(np.asarray, rs_before.params)
         params = api.Model.train_params(family.params_from_jax(tcfg, np_params, "cpu"))
         p0 = {name: v.numpy().copy() for name, v in params.items()}
-        ps = ServerState(params=params, opt_state=opt.init(params, "cpu"),
-                         lam=torch.from_numpy(np.array(rs.lam)), round=rs.round,
-                         energy_joules=rs.energy_joules, history=ps.history,
-                         dl_energy_joules=rs.dl_energy_joules)
-        batch = next(batches)
-        rs = ref.step(rs, {k: jnp.asarray(v) for k, v in batch.items()})
-        ps = port.step(ps, batch, d)
-        yield ps, rs, p0
+        resid = (torch.from_numpy(np.array(rs_before.ef_resid)) if fl.transport == "sparse"
+                 else ())
+        ps_before = ServerState(
+            params=params, opt_state=opt.init(params, "cpu"),
+            lam=torch.from_numpy(np.array(rs_before.lam)), round=rs_before.round,
+            energy_joules=rs_before.energy_joules, history=history,
+            dl_energy_joules=rs_before.dl_energy_joules, ef_resid=resid)
+        ps = port.step(ps_before, batch, d)
+        history = ps.history
+        if inputs:
+            yield ps, rs, p0, (port, ref, ps_before, rs_before, batch, d)
+        else:
+            yield ps, rs, p0
 
 
 def assert_states_close(ps, rs, p0, param_tol):

@@ -1364,3 +1364,166 @@ def test_reduced_train_step_on_the_card(card, arch):
     for name in gc:
         assert float(gg[name].abs().max()) > 0, name
         assert _max_rel(gg[name].cpu(), gc[name]) <= 3e-4, name
+
+
+# ---------------------------------------------------------------------------
+# The kernels' vmap rules (the server's per-client probe), at the probe's
+# shapes: a client's rows of qwen2-0.5b (2 × 128 tokens, d_model 896, 14
+# q heads over 2 kv heads of 64) and of xlstm-1.3b (d_model 2048, sLSTM 4
+# heads of 512), over 6 and 7 clients (the probe takes 4 a chunk; 7 × 2
+# sLSTM rows take two of its kernels' 8-row passes)
+# ---------------------------------------------------------------------------
+
+
+def _vmapped_and_loop(f, args, in_dims, argnums):
+    """vmap(grad_and_value(f)) through the rules, and the same per slice
+    through the unvmapped kernels, stacked: two lists of outputs."""
+    from torch.func import grad_and_value, vmap
+    g = grad_and_value(f, argnums=argnums)
+
+    def flat(out):
+        return [*out[0], out[1]]
+    got = flat(vmap(g, in_dims=in_dims)(*args))
+    n = next(a.shape[d] for a, d in zip(args, in_dims) if d is not None)
+    outs = [flat(g(*(a if d is None else a.select(d, i) for a, d in zip(args, in_dims))))
+            for i in range(n)]
+    return got, [torch.stack([o[j] for o in outs]) for j in range(len(got))]
+
+
+def _vmapped_plain(f, args, in_dims, argnums):
+    from torch.func import grad_and_value, vmap
+    out = vmap(grad_and_value(f, argnums=argnums), in_dims=in_dims)(*args)
+    return [*out[0], out[1]]
+
+
+def _rel(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(6, 896), (7, 2048), (7, 4096)])
+def test_rmsnorm_vmap_rule_on_the_card(card, n, d):
+    """The forward folded into one launch, the backward one launch a slice:
+    dx and dscale bit-equal to the unvmapped kernel slice by slice, and
+    within 1e-5 of the plain version under the same vmap."""
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_bwd_cuda, rmsnorm_cuda
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    gen = torch.Generator(device=card)
+    gen.manual_seed(n + d)
+    x = torch.randn((n, 2, 128, d), generator=gen, device=card)
+    scale = 1 + 0.1 * torch.randn((d,), generator=gen, device=card)
+    w = torch.randn((2, 128, d), generator=gen, device=card)
+    f = lambda s, x: torch.sum(rmsnorm(x, s) * w)   # noqa: E731
+    before = (rmsnorm_cuda.launches, rmsnorm_bwd_cuda.launches)
+    from torch.func import grad_and_value, vmap
+    vmap(grad_and_value(f, argnums=(0, 1)), in_dims=(None, 0))(scale, x)
+    torch.cuda.synchronize()
+    assert (rmsnorm_cuda.launches - before[0], rmsnorm_bwd_cuda.launches - before[1]) == (1, n)
+    got, loop = _vmapped_and_loop(f, (scale, x), (None, 0), (0, 1))
+    assert torch.equal(got[0], loop[0]) and torch.equal(got[1], loop[1])
+    plain = _vmapped_plain(lambda s, x: torch.sum(rmsnorm_ref(x.reshape(-1, d), s)
+                                                   .reshape(x.shape) * w),
+                           (scale, x), (None, 0), (0, 1))
+    for g, p in zip(got, plain):
+        assert _rel(g, p) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_batched", [True, False], ids=["kv_batched", "kv_unbatched"])
+def test_flash_attention_vmap_rule_on_the_card(card, kv_batched):
+    """The slices folded into the flattened heads, one launch of the
+    training build and one of the backward: within 1e-5 of the unvmapped
+    kernel slice by slice (the backward's split of a kv head's q heads
+    depends on the total head count) and of the plain version under vmap."""
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention_bwd_cuda,
+                                                            flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    n, b, s, hkv, g, hd = 6, 2, 128, 2, 7, 64
+    gen = torch.Generator(device=card)
+    gen.manual_seed(1)
+    q = torch.randn((n, b, s, hkv, g, hd), generator=gen, device=card)
+    kv = (n, b, s, hkv, hd) if kv_batched else (b, s, hkv, hd)
+    k = torch.randn(kv, generator=gen, device=card)
+    v = torch.randn(kv, generator=gen, device=card)
+    w = torch.randn((b, s, hkv, g, hd), generator=gen, device=card)
+    dims = (0, 0, 0) if kv_batched else (0, None, None)
+    f = lambda q, k, v: torch.sum(flash_attention(q, k, v, causal=True) * w)   # noqa: E731
+
+    def plain(q, k, v):
+        o = attention_ref(q.permute(0, 2, 3, 1, 4).reshape(b, hkv * g, s, hd),
+                          k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), causal=True)
+        return torch.sum(o.reshape(b, hkv, g, s, hd).permute(0, 3, 1, 2, 4) * w)
+    before = (flash_attention_cuda.launches, flash_attention_bwd_cuda.launches)
+    got, loop = _vmapped_and_loop(f, (q, k, v), dims, (0, 1, 2))
+    torch.cuda.synchronize()
+    # one vmapped call (1 + 1) and n unvmapped ones
+    assert (flash_attention_cuda.launches - before[0],
+            flash_attention_bwd_cuda.launches - before[1]) == (1 + n, 1 + n)
+    ref = _vmapped_plain(plain, (q, k, v), dims, (0, 1, 2))
+    for x, lp, p in zip(got, loop, ref):
+        assert _rel(x, lp) <= 1e-5 and _rel(x, p) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7])
+def test_slstm_vmap_rule_on_the_card(card, n):
+    """xlstm-1.3b's scan (H = 4, d = 512, 128 steps, 2 rows a client)
+    with the zero state made inside the vmapped function: the slices
+    folded into B (14 rows: two of the kernels' 8-row passes at n = 7),
+    one launch of the training build and one of the backward, dR and db a
+    slice; within 1e-5 of the unvmapped kernels slice by slice and of a
+    plain scan under vmap (the stabilizer held constant, as the BPTT)."""
+    from repro_torch.kernels.slstm.kernel import slstm_bwd_cuda, slstm_cuda
+    from repro_torch.kernels.slstm.ops import slstm_scan
+
+    heads, d, s, b = 4, 512, 128, 2
+    gen = torch.Generator(device=card)
+    gen.manual_seed(n)
+    gx = torch.randn((n, s, b, 4, heads, d), generator=gen, device=card)
+    r = torch.randn((heads, d, 4, d), generator=gen, device=card) * d ** -0.5
+    bias = 0.1 * torch.randn((4, heads, d), generator=gen, device=card)
+    wh = torch.randn((s, b, heads, d), generator=gen, device=card)
+
+    def plain_scan(gx, r, b_, h, c, nn, m):
+        hs = []
+        for t in range(gx.shape[0]):
+            pre = gx[t] + torch.einsum("bhd,hdge->bghe", h, r) + b_
+            it, ft, zt, ot = pre.unbind(1)
+            m_new = torch.maximum(ft + m, it).detach()
+            i, f = torch.exp(it - m_new), torch.exp(ft + m - m_new)
+            c, nn = f * c + i * torch.tanh(zt), f * nn + i
+            h = torch.sigmoid(ot) * c / torch.clamp_min(nn, 1e-6)
+            m = m_new
+            hs.append(h)
+        return torch.stack(hs), (h, c, nn, m)
+
+    def loss(scan):
+        def f(r, b_, gx):
+            z = torch.zeros((b, heads, d), device=card)
+            hs, (h, c, _, _) = scan(gx, r, b_, z, z, z, torch.full_like(z, -1e30))
+            return torch.sum(hs * wh) + torch.sum(h) + torch.sum(c)
+        return f
+    before = (slstm_cuda.launches, slstm_bwd_cuda.launches)
+    got, loop = _vmapped_and_loop(loss(slstm_scan), (r, bias, gx), (None, None, 0),
+                                  (0, 1, 2))
+    torch.cuda.synchronize()
+    assert (slstm_cuda.launches - before[0], slstm_bwd_cuda.launches - before[1]) == (1 + n,
+                                                                                        1 + n)
+    ref = _vmapped_plain(loss(plain_scan), (r, bias, gx), (None, None, 0), (0, 1, 2))
+    for x, lp, p in zip(got, loop, ref):
+        assert _rel(x, lp) <= 1e-5 and _rel(x, p) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_vmap_rules_raise_on_batched_weights(card):
+    from torch.func import grad_and_value, vmap
+
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    x = torch.randn((3, 4, 64), device=card)
+    with pytest.raises(NotImplementedError, match="one scale"):
+        vmap(grad_and_value(lambda s, x: torch.sum(rmsnorm(x, s)), argnums=(0, 1)))(
+            torch.ones((3, 64), device=card), x)

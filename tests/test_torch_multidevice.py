@@ -46,7 +46,7 @@ torch = pytest.importorskip("torch")
 
 from _torch_multidevice_worker import (CELL_CASES, DIM, FANIN_CASES,  # noqa: E402
                                        MESH2D_CASES, N, POP_CASES, SERVER_NAMES,
-                                       SRV_REF_FL, SRV_STEPS, WORLD,
+                                       SRV_REF_FL, SRV_STEPS, WORLD, ZOO_NAMES,
                                        data as worker_data, srv_batches)
 from _torch_reference import (ReferenceIdDraws, assert_history_close,  # noqa: E402
                               reference_draws, reference_init_draws)
@@ -250,8 +250,9 @@ POP_NAMES = [f"pop_d{d}_{name}" for name, _ in POP_CASES for d in (2, 4)]
 JOB_CASES = (POP_NAMES + ["pop_mesh_of_one", "pop_indivisible_raises"]
              + [c[0] for c in CELL_CASES] + ["cells2_checkpoint_resume"]
              + [c[0] for c in MESH2D_CASES] + [c[0] for c in FANIN_CASES]
-             + SERVER_NAMES + ["srv_mesh_of_one", "srv_indivisible_raises",
-                               "srv_batch_indivisible_raises", "srv_reference"]
+             + SERVER_NAMES + ZOO_NAMES
+             + ["srv_mesh_of_one", "srv_indivisible_raises",
+                "srv_batch_indivisible_raises", "srv_reference"]
              + ["mesh_cache_after_reinit"])
 
 
@@ -268,12 +269,13 @@ def test_mesh_case_on_every_rank(job, case):
     parameter server on 2 and 4 ranks: the replicated fields bit-equal to
     the one-device server, the rest within rtol 2e-5, atol 2e-6; a mesh of
     one bit-equal to the plain server; N % D ≠ 0 and an indivisible batch
-    raising. A new process group after ``destroy_process_group`` gets new
+    raising; the reduced qwen2-0.5b's server (ca_afl and GCA analog) on 2
+    ranks as the logistic regression's. A new process group after ``destroy_process_group`` gets new
     mesh axes."""
     _check(job[0], case)
 
 
-@pytest.mark.parametrize("case", SERVER_NAMES)
+@pytest.mark.parametrize("case", SERVER_NAMES + ZOO_NAMES)
 def test_server_mesh_ranks_are_replicas(job, case):
     """Every rank of a mesh server ends in the same state, bit for bit:
     params, λ, the residual and the history (their ``digest``)."""
@@ -316,6 +318,14 @@ def test_population_sharded_matches_reference(job, data, name):
             got = type(ref)(*(h[f"{case}/{f}"] if f"{case}/{f}" in h else ()
                               for f in ref._fields))
             assert_history_close(got, ref, data[3].shape[1], fl.battery_init)
+
+
+def test_zoo_mesh_leaves_a_rank_without_a_selected_client(job):
+    """The zoo's ca_afl mesh case takes at least one step in which one
+    rank's chunk holds no selected client: that rank's gather round joins
+    the psum with exact zeros and runs no forward."""
+    for rank, v in job[0].items():
+        assert v["srv_zoo_ca_afl_analog_d2"]["steps_with_an_empty_rank"] >= 1, rank
 
 
 def test_gated_cases_are_not_vacuous(job):

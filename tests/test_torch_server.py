@@ -299,22 +299,6 @@ def test_grad_norm_probe_matches_reference(batch, params, with_grads, permuted):
         _close(g.numpy(), w, atol=1e-7)
 
 
-def test_zoo_models_raise_naming_their_roadmap_item(batch):
-    """The zoo's probe paths (GCA, quantized, sparse: a vmap through the
-    kernels' autograd.Functions) raise naming their ROADMAP item; the
-    exact-K analog round takes a zoo model (tests/test_torch_train_server.py)."""
-    class ZooModel:   # the model zoo's interface: a cfg, no per_example_nll
-        cfg = object()
-
-        def loss_fn(self, params, batch, ctx=None):
-            raise AssertionError("not reached")
-
-    for fl in (_fl("gca"), _fl("ca_afl", transport="quantized"),
-               _fl("ca_afl", transport="sparse")):
-        with pytest.raises(NotImplementedError, match=r"10\(d\)"):
-            ParameterServer(ZooModel(), topt.sgd(0.1), fl, device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # the parameter server
 # ---------------------------------------------------------------------------

@@ -14,7 +14,7 @@ lr 0.05 moves a leaf by lr·g, and the gradients agree to ~1e-4 of their
 largest entries, ``test_torch_train_dense.py``); each step starts from the
 reference's state (``_torch_train_reference.both_servers`` says why).
 """
-from types import SimpleNamespace
+import warnings
 
 import numpy as np
 import pytest
@@ -181,22 +181,25 @@ def test_server_steps_match_reference():
     assert ps.round == 3
 
 
-@pytest.mark.parametrize("kw", [dict(method="gca"), dict(transport="quantized"),
-                                dict(transport="sparse")], ids=["gca", "quantized", "sparse"])
-def test_probe_paths_raise_on_zoo_models(small_model, kw):
-    _, model, _ = small_model
-    fl = FLConfig(**{**dict(num_clients=4, clients_per_round=2, rounds=1), **kw})
-    with pytest.raises(NotImplementedError, match=r"10\(d\)"):
-        ParameterServer(model, sgd(0.1), fl, device="cpu")
-
-
-def test_mesh_raises_on_zoo_models(small_model):
-    _, model, _ = small_model
-
-    two_ranks = SimpleNamespace(size=2, rank=0)   # the axis's size is all it reads first
-    fl = FLConfig(num_clients=4, clients_per_round=2, rounds=1)
-    with pytest.raises(NotImplementedError, match=r"10\(d\)"):
-        ParameterServer(model, sgd(0.1), fl, device="cpu", mesh=two_ranks)
+@pytest.mark.parametrize("path", [dict(method="gca"), dict(transport="quantized"),
+                                  dict(transport="sparse")], ids=["gca", "quantized", "sparse"])
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "zamba2-1.2b", "llama-3.2-vision-11b",
+                                  "seamless-m4t-medium"])
+def test_probe_paths_raise_item_10e_on_untrained_families(arch, path):
+    """GCA's probe and the quantized and sparse transports' delta probe
+    take the dense and ssm families (``test_torch_train_probe.py``); the
+    moe, hybrid, vlm and audio families, whose flat-dict form is not
+    ported, still raise at the probe's first forward, naming ROADMAP item
+    10(e)."""
+    cfg = get_reduced(arch).with_(dtype="float32", remat=False)
+    fl = FLConfig(num_clients=2, clients_per_round=1, rounds=1, **path)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # the quantized/sparse optimizer bypass
+        ps = ParameterServer(api.build_model(cfg), sgd(0.1), fl, device="cpu")
+    tokens = np.zeros((2, 8), np.int32)
+    batch = {"tokens": tokens, "labels": tokens, "client_ids": np.arange(2, dtype=np.int32)}
+    with pytest.raises(NotImplementedError, match=r"10\(e\)"):
+        ps.step(ps.init_state(), batch)
 
 
 def test_launcher_trains_on_the_cpu(capsys):
